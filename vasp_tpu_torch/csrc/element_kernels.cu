@@ -1,0 +1,188 @@
+// K1/K2 (element residual + scatter) and K3 (element Jacobians) on Hopper.
+//
+// Replaces vasp_tpu/fem/assembly.py: CellBlock.residual_local with
+// Assembler.residual (vmapped make_fluid_kernel / make_solid_kernel, then
+// a scatter-add into R), and CellBlock.jacobian_local (jax.jacfwd through
+// chunked_vmap). Plain torch twin: vasp_tpu_torch/kernels/element.py
+// residual_plain / jacobian_plain.
+//
+// What bounds them on an H100 and what the design does about it:
+// - Residual: a few hundred KFLOP of f64 per cell against a 64-entry
+//   gather and 64 scattered f64 atomics. One thread per cell keeps the
+//   whole quadrature loop in registers (spills to L1 accepted); the
+//   scatter is a native f64 atomicAdd straight into R, so no (K,64)
+//   intermediate goes through device memory. The atomics' order varies
+//   from run to run, which moves R by rounding only.
+// - Jacobian: f64 FLOPs. One block per cell, one thread per column j:
+//   the thread runs the residual on Dual numbers seeded with e_j and
+//   writes column j of A_e, so a warp's stores to one row are coalesced.
+//   The cell's local state is staged once in shared memory.
+#include <cstdint>
+
+#include "element_forms.cuh"
+
+namespace {
+
+template <class T>
+__device__ inline void eval_cell(const FluidParams& P, const T* u, const double* u0,
+                                 const double* Jinv, double detJ, double vol,
+                                 int nq, T* r) {
+  fluid_residual(u, u0, Jinv, detJ, vol, P, nq, r);
+}
+
+template <class T>
+__device__ inline void eval_cell(const SolidParams& P, const T* u, const double* u0,
+                                 const double* Jinv, double detJ, double vol,
+                                 int nq, T* r) {
+  solid_svk_residual(u, u0, Jinv, detJ, vol, P, nq, r);
+}
+
+constexpr int kResidualThreads = 64;
+
+template <class Params>
+__global__ void residual_kernel(const double* __restrict__ U,
+                                const double* __restrict__ U0,
+                                const int64_t* __restrict__ dofs,
+                                const double* __restrict__ Jinv,
+                                const double* __restrict__ detJ,
+                                const double* __restrict__ vol,
+                                const double* __restrict__ rowmask,
+                                double* __restrict__ R, int K, int nq, Params P) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const int64_t* dk = dofs + (int64_t)k * 64;
+  double u[64], u0[64], J[9], r[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int64_t g = dk[i];
+    u[i] = U[g];
+    u0[i] = U0[g];
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) J[i] = Jinv[(int64_t)k * 9 + i];
+  eval_cell(P, u, u0, J, detJ[k], vol[k], nq, r);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const double m = rowmask ? rowmask[(int64_t)k * 64 + i] : 1.0;
+    atomicAdd(R + dk[i], r[i] * m);
+  }
+}
+
+template <class Params>
+__global__ void __launch_bounds__(64)
+jacobian_kernel(const double* __restrict__ U, const double* __restrict__ U0,
+                const int64_t* __restrict__ dofs,
+                const double* __restrict__ Jinv,
+                const double* __restrict__ detJ,
+                const double* __restrict__ vol,
+                const double* __restrict__ rowmask,
+                double* __restrict__ A, int K, int nq, Params P) {
+  const int k = blockIdx.x;
+  const int j = threadIdx.x;  // the column this thread differentiates by
+  if (k >= K) return;
+  __shared__ double s_u[64], s_u0[64], s_J[9];
+  const int64_t g = dofs[(int64_t)k * 64 + j];
+  s_u[j] = U[g];
+  s_u0[j] = U0[g];
+  if (j < 9) s_J[j] = Jinv[(int64_t)k * 9 + j];
+  __syncthreads();
+
+  Dual u[64], r[64];
+  double u0[64], J[9];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    u[i] = Dual(s_u[i], i == j ? 1.0 : 0.0);
+    u0[i] = s_u0[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) J[i] = s_J[i];
+  eval_cell(P, u, u0, J, detJ[k], vol[k], nq, r);
+  double* Ak = A + (int64_t)k * 64 * 64;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const double m = rowmask ? rowmask[(int64_t)k * 64 + i] : 1.0;
+    Ak[i * 64 + j] = r[i].d * m;
+  }
+}
+
+template <class Params>
+int launch_residual(const double* U, const double* U0, const int64_t* dofs,
+                    const double* Jinv, const double* detJ, const double* vol,
+                    const double* rowmask, double* R, int K, int nq, Params P,
+                    void* stream) {
+  if (K > 0) {
+    const int blocks = (K + kResidualThreads - 1) / kResidualThreads;
+    residual_kernel<Params><<<blocks, kResidualThreads, 0, (cudaStream_t)stream>>>(
+        U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class Params>
+int launch_jacobian(const double* U, const double* U0, const int64_t* dofs,
+                    const double* Jinv, const double* detJ, const double* vol,
+                    const double* rowmask, double* A, int K, int nq, Params P,
+                    void* stream) {
+  if (K > 0) {
+    jacobian_kernel<Params><<<K, 64, 0, (cudaStream_t)stream>>>(
+        U, U0, dofs, Jinv, detJ, vol, rowmask, A, K, nq, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int vt_element_nq_max() { return VT_NQ_MAX; }
+
+// Upload the quadrature tables (host pointers): wq (nq,), N1 (nq,4),
+// N2 (nq,10), dN2 (nq,10,3), all float64 and C-contiguous.
+int vt_set_element_tables(const double* wq, const double* N1, const double* N2,
+                          const double* dN2, int nq) {
+  if (nq < 1 || nq > VT_NQ_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaMemcpyToSymbol(c_wq, wq, sizeof(double) * nq)) != cudaSuccess) return (int)e;
+  if ((e = cudaMemcpyToSymbol(c_N1, N1, sizeof(double) * nq * 4)) != cudaSuccess) return (int)e;
+  if ((e = cudaMemcpyToSymbol(c_N2, N2, sizeof(double) * nq * 10)) != cudaSuccess) return (int)e;
+  if ((e = cudaMemcpyToSymbol(c_dN2, dN2, sizeof(double) * nq * 30)) != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+int vt_fluid_residual(const double* U, const double* U0, const int64_t* dofs,
+                      const double* Jinv, const double* detJ, const double* vol,
+                      const double* rowmask, double* R, int K, int nq,
+                      double rho, double mu, double dt, double theta,
+                      double lift_coeff, int lift_sub, void* stream) {
+  FluidParams P{rho, mu, dt, theta, lift_coeff, lift_sub};
+  return launch_residual(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P, stream);
+}
+
+int vt_solid_residual(const double* U, const double* U0, const int64_t* dofs,
+                      const double* Jinv, const double* detJ, const double* vol,
+                      const double* rowmask, double* R, int K, int nq,
+                      double rho, double mu, double lam, double dt, double theta,
+                      void* stream) {
+  SolidParams P{rho, mu, lam, dt, theta};
+  return launch_residual(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P, stream);
+}
+
+int vt_fluid_jacobian(const double* U, const double* U0, const int64_t* dofs,
+                      const double* Jinv, const double* detJ, const double* vol,
+                      const double* rowmask, double* A, int K, int nq,
+                      double rho, double mu, double dt, double theta,
+                      double lift_coeff, int lift_sub, void* stream) {
+  FluidParams P{rho, mu, dt, theta, lift_coeff, lift_sub};
+  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, K, nq, P, stream);
+}
+
+int vt_solid_jacobian(const double* U, const double* U0, const int64_t* dofs,
+                      const double* Jinv, const double* detJ, const double* vol,
+                      const double* rowmask, double* A, int K, int nq,
+                      double rho, double mu, double lam, double dt, double theta,
+                      void* stream) {
+  SolidParams P{rho, mu, lam, dt, theta};
+  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, K, nq, P, stream);
+}
+
+}  // extern "C"

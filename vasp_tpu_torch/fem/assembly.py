@@ -1,0 +1,99 @@
+"""Block-based residual / element-Jacobian assembly on torch tensors.
+
+Counterpart of vasp_tpu.fem.assembly (the plain scatter-add path): gather
+-> element kernel -> masked scatter-add, with the element Jacobians kept
+as a batched (K, 64, 64) float64 tensor per block. On CUDA tensors the
+residual and Jacobians are the hand-written kernels of
+kernels/element.py; on CPU tensors their plain torch versions.
+"""
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vasp_tpu_torch.kernels import element
+
+
+def cell_geometry(coords, cells):
+    """Affine map data per cell: (Jinv (Nc,3,3), detJ (Nc,), vol (Nc,)),
+    host numpy float64.
+
+    x(xi) = x0 + A xi with A[:,j] = x_{j+1} - x_0; physical gradients are
+    dN_ref @ Jinv with Jinv = A^{-1}."""
+    xe = coords[cells]  # (Nc,4,3)
+    A = np.stack([xe[:, 1] - xe[:, 0], xe[:, 2] - xe[:, 0], xe[:, 3] - xe[:, 0]],
+                 axis=2)  # (Nc,3,3), columns are edge vectors
+    detA = np.linalg.det(A)
+    Jinv = np.linalg.inv(A)
+    detJ = np.abs(detA)
+    return Jinv, detJ, detJ / 6.0
+
+
+@dataclass
+class CellBlock:
+    """A group of cells sharing one element kernel (one subdomain/material).
+
+    All tensors live on the run's device: dofs int64, the rest float64.
+
+    rowmask (optional, (K, 64) in {0,1}): zeroes selected LOCAL RESIDUAL
+    ROWS of this block before the scatter, in the residual and in the
+    Jacobian alike. FSISystem uses it to take the fluid mesh-lifting
+    equation off the d-rows that carry the solid kinematic equation (see
+    vasp_tpu.fem.assembly.CellBlock for the measurement behind it)."""
+
+    name: str
+    kernel: object  # fem.forms FluidKernel / SolidKernel
+    dofs: torch.Tensor  # (K,64) global indices into U
+    Jinv: torch.Tensor  # (K,3,3)
+    detJ: torch.Tensor  # (K,)
+    vol: torch.Tensor  # (K,)
+    rowmask: Optional[torch.Tensor] = None  # (K,64) 0/1 residual-row mask
+
+
+class Assembler:
+    """Residual / element Jacobians / host CSR over a list of blocks."""
+
+    def __init__(self, ndof: int, blocks):
+        self.ndof = ndof
+        self.blocks = list(blocks)
+
+    def residual(self, U, U0):
+        """R(U; U0) as a float64 (ndof,) tensor on U's device."""
+        R = torch.zeros(self.ndof, dtype=torch.float64, device=U.device)
+        for b in self.blocks:
+            element.block_residual(b, U, U0, R)
+        return R
+
+    def element_jacobians(self, U, U0):
+        """Per block, the (K,64,64) float64 element Jacobians, rows masked."""
+        return [element.block_jacobian(b, U, U0) for b in self.blocks]
+
+    # ---------------- host-side sparse export (direct solver path) ----------
+    def to_csr(self, jacs, bc_mask: Optional[np.ndarray] = None):
+        """Assemble a scipy CSR matrix from element Jacobians (copied to the
+        host).
+
+        bc_mask: boolean (ndof,) — constrained rows are replaced by identity
+        (and their columns zeroed), the standard strong Dirichlet treatment."""
+        import scipy.sparse as sp
+
+        rows, cols, vals = [], [], []
+        for b, A in zip(self.blocks, jacs):
+            dofs = b.dofs.cpu().numpy()
+            K, nloc = dofs.shape
+            rows.append(np.repeat(dofs, nloc, axis=1).reshape(-1))
+            cols.append(np.tile(dofs, (1, nloc)).reshape(-1))
+            vals.append(A.cpu().numpy().reshape(-1))
+        rows = np.concatenate(rows)
+        cols = np.concatenate(cols)
+        vals = np.concatenate(vals)
+        if bc_mask is not None:
+            keep = ~(bc_mask[rows] | bc_mask[cols])
+            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+            bc_dofs = np.nonzero(bc_mask)[0]
+            rows = np.concatenate([rows, bc_dofs])
+            cols = np.concatenate([cols, bc_dofs])
+            vals = np.concatenate([vals, np.ones(len(bc_dofs))])
+        M = sp.coo_matrix((vals, (rows, cols)), shape=(self.ndof, self.ndof))
+        return M.tocsr()

@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+
+nvcc compiles the sources into build/vasp_tpu_torch/ at the checkout's root
+at first use, and again whenever a source or flag changes (the library's
+name carries a hash of both). The library has a plain C interface bound
+with ctypes: nothing here includes PyTorch's headers, so a cold build takes
+seconds. Nothing is imported or built when this module is imported.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
+SOURCES = ("element_kernels.cu", "measures.cu")
+HEADERS = ("element_forms.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# one count per kernel, bumped by its wrapper right where it launches
+LAUNCHES = dict.fromkeys(
+    ("fluid_residual", "solid_residual", "fluid_jacobian", "solid_jacobian",
+     "dg0_project_speed", "integrate_p2_dot_n"), 0)
+
+# seconds the last build took in this process (0.0 when the library was
+# already built)
+BUILD_SECONDS = {"nvcc": 0.0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(path).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels of vasp_tpu_torch "
+                           "need the CUDA toolkit to build")
+    return path
+
+
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded ctypes library, built first if its hash is new."""
+    so = BUILD_DIR / f"libvasp_tpu_torch_{_source_hash()}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(CSRC / s) for s in SOURCES]]
+        tic = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS["nvcc"] = time.perf_counter() - tic
+        (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    return _bind(ctypes.CDLL(str(so)))
+
+
+def _bind(lib):
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    sigs = {
+        "vt_element_nq_max": [],
+        "vt_set_element_tables": [P, P, P, P, I],
+        "vt_fluid_residual": [P] * 8 + [I, I, D, D, D, D, D, I, P],
+        "vt_fluid_jacobian": [P] * 8 + [I, I, D, D, D, D, D, I, P],
+        "vt_solid_residual": [P] * 8 + [I, I, D, D, D, D, D, P],
+        "vt_solid_jacobian": [P] * 8 + [I, I, D, D, D, D, D, P],
+        "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
+        "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err, what):
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_handle(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t):
+    """Device pointer of a tensor, NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def on_cuda(t, what):
+    """The dispatch rule of every kernel: False for a CPU tensor (the plain
+    version runs), True for a CUDA tensor (the kernel launches or raises),
+    ValueError for any other device."""
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type == "cuda"
+    raise ValueError(f"no {what} kernel for device {t.device}")
+
+
+def require(t, name, dtype, shape, device):
+    """The checks a raw pointer cannot make: device, dtype, shape and
+    contiguity of every tensor handed to a kernel."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: kernel needs a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")

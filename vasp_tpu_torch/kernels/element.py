@@ -1,0 +1,157 @@
+"""K1, K2, K3: element residual + scatter and element Jacobians.
+
+Each operation has three parts here: the plain torch version
+(``residual_plain`` / ``jacobian_plain``, on fem/forms.py's per-cell
+kernels), the CUDA launch (``residual_cuda`` / ``jacobian_cuda``, the
+kernels of csrc/element_kernels.cu), and the dispatch the assembler calls
+(``block_residual`` / ``block_jacobian``): a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises. There is no fallback
+from one to the other.
+
+Replaces vasp_tpu/fem/assembly.py CellBlock.residual_local + the plain
+scatter of Assembler.residual (K1 fluid, K2 solid) and
+CellBlock.jacobian_local (K3). Costs and design: see the head of
+csrc/element_kernels.cu.
+"""
+import numpy as np
+import torch
+
+from vasp_tpu_torch.kernels import build
+
+_LIFT_SUB = {"constant": 0, "small_constant": 0, "volume": 1,
+             "volume_change": 2}
+
+# device index -> the quadrature degree whose tables sit in its constant memory
+_uploaded_tables = {}
+
+
+# ------------------------------------------------------------ plain ----
+def residual_plain(block, U, U0, R):
+    """R += scatter of the block's masked element residuals (in place)."""
+    dofs = block.dofs
+    r = block.kernel(U[dofs], U0[dofs], block.Jinv, block.detJ, block.vol)
+    if block.rowmask is not None:
+        r = r * block.rowmask
+    R.index_add_(0, dofs.reshape(-1), r.reshape(-1))
+    return R
+
+
+def jacobian_plain(block, U, U0, chunk=256):
+    """(K,64,64) element Jacobians by torch.func.vmap(jacfwd) over chunks
+    of `chunk` cells (bounds the tangent intermediates), rows masked."""
+    jac = torch.func.vmap(torch.func.jacfwd(block.kernel.cell))
+    K = block.dofs.shape[0]
+    out = []
+    for s in range(0, K, chunk):
+        dofs = block.dofs[s:s + chunk]
+        out.append(jac(U[dofs], U0[dofs], block.Jinv[s:s + chunk],
+                       block.detJ[s:s + chunk], block.vol[s:s + chunk]))
+    A = torch.cat(out) if out else U.new_zeros((0, 64, 64))
+    if block.rowmask is not None:
+        A = A * block.rowmask[:, :, None]
+    return A
+
+
+# ------------------------------------------------------------- cuda ----
+def cuda_params(kernel):
+    """The kernel's scalar parameters in the C entry point's order; raises
+    NotImplementedError for a configuration the CUDA kernels do not cover
+    (they cover Laplace lifting of every sub-type, p_stab=0, no gravity and
+    St.Venant-Kirchhoff)."""
+    if kernel.kind == "fluid":
+        if kernel.lift != "laplace" or kernel.lift_sub not in _LIFT_SUB \
+                or kernel.p_stab:
+            raise NotImplementedError(
+                f"CUDA fluid kernel covers extrapolation='laplace' "
+                f"(sub-types {sorted(_LIFT_SUB)}) with p_stab=0; got "
+                f"{kernel.lift!r}/{kernel.lift_sub!r}, p_stab={kernel.p_stab} "
+                f"(ROADMAP.md queue 1, item 10)")
+        return (kernel.rho_f, kernel.mu_f, kernel.dt, kernel.theta,
+                kernel.lift_coeff, _LIFT_SUB[kernel.lift_sub])
+    model = kernel.props.get("material_model", "StVenantKirchoff")
+    if model not in ("StVenantKirchoff", "LinearElastic") \
+            or np.any(kernel.gravity != 0.0):
+        raise NotImplementedError(
+            f"CUDA solid kernel covers St.Venant-Kirchhoff without gravity; "
+            f"got {model!r}, gravity={kernel.gravity.tolist()} "
+            f"(ROADMAP.md queue 1, item 10)")
+    return (kernel.rho_s, float(kernel.props["mu_s"]),
+            float(kernel.props["lambda_s"]), kernel.dt, kernel.theta)
+
+
+def _prepare(block, U, U0):
+    """Validate the block's tensors, upload the quadrature tables if the
+    device holds another degree's, and return (lib, nq, stream)."""
+    lib = build.library()
+    dev, f64 = U.device, torch.float64
+    K = block.dofs.shape[0]
+    build.require(U, "U", f64, U.shape[:1], dev)
+    build.require(U0, "U0", f64, U.shape, dev)
+    build.require(block.dofs, "dofs", torch.int64, (K, 64), dev)
+    build.require(block.Jinv, "Jinv", f64, (K, 3, 3), dev)
+    build.require(block.detJ, "detJ", f64, (K,), dev)
+    build.require(block.vol, "vol", f64, (K,), dev)
+    if block.rowmask is not None:
+        build.require(block.rowmask, "rowmask", f64, (K, 64), dev)
+    kern = block.kernel
+    wq, N1, N2, dN2 = (np.ascontiguousarray(a, np.float64)
+                       for a in kern.tables_np)
+    nq = len(wq)
+    dev_index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if _uploaded_tables.get(dev_index) != kern.quad_degree:
+        if nq > lib.vt_element_nq_max():
+            raise NotImplementedError(
+                f"quadrature_degree={kern.quad_degree} has {nq} points; the "
+                f"CUDA element kernels hold at most {lib.vt_element_nq_max()}")
+        with torch.cuda.device(dev):
+            build.check(lib.vt_set_element_tables(
+                wq.ctypes.data, N1.ctypes.data, N2.ctypes.data,
+                dN2.ctypes.data, nq), "vt_set_element_tables")
+        _uploaded_tables[dev_index] = kern.quad_degree
+    return lib, nq, build.stream_handle(dev)
+
+
+def residual_cuda(block, U, U0, R):
+    """R += the block's masked element residuals, by the K1/K2 kernel."""
+    lib, nq, stream = _prepare(block, U, U0)
+    build.require(R, "R", torch.float64, U.shape, U.device)
+    kind = block.kernel.kind
+    fn = lib.vt_fluid_residual if kind == "fluid" else lib.vt_solid_residual
+    args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
+                                   block.vol, block.rowmask, R)]
+    build.check(fn(*args, block.dofs.shape[0], nq,
+                   *cuda_params(block.kernel), stream), f"{kind}_residual")
+    build.LAUNCHES[f"{kind}_residual"] += 1
+    return R
+
+
+def jacobian_cuda(block, U, U0):
+    """(K,64,64) masked element Jacobians, by the K3 kernel."""
+    lib, nq, stream = _prepare(block, U, U0)
+    K = block.dofs.shape[0]
+    A = torch.empty((K, 64, 64), dtype=torch.float64, device=U.device)
+    kind = block.kernel.kind
+    fn = lib.vt_fluid_jacobian if kind == "fluid" else lib.vt_solid_jacobian
+    args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
+                                   block.vol, block.rowmask, A)]
+    build.check(fn(*args, K, nq, *cuda_params(block.kernel), stream),
+                f"{kind}_jacobian")
+    build.LAUNCHES[f"{kind}_jacobian"] += 1
+    return A
+
+
+# --------------------------------------------------------- dispatch ----
+def block_residual(block, U, U0, R):
+    """R += the block's masked element residuals: plain on CPU tensors,
+    the CUDA kernel on CUDA tensors."""
+    if build.on_cuda(U, "element"):
+        return residual_cuda(block, U, U0, R)
+    return residual_plain(block, U, U0, R)
+
+
+def block_jacobian(block, U, U0):
+    """(K,64,64) masked element Jacobians: plain on CPU tensors, the CUDA
+    kernel on CUDA tensors."""
+    if build.on_cuda(U, "element"):
+        return jacobian_cuda(block, U, U0)
+    return jacobian_plain(block, U, U0)

@@ -1,0 +1,234 @@
+"""FSISystem: build the monolithic FSI operator from a config dict.
+
+Counterpart of vasp_tpu.run.system (turtleFSI's internal setup: mixed
+space, fluid / solid / extrapolation forms), driven by the same
+configuration vocabulary the reference's problem files use
+(SURVEY.md §2.3). Blocks are built on the device named by the config key
+``device`` (default "cuda").
+
+Not ported yet, and refused with the ROADMAP item that will port them:
+biharmonic lifting and robin_bc (queue 1, item 10), the iterative linear
+solvers (item 5) and n_devices > 1 (item 13).
+"""
+import numpy as np
+import torch
+
+from vasp_tpu_torch.device import resolve_device
+from vasp_tpu_torch.fem.assembly import Assembler, CellBlock, cell_geometry
+from vasp_tpu_torch.fem.dirichlet import BCSet, DirichletBC
+from vasp_tpu_torch.fem.forms import (
+    interface_pressure_vector,
+    make_fluid_kernel,
+    make_solid_kernel,
+)
+from vasp_tpu_torch.fem.functionspace import DVPSpace
+from vasp_tpu_torch.fem.solver import NewtonOptions, NewtonSolver
+
+_SINGLE_DEVICE = (None, "None", "", 0, 1, "1")
+
+
+def normalize_fluid_properties(cfg):
+    if cfg.get("fluid_properties"):
+        props = cfg["fluid_properties"]
+        return props if isinstance(props, list) else [props]
+    ids = np.atleast_1d(cfg.get("dx_f_id", 1)).tolist()
+    mus = cfg.get("mu_f", 1.0)
+    rhos = cfg.get("rho_f", 1.0)
+    mus = mus if isinstance(mus, (list, tuple)) else [mus] * len(ids)
+    rhos = rhos if isinstance(rhos, (list, tuple)) else [rhos] * len(ids)
+    return [
+        {"dx_f_id": i, "rho_f": r, "mu_f": m} for i, r, m in zip(ids, rhos, mus)
+    ]
+
+
+def normalize_solid_properties(cfg):
+    if cfg.get("solid") == "no_solid":
+        return []
+    props = cfg.get("solid_properties")
+    if props:
+        return props if isinstance(props, list) else [props]
+    ids = np.atleast_1d(cfg.get("dx_s_id", 2)).tolist()
+    out = []
+    for k, i in enumerate(ids):
+        def pick(key, default=None):
+            val = cfg.get(key, default)
+            if isinstance(val, (list, tuple)):
+                return val[k]
+            return val
+        out.append(
+            {
+                "dx_s_id": i,
+                "material_model": pick("material_model", "StVenantKirchoff"),
+                "rho_s": pick("rho_s", 1e3),
+                "mu_s": pick("mu_s"),
+                "lambda_s": pick("lambda_s"),
+                "C01": pick("C01"),
+                "C10": pick("C10"),
+                "C11": pick("C11"),
+            }
+        )
+    return out
+
+
+def _not_ported(what, item):
+    raise NotImplementedError(
+        f"{what} is not ported to vasp_tpu_torch yet (ROADMAP.md queue 1, "
+        f"item {item})")
+
+
+class FSISystem:
+    """Monolithic DVP system on a TetMesh, configured like the reference."""
+
+    def __init__(self, mesh, cfg):
+        self.mesh = mesh
+        self.cfg = dict(cfg)
+        self.device = resolve_device(cfg.get("device", "cuda"))
+        if cfg.get("n_devices") not in _SINGLE_DEVICE:
+            _not_ported(f"n_devices={cfg['n_devices']!r}", 13)
+        if cfg.get("robin_bc"):
+            _not_ported("robin_bc", 10)
+        self.space = DVPSpace(mesh)
+        space = self.space
+        dev = self.device
+        dt = float(cfg["dt"])
+        theta = float(cfg.get("theta", 0.501))
+        qd = int(cfg.get("quadrature_degree", 6))
+
+        Jinv, detJ, vol = cell_geometry(mesh.coords, mesh.cells)
+        self._geom = (Jinv, detJ, vol)
+
+        def f64(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        lift = cfg.get("extrapolation", "laplace")
+        lift_sub = cfg.get("extrapolation_sub_type", "constant")
+        if lift == "biharmonic":
+            _not_ported("extrapolation='biharmonic'", 10)
+        lift_coeff = 1.0
+        if lift == "laplace" and lift_sub == "small_constant":
+            lift_coeff = 0.01 * mesh.hmin ** 2
+
+        blocks = []
+        self.fluid_props = normalize_fluid_properties(cfg)
+        self.solid_props = normalize_solid_properties(cfg)
+
+        dofs_mixed = space.cell_dofs_mixed
+        # d-dofs that carry the solid KINEMATIC equation (d-dot = v): every
+        # d-dof owned by a solid cell. The fluid mesh-lifting form must not
+        # contribute to those rows (see CellBlock.rowmask; the reference
+        # stack's equivalent is turtleFSI's delta=1e10 kinematic weight).
+        solid_sel_all = [np.nonzero(mesh.cell_markers == sp["dx_s_id"])[0]
+                         for sp in self.solid_props]
+        if solid_sel_all and sum(len(s) for s in solid_sel_all):
+            kin_d = np.unique(
+                dofs_mixed[np.concatenate(solid_sel_all)][:, :30])
+        else:
+            kin_d = np.empty(0, np.int64)
+
+        for fp in self.fluid_props:
+            sel = np.nonzero(mesh.cell_markers == fp["dx_f_id"])[0]
+            if len(sel) == 0:
+                continue
+            kern = make_fluid_kernel(
+                rho_f=float(fp["rho_f"]),
+                mu_f=float(fp["mu_f"]),
+                dt=dt,
+                theta=theta,
+                lift=lift,
+                lift_sub=lift_sub,
+                lift_coeff=lift_coeff,
+                quad_degree=qd,
+                p_stab=float(cfg.get("p_stab", 0.0)),
+            )
+            rowmask = None
+            if len(kin_d):
+                bd = dofs_mixed[sel]
+                rm = np.ones(bd.shape, np.float64)
+                rm[:, :30] = (~np.isin(bd[:, :30], kin_d)).astype(np.float64)
+                if (rm == 0.0).any():
+                    rowmask = f64(rm)
+            blocks.append(CellBlock(
+                name=f"fluid_{fp['dx_f_id']}", kernel=kern,
+                dofs=i64(dofs_mixed[sel]), Jinv=f64(Jinv[sel]),
+                detJ=f64(detJ[sel]), vol=f64(vol[sel]), rowmask=rowmask))
+        for sp in self.solid_props:
+            sel = np.nonzero(mesh.cell_markers == sp["dx_s_id"])[0]
+            if len(sel) == 0:
+                continue
+            kern = make_solid_kernel(
+                props={k: v for k, v in sp.items() if v is not None},
+                dt=dt,
+                theta=theta,
+                gravity=cfg.get("gravity"),
+                quad_degree=qd,
+            )
+            blocks.append(CellBlock(
+                name=f"solid_{sp['dx_s_id']}", kernel=kern,
+                dofs=i64(dofs_mixed[sel]), Jinv=f64(Jinv[sel]),
+                detJ=f64(detJ[sel]), vol=f64(vol[sel])))
+
+        self.assembler = Assembler(space.ndof, blocks)
+
+    # -------------- interface pressure load --------------
+    def interface_pressure_load(self, fsi_id=None):
+        """Geometry vector b with R_v += P(t) * b on the FSI interface
+        (reference: src/vasp/simulations/cylinder.py:164-169), a float64
+        tensor on the run's device."""
+        cfg = self.cfg
+        fsi_id = fsi_id if fsi_id is not None else cfg.get("fsi_id", 22)
+        fv, cp, lp, cm, lm = self.mesh.interior_facets(fsi_id)
+        fv_sorted = np.sort(fv.astype(np.int64), axis=1)
+        p2d = self.space.facet_dofs_p2(fv_sorted)
+        b = interface_pressure_vector(
+            self.space, fv_sorted, cp, p2d,
+            quad_degree=int(cfg.get("quadrature_degree", 6)),
+        )
+        return torch.as_tensor(b, dtype=torch.float64, device=self.device)
+
+    # -------------- standard auto BCs --------------
+    def auto_pressure_pin_bcs(self):
+        """Pin pressure dofs with no equation: P1 dofs strictly interior to
+        the solid (continuity only lives on the fluid)."""
+        if not self.solid_props or not self.fluid_props:
+            return []
+        f_ids = [fp["dx_f_id"] for fp in self.fluid_props]
+        s_ids = [sp["dx_s_id"] for sp in self.solid_props]
+        pdofs = self.space.solid_only_pressure_dofs(f_ids, s_ids)
+        if len(pdofs) == 0:
+            return []
+        return [DirichletBC(self.space.pressure_dofs(pdofs), 0.0)]
+
+    def make_bcset(self, bcs, auto_pin_pressure=True):
+        bcs = list(bcs)
+        if auto_pin_pressure:
+            bcs += self.auto_pressure_pin_bcs()
+        return BCSet(self.space.ndof, bcs)
+
+    def make_solver(self, bc_set, **opts):
+        cfg = self.cfg
+        lin = cfg.get("linear_solver", "lu")
+        if lin in ("gmres", "iterative", "ras"):
+            _not_ported(f"linear_solver={lin!r}", 5)
+        options = NewtonOptions(
+            atol=float(cfg.get("atol", 1e-7)),
+            rtol=float(cfg.get("rtol", 1e-7)),
+            max_it=int(cfg.get("max_it", 50)),
+            lmbda=float(cfg.get("lmbda", 1.0)),
+            recompute=int(cfg.get("recompute", 5)),
+            recompute_tstep=int(cfg.get("recompute_tstep", 1)),
+            # reference configs say "mumps": the host direct-LU path is the
+            # drop-in equivalent (reference: offset_stenosis.py:44)
+            linear_solver={"mumps": "lu"}.get(lin, lin),
+            verbose=bool(cfg.get("verbose", True)),
+            raise_on_fail=bool(cfg.get("raise_on_fail", True)),
+        )
+        for k, v in opts.items():
+            setattr(options, k, v)
+        return NewtonSolver(self.assembler, bc_set, options)
+
+    def zero_state(self):
+        return torch.zeros(self.space.ndof, dtype=torch.float64,
+                           device=self.device)
