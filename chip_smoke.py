@@ -1,35 +1,68 @@
 #!/usr/bin/env python3
 """Smoke run of vasp_tpu_torch on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py          # the 11,088-cell cylinder (98,859 dofs)
-    python3 chip_smoke.py --full   # the 20,832-cell tube
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Device: needs torch.cuda; prints the card's name and power limit and
-   builds the CUDA kernels from csrc/ (build seconds, ptxas register and
-   spill report).
-2. Kernel vs plain on the card, at the run's size: the element residual
-   (K1 fluid, K2 solid), the element Jacobians (K3) and the two flow
-   measures (K19) against their plain torch versions on the same inputs,
-   relative error <= 1e-12 (the f64 atomics' order varies, nothing else),
-   each timed with CUDA events beside its plain version.
-3. Path parity: the small cylinder configuration of tests/conftest.py run
-   on the CPU (plain versions) and on the card (kernels): the same Newton
-   iteration counts and U within 1e-8 relative.
-4. The main path at size: vasp_tpu_torch.run.driver.main on -p cylinder for
-   5 steps of dt=1e-3, launch counters reset just before; every step must
-   converge, U must be finite and every kernel must have launched. Prints
-   s/step, Newton iterations and the time split of the solver's phases.
+   builds the CUDA kernels from csrc/ (one nvcc per source, in parallel;
+   build seconds, ptxas register and spill report).
+2. Kernel vs plain on the card at the 20,832-cell tube (184,845 dofs):
+   every kernel against its plain torch version on the same inputs, each
+   timed with CUDA events beside its plain version, its bound (bytes over
+   3.35 TB/s or operations over the f64/f32 peak, the larger) and, for
+   the element matvec, cuSPARSE's SpMV of the same matrix as a yardstick.
+   Tolerances, each with its reason:
+   - float64 outputs (K1, K2, K3, K4 f64, K19): 1e-12 relative; the f64
+     atomics' order varies, nothing else;
+   - float32 Jacobians (K3 f32): 2e-7 per cell block; both sides round
+     float64 values that agree to 1e-12 once, so they are at most one
+     float32 ulp apart;
+   - float32 element products (K4 f32): 1e-5 relative; 64-term float32
+     row sums in another order than torch's;
+   - K7 (Ruiz sweep and scale) and K8 (banded assembly): exact; max is
+     exact, the products are the same two float32 multiplies, and the
+     banded sums run in plan order on both sides (K8's plain version runs
+     on the host here, since torch's index_add_ on the card sums by
+     atomics);
+   - K6 (banded apply): as accurate as the plain version, i.e. its
+     distance to the same scans in float64 at most twice the plain
+     version's plus 1e-6; both sum c-term float32 dot products, in other
+     orders, through 2 nb - 1 scan steps.
+   The Schur scan (K9, cuBLAS/cuSOLVER through torch), H/G and the probe
+   (K10) are timed on the same factors.
+3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
+   (plain versions) and on the card (kernels), on the LU path (U within
+   1e-8 relative) and on the Newton-Krylov path (linear_solver="gmres"; U
+   within 3e-5 relative: one inexact Newton step per time step, its
+   direction solved to gmres_tol = 1e-6, with float32 sums in other
+   orders): the same Newton iteration counts.
+4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
+   cylinder of 10 layers; its host splu takes under a minute on a
+   CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
+   launch counters reset just before and read just after; every step
+   must converge, U must be finite and every kernel of the path must
+   have launched.
+5. The Newton-Krylov path at size: driver.main on -p cylinder with
+   linear_solver="gmres" at the 20,832-cell tube, 5 steps of dt=1e-3 (one
+   preconditioner rebuild), counters reset just before and read just
+   after; every step must converge, U must be finite and on the card, and
+   every kernel of the path must have launched. Prints s/step, Newton
+   and GMRES inner iterations per step, the rebuild and per-iteration
+   time splits, the probe, peak device memory and the one-time host
+   setup (pattern, RCM, assembly plan). Then one more step under
+   torch.profiler: the device's busy share of that step's wall time (the
+   sum of device time over the step's kernels and copies, which run on one
+   stream) and its five costliest device functions.
 
-Phases 3 and 4 run with HDF5 output off (save_step=0, checkpoint_step=0),
+Phases 3-5 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
-import argparse
 import io
 import json
 import math
@@ -41,11 +74,21 @@ from contextlib import redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TOL_KERNEL = 1e-12
-TOL_PATH = 1e-8
-SMOKE_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04, n_theta=12,
-                  n_r_fluid=3, n_r_solid=1, n_z=44)  # 11,088 cells
-FULL_MESH = dict(SMOKE_MESH, n_theta=16, n_z=62)  # 20,832 cells
+TOL_F64 = 1e-12
+TOL_JAC_F32 = 2e-7
+TOL_MATVEC_F32 = 1e-5
+TOL_PATH_LU = 1e-8
+TOL_PATH_GMRES = 3e-5
+# H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores (NVIDIA
+# H100 data sheet; the f64 figure is the data sheet's FP64, the f32 one the
+# on-chip-measurement table's)
+HBM_BYTES_PER_S = 3.35e12
+PEAK = {"f64": 34e12, "f32": 67e12}
+FULL_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04, n_theta=16,
+                 n_r_fluid=3, n_r_solid=1, n_z=62)  # 20,832 cells
+# 10 layers of the 11,088-cell tube's cross-section: 2,520 cells
+LU_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04 * 10 / 44,
+               n_theta=12, n_r_fluid=3, n_r_solid=1, n_z=10)
 # HDF5 output off, so no h5py is needed; the CPU tests cover the
 # Visualization/Checkpoint files
 NO_FILES = dict(save_step=0, checkpoint_step=0)
@@ -53,13 +96,29 @@ NO_FILES = dict(save_step=0, checkpoint_step=0)
 TINY = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
             atol=1e-7, rtol=1e-7, recompute=5, recompute_tstep=1,
             verbose=True, **NO_FILES)
+# kernel -> (source, the vasp_tpu device code it replaces, its path)
 REPLACES = {
-    "fluid_residual": ("element_kernels.cu", "vasp_tpu/fem/forms.py:86"),
-    "solid_residual": ("element_kernels.cu", "vasp_tpu/fem/forms.py:205"),
-    "fluid_jacobian": ("element_kernels.cu", "vasp_tpu/fem/assembly.py:92"),
-    "solid_jacobian": ("element_kernels.cu", "vasp_tpu/fem/assembly.py:92"),
-    "dg0_project_speed": ("measures.cu", "vasp_tpu/fem/measures.py:103"),
-    "integrate_p2_dot_n": ("measures.cu", "vasp_tpu/fem/measures.py:88"),
+    "fluid_residual": ("element_kernels.cu", "vasp_tpu/fem/forms.py:86",
+                       "gmres"),
+    "solid_residual": ("element_kernels.cu", "vasp_tpu/fem/forms.py:205",
+                       "gmres"),
+    "fluid_jacobian": ("element_kernels.cu", "vasp_tpu/fem/assembly.py:92",
+                       "lu"),
+    "solid_jacobian": ("element_kernels.cu", "vasp_tpu/fem/assembly.py:92",
+                       "lu"),
+    "fluid_jacobian_f32": ("element_kernels.cu",
+                           "vasp_tpu/fem/assembly.py:92", "gmres"),
+    "solid_jacobian_f32": ("element_kernels.cu",
+                           "vasp_tpu/fem/assembly.py:92", "gmres"),
+    "dg0_project_speed": ("measures.cu", "vasp_tpu/fem/measures.py:103",
+                          "gmres"),
+    "integrate_p2_dot_n": ("measures.cu", "vasp_tpu/fem/measures.py:88",
+                           "gmres"),
+    "elem_matvec": ("matvec.cu", "vasp_tpu/fem/assembly.py:354", "gmres"),
+    "ruiz_sweep": ("ruiz.cu", "vasp_tpu/fem/scaling.py:31", "gmres"),
+    "ruiz_scale": ("ruiz.cu", "vasp_tpu/fem/scaling.py:71", "gmres"),
+    "banded_assemble": ("banded.cu", "vasp_tpu/fem/banded.py:224", "gmres"),
+    "banded_apply": ("banded.cu", "vasp_tpu/fem/banded.py:651", "gmres"),
 }
 
 
@@ -70,8 +129,8 @@ def require(cond, msg):
 
 def rel_err(a, b):
     """(relative 2-norm error, max abs error) of a against b."""
-    d = (a - b).abs()
-    return float(d.norm() / b.norm()), float(d.max())
+    d = (a.double() - b.double()).abs()
+    return float(d.norm() / b.double().norm()), float(d.max())
 
 
 def cuda_ms(fn, reps):
@@ -88,6 +147,67 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, ops, kind):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def count_ops(fn):
+    """Arithmetic operations of one call of a plain torch function, counted
+    by dispatching it: a matmul counts 2 m n k, a reduction the elements
+    it reads, any other arithmetic op the elements it writes; views,
+    copies, gathers and fills count nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    import torch
+
+    free = {"view", "_unsafe_view", "reshape", "expand", "permute", "t",
+            "transpose", "unsqueeze", "squeeze", "select", "slice", "index",
+            "index_select", "gather", "clone", "copy_", "_to_copy", "detach",
+            "empty", "zeros", "zeros_like", "ones_like", "empty_like",
+            "new_zeros", "new_empty", "cat", "stack", "lift_fresh", "alias",
+            "as_strided", "scalar_tensor", "fill_", "full", "arange",
+            "split", "unbind", "_reshape_alias", "new_empty_strided",
+            "empty_strided", "zero_", "lift_fresh_copy", "index_put_",
+            "index_put", "slice_scatter", "select_scatter", "eye", "ones",
+            "new_ones", "movedim", "diagonal", "expand_copy",
+            "unsqueeze_copy"}
+    matmul = {"mm", "bmm", "addmm", "matmul", "baddbmm", "mv", "dot"}
+    reduce = {"sum", "amax", "amin", "mean", "linalg_vector_norm", "norm",
+              "prod", "max", "min"}
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name not in free:
+                ins = [a for a in tree_flatten((args, kwargs))[0]
+                       if isinstance(a, torch.Tensor)]
+                outs = [a for a in tree_flatten(out)[0]
+                        if isinstance(a, torch.Tensor)]
+                if name in matmul:
+                    self.n += 2 * max(o.numel() for o in outs) * \
+                        ins[0].shape[-1]
+                elif name in reduce:
+                    self.n += max(i.numel() for i in ins)
+                else:
+                    self.n += max([o.numel() for o in outs] + [0])
+            return out
+
+    with Ops() as ops:
+        fn()
+    return ops.n
 
 
 def phase_device():
@@ -132,6 +252,8 @@ def build_system(mesh_params, device, seed):
                generated_mesh_params=mesh_params)
     mesh = cylinder.get_mesh_domain_and_boundaries(**cfg)
     system = FSISystem(mesh, cfg)
+    bc = system.make_bcset(cylinder.create_bcs(
+        space=system.space, system=system, **cfg)["bcs"])
     # random states at the cylinder's scales: wall displacement ~1 um,
     # velocity ~1 cm/s, pressure ~100 Pa
     rng = np.random.default_rng(seed)
@@ -141,11 +263,43 @@ def build_system(mesh_params, device, seed):
                             np.full(space.n_p1, 1e2)])
     U = torch.as_tensor(rng.normal(size=space.ndof) * scale, device=device)
     U0 = torch.as_tensor(rng.normal(size=space.ndof) * scale, device=device)
-    return system, U, U0
+    return system, bc, U, U0
 
 
-def phase_kernels(mesh_params):
-    """Each kernel against its plain version on the card; returns records."""
+class Records(dict):
+    def add(self, name, err, ms, plain_ms, work, tol, shape,
+            library_ms=None, **extra):
+        """err: (rel, max_abs); work: (bytes, operations, "f64"/"f32")."""
+        rel, mx = err
+        b_ms, by = bound(*work)
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        print(f"    {name:20s} {shape:>26s}  rel {rel:.3e}  max_abs "
+              f"{mx:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({by}){lib}")
+        require(rel <= tol, f"{name} disagrees with its plain version: "
+                            f"rel {rel:.3e} > {tol:.1e}")
+        self[name] = dict(max_abs_err=mx, rel_err=rel, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                          library_ms=library_ms, **extra)
+
+
+def _per_block_rel(Ak, Ap):
+    K = Ak.shape[0]
+    d = (Ak.double() - Ap.double()).reshape(K, -1).norm(dim=1)
+    return (float((d / Ap.double().reshape(K, -1).norm(dim=1)).max()),
+            float((Ak.double() - Ap.double()).abs().max()))
+
+
+def _sub_block(b, n):
+    from dataclasses import replace
+
+    return replace(b, dofs=b.dofs[:n], Jinv=b.Jinv[:n], detJ=b.detJ[:n],
+                   vol=b.vol[:n],
+                   rowmask=None if b.rowmask is None else b.rowmask[:n])
+
+
+def phase_element_kernels(records, system, U, U0):
+    """K1, K2, K3 (f64 and f32) and K19 against their plain versions."""
     import torch
 
     from vasp_tpu_torch.fem.measures import BoundaryMeasure
@@ -154,42 +308,42 @@ def phase_kernels(mesh_params):
     from vasp_tpu_torch.kernels import element
     from vasp_tpu_torch.kernels import measures as km
 
-    system, U, U0 = build_system(mesh_params, "cuda", seed=0)
-    print(f"[2] system: {system.mesh.num_cells} cells, {system.space.ndof} "
-          f"dofs, blocks " + ", ".join(
-              f"{b.name}={b.dofs.shape[0]}" for b in system.assembler.blocks))
-    records = {}
-
-    def record(name, err, ms, plain_ms, shape):
-        rel, mx = err
-        print(f"    {name:20s} {shape:>22s}  rel {rel:.3e}  max_abs {mx:.3e}"
-              f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        require(rel <= TOL_KERNEL,
-                f"{name} disagrees with its plain version: rel {rel:.3e}")
-        records[name] = dict(max_abs_err=mx, rel_err=rel, ms=ms,
-                             plain_ms=plain_ms)
-
+    ndof = system.space.ndof
     for b in system.assembler.blocks:
         kind = b.kernel.kind
         K = b.dofs.shape[0]
+        # operations per cell, counted on 32 cells of the plain versions
+        sub = _sub_block(b, 32)
+        res_ops = count_ops(lambda: element.residual_plain(
+            sub, U, U0, torch.zeros_like(U))) * K / 32
+        jac_ops = count_ops(lambda: element.jacobian_plain(sub, U, U0)) \
+            * K / 32
+        inputs = nbytes(b.dofs, b.Jinv, b.detJ, b.vol, b.rowmask) + 2 * 8 * ndof
+
         Rk = element.residual_cuda(b, U, U0, torch.zeros_like(U))
         Rp = element.residual_plain(b, U, U0, torch.zeros_like(U))
         R = torch.zeros_like(U)
-        record(f"{kind}_residual", rel_err(Rk, Rp),
-               cuda_ms(lambda: element.residual_cuda(b, U, U0, R), 20),
-               cuda_ms(lambda: element.residual_plain(b, U, U0, R), 3),
-               f"K={K} -> ({U.shape[0]},)")
+        records.add(f"{kind}_residual", rel_err(Rk, Rp),
+                    cuda_ms(lambda: element.residual_cuda(b, U, U0, R), 20),
+                    cuda_ms(lambda: element.residual_plain(b, U, U0, R), 3),
+                    (inputs + 8 * ndof, res_ops, "f64"), TOL_F64,
+                    f"K={K} -> ({ndof},)")
 
-        Ak = element.jacobian_cuda(b, U, U0)
         Ap = element.jacobian_plain(b, U, U0, chunk=128)
-        d = (Ak - Ap).reshape(K, -1).norm(dim=1)
-        per_block = float((d / Ap.reshape(K, -1).norm(dim=1)).max())
-        mx = float((Ak - Ap).abs().max())
+        for dt, suffix, tol in ((torch.float64, "", TOL_F64),
+                                (torch.float32, "_f32", TOL_JAC_F32)):
+            Ak = element.jacobian_cuda(b, U, U0, dt)
+            err = _per_block_rel(Ak, Ap.to(dt))
+            del Ak
+            records.add(
+                f"{kind}_jacobian{suffix}", err,
+                cuda_ms(lambda: element.jacobian_cuda(b, U, U0, dt), 5),
+                cuda_ms(lambda: element.jacobian_plain(
+                    b, U, U0, chunk=128).to(dt), 1),
+                (inputs + K * 4096 * (8 if suffix == "" else 4), jac_ops,
+                 "f64"), tol, f"K={K} -> ({K},64,64) {dt}".replace(
+                    "torch.", ""))
         del Ap
-        record(f"{kind}_jacobian", (per_block, mx),
-               cuda_ms(lambda: element.jacobian_cuda(b, U, U0), 5),
-               cuda_ms(lambda: element.jacobian_plain(b, U, U0, chunk=128), 1),
-               f"K={K} -> ({K},64,64)")
 
     space = system.space
     v = space.split(U)[1].contiguous()
@@ -199,20 +353,225 @@ def phase_kernels(mesh_params):
     dofs = torch.as_tensor(space.cell_dofs_p2.astype("int64"), device="cuda")
     sk = km.dg0_project_speed_cuda(v, dofs, N2, wq)
     sp_ = km.dg0_project_speed_plain(v, dofs, N2, wq)
-    record("dg0_project_speed", rel_err(sk, sp_),
-           cuda_ms(lambda: km.dg0_project_speed_cuda(v, dofs, N2, wq), 50),
-           cuda_ms(lambda: km.dg0_project_speed_plain(v, dofs, N2, wq), 50),
-           f"Nc={dofs.shape[0]}")
+    records.add("dg0_project_speed", rel_err(sk, sp_),
+                cuda_ms(lambda: km.dg0_project_speed_cuda(v, dofs, N2, wq), 50),
+                cuda_ms(lambda: km.dg0_project_speed_plain(v, dofs, N2, wq),
+                        50),
+                (nbytes(v, dofs, N2, wq, sk),
+                 count_ops(lambda: km.dg0_project_speed_plain(v, dofs, N2, wq)),
+                 "f64"), TOL_F64, f"Nc={dofs.shape[0]}")
 
     inlet = BoundaryMeasure(space, system.cfg["inlet_id"])
     tabs = inlet.device_tables("cuda")
     fk = km.integrate_p2_dot_n_cuda(v, *tabs)
     fp = km.integrate_p2_dot_n_plain(v, *tabs)
-    record("integrate_p2_dot_n", rel_err(fk.reshape(1), fp.reshape(1)),
-           cuda_ms(lambda: km.integrate_p2_dot_n_cuda(v, *tabs), 50),
-           cuda_ms(lambda: km.integrate_p2_dot_n_plain(v, *tabs), 50),
-           f"facets={tabs[0].shape[0]}")
-    return records
+    records.add("integrate_p2_dot_n", rel_err(fk.reshape(1), fp.reshape(1)),
+                cuda_ms(lambda: km.integrate_p2_dot_n_cuda(v, *tabs), 50),
+                cuda_ms(lambda: km.integrate_p2_dot_n_plain(v, *tabs), 50),
+                (nbytes(v, *tabs) + 8,
+                 count_ops(lambda: km.integrate_p2_dot_n_plain(v, *tabs)),
+                 "f64"), TOL_F64, f"facets={tabs[0].shape[0]}")
+
+
+def phase_iterative_kernels(records, system, bc):
+    """K4, K7, K8 and K6 against their plain versions on the first rebuild's
+    inputs (the state at t = dt from rest), and the torch K9/K10 times."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.fem import banded as fb
+    from vasp_tpu_torch.fem.scaling import ruiz_scales
+    from vasp_tpu_torch.kernels import banded as kb
+    from vasp_tpu_torch.kernels import matvec as km4
+    from vasp_tpu_torch.kernels import scaling as ks
+
+    asm = system.assembler
+    blocks = asm.blocks
+    ndof = asm.ndof
+    mask = bc.mask_on("cuda")
+    Z = system.zero_state()
+    U1 = bc.apply(Z, 1e-3)
+    jacs32 = asm.element_jacobians(U1, Z, dtype=torch.float32)
+    K_all = sum(b.dofs.shape[0] for b in blocks)
+    dof_bytes = nbytes(*(b.dofs for b in blocks))
+    x64 = torch.as_tensor(np.random.default_rng(3).normal(size=ndof),
+                          device="cuda")
+
+    # ---- K4: the three dtype variants of the element matvec
+    jacs64 = asm.element_jacobians(U1, Z)
+    variants = {}
+    for label, jacs, x, tol in (("f32_f64", jacs32, x64, TOL_MATVEC_F32),
+                                ("f32_f32", jacs32, x64.float(),
+                                 TOL_MATVEC_F32),
+                                ("f64_f64", jacs64, x64, TOL_F64)):
+        def run(fn, jacs=jacs, x=x):
+            y = torch.zeros_like(x)
+            for b, A in zip(blocks, jacs):
+                fn(A, b.dofs, x, y)
+            return y
+        rel, mx = rel_err(run(km4.elem_matvec_cuda),
+                          run(km4.elem_matvec_plain))
+        require(rel <= tol, f"elem_matvec {label}: rel {rel:.3e}")
+        variants[label] = dict(
+            rel_err=rel, max_abs_err=mx,
+            ms=cuda_ms(lambda: run(km4.elem_matvec_cuda), 50),
+            plain_ms=cuda_ms(lambda: run(km4.elem_matvec_plain), 5))
+        print(f"    elem_matvec {label}: rel {rel:.3e} max_abs {mx:.3e} "
+              f"kernel {variants[label]['ms']:.4f} ms plain "
+              f"{variants[label]['plain_ms']:.4f} ms")
+    del jacs64
+    # yardstick: cuSPARSE SpMV of the same (f32) matrix assembled as CSR
+    rows = torch.cat([b.dofs[:, :, None].expand(-1, 64, 64).reshape(-1)
+                      for b in blocks])
+    cols = torch.cat([b.dofs[:, None, :].expand(-1, 64, 64).reshape(-1)
+                      for b in blocks])
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), torch.cat([A.reshape(-1) for A in jacs32]),
+        (ndof, ndof)).coalesce().to_sparse_csr()
+    del rows, cols
+    x32 = x64.float()[:, None]
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, x32), 50)
+    print(f"    cuSPARSE SpMV of the assembled f32 matrix "
+          f"({csr._nnz()} nonzeros): {lib_ms:.4f} ms")
+    del csr
+    main = variants["f32_f64"]
+    records.add("elem_matvec", (main["rel_err"], main["max_abs_err"]),
+                main["ms"], main["plain_ms"],
+                (nbytes(*jacs32) + dof_bytes + 2 * 8 * ndof,
+                 2 * 4096 * K_all, "f32"), TOL_MATVEC_F32,
+                f"K={K_all} f32 A, f64 x", library_ms=lib_ms,
+                variants=variants)
+
+    # ---- K7: one sweep at the converged scales, and the element rescale
+    dr, dc = ruiz_scales(blocks, jacs32, mask, ndof, sweeps=4)
+    outs = [torch.zeros(ndof, dtype=torch.float32, device="cuda")
+            for _ in range(4)]
+    for b, A in zip(blocks, jacs32):
+        ks.ruiz_sweep_cuda(A, b.dofs, dr, dc, mask, outs[0], outs[1])
+        ks.ruiz_sweep_plain(A, b.dofs, dr, dc, mask, outs[2], outs[3])
+    err = max(rel_err(outs[0], outs[2]), rel_err(outs[1], outs[3]))
+
+    def sweep(fn):
+        for b, A in zip(blocks, jacs32):
+            fn(A, b.dofs, dr, dc, mask, outs[0], outs[1])
+
+    records.add("ruiz_sweep", err, cuda_ms(lambda: sweep(ks.ruiz_sweep_cuda),
+                                           20),
+                cuda_ms(lambda: sweep(ks.ruiz_sweep_plain), 5),
+                (nbytes(*jacs32, dr, dc, mask) + dof_bytes + 8 * ndof,
+                 5 * 4096 * K_all, "f32"), 0.0,
+                f"K={K_all}, one sweep")
+    jf = [ks.ruiz_scale_cuda(A, b.dofs, dr, dc) for b, A in zip(blocks, jacs32)]
+    jfp = [ks.ruiz_scale_plain(A, b.dofs, dr, dc)
+           for b, A in zip(blocks, jacs32)]
+    err = max(rel_err(a, b) for a, b in zip(jf, jfp))
+    del jfp
+    records.add("ruiz_scale", err,
+                cuda_ms(lambda: [ks.ruiz_scale_cuda(A, b.dofs, dr, dc)
+                                 for b, A in zip(blocks, jacs32)], 20),
+                cuda_ms(lambda: [ks.ruiz_scale_plain(A, b.dofs, dr, dc)
+                                 for b, A in zip(blocks, jacs32)], 5),
+                (2 * nbytes(*jacs32) + dof_bytes + nbytes(dr, dc),
+                 2 * 4096 * K_all, "f32"), 0.0, f"K={K_all}")
+    del jacs32
+
+    # ---- host setup, then K8 against its plain version on the host
+    block_dofs = [b.dofs.cpu().numpy() for b in blocks]
+    setup = {}
+    tic = time.perf_counter()
+    pat = fb.build_banded_pattern(block_dofs, ndof, timings=setup)
+    setup["pattern"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    plans_np = fb.build_banded_assembly_plan(block_dofs, pat, bc.mask)
+    setup["plan"] = time.perf_counter() - tic
+    nsrc = sum(p["src"].shape[0] for per_t in plans_np for p in per_t)
+    print(f"    banded pattern: c={pat.c} nb={pat.nb}; host pattern "
+          f"{setup['pattern']:.2f} s (RCM {setup['rcm']:.2f} s), plan "
+          f"{setup['plan']:.2f} s, {nsrc} entries")
+    plans = fb.plans_to_device(plans_np, "cuda")
+    diag = torch.as_tensor(fb.identity_diag_slots(pat, bc.mask),
+                           device="cuda")
+    Ck, Dk, Bk = kb.assemble_cuda(jf, plans, pat.nb, pat.c, diag)
+    host = kb.assemble_plain([A.cpu() for A in jf],
+                             fb.plans_to_device(plans_np, "cpu"), pat.nb,
+                             pat.c, diag.cpu())
+    err = (0.0, 0.0)
+    for k, p in zip((Ck, Dk, Bk), host):
+        kc = k.cpu()
+        err = max(err, rel_err(kc, p)) if not torch.equal(kc, p) else err
+        del kc
+    del host
+    plan_bytes = sum(nbytes(p["src"], p["udst"], p["starts"])
+                     for per_t in plans for p in per_t)
+    records.add("banded_assemble", err,
+                cuda_ms(lambda: kb.assemble_cuda(jf, plans, pat.nb, pat.c,
+                                                 diag), 3),
+                cuda_ms(lambda: kb.assemble_plain(jf, plans, pat.nb, pat.c,
+                                                  diag), 1),
+                (nbytes(*jf) + plan_bytes + 3 * pat.factor_bytes
+                 + nbytes(diag), nsrc, "f32"), 0.0,
+                f"{nsrc} entries -> 3x({pat.nb},{pat.c},{pat.c})")
+    del jf
+
+    # ---- K9, K10 (torch), then K6 against its plain version
+    tic = time.perf_counter()
+    Sinv = fb.schur_scan(Ck, Dk, Bk)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - tic
+    tic = time.perf_counter()
+    H, G = fb.hg_factors(Sinv, Ck, Bk)
+    torch.cuda.synchronize()
+    t_hg = time.perf_counter() - tic
+    tic = time.perf_counter()
+    probe = fb.probe_rel(Ck, Dk, Bk, Sinv, H, G)
+    t_probe = time.perf_counter() - tic
+    print(f"    Schur scan (K9, torch) {t_scan * 1e3:.1f} ms, H/G "
+          f"{t_hg * 1e3:.1f} ms, probe (K10) {t_probe * 1e3:.1f} ms, probe "
+          f"rel {probe:.3e}")
+    del Ck, Dk, Bk
+    require(math.isfinite(probe), "the probe of the banded factors is not "
+                                  "finite")
+    perm = torch.as_tensor(pat.perm, device="cuda")
+    r = torch.where(mask, 0.0, x64)
+    xk = kb.apply_cuda(Sinv, H, G, perm, r)
+    xp = kb.apply_plain(Sinv, H, G, perm, r)
+    rb = torch.zeros(pat.npad, dtype=torch.float64, device="cuda")
+    rb[:ndof] = r[perm].float().double()
+    x_ref = kb.solve_blocks_plain(Sinv.double(), H.double(), G.double(),
+                                  rb.view(pat.nb, pat.c)).reshape(-1)
+    ref = torch.empty_like(r)
+    ref[perm] = x_ref[:ndof]
+    del x_ref, rb
+    dk, dp = rel_err(xk, ref)[0], rel_err(xp, ref)[0]
+    print(f"    banded_apply vs the f64 scans: kernel {dk:.3e}, plain "
+          f"{dp:.3e}")
+    require(dk <= 2 * dp + 1e-6, f"banded_apply is less accurate than its "
+                                 f"plain version: {dk:.3e} vs {dp:.3e}")
+    records.add("banded_apply", rel_err(xk, xp),
+                cuda_ms(lambda: kb.apply_cuda(Sinv, H, G, perm, r), 20),
+                cuda_ms(lambda: kb.apply_plain(Sinv, H, G, perm, r), 3),
+                (3 * pat.factor_bytes + nbytes(r, perm) + 8 * ndof,
+                 6 * pat.nb * pat.c * pat.c, "f32"), math.inf,
+                f"3x({pat.nb},{pat.c},{pat.c}) f32, r f64",
+                f64_rel_kernel=dk, f64_rel_plain=dp)
+    return dict(scan_ms=t_scan * 1e3, hg_ms=t_hg * 1e3,
+                probe_ms=t_probe * 1e3, probe_rel=probe, setup=setup,
+                c=pat.c, nb=pat.nb)
+
+
+def phase_kernels():
+    import torch
+
+    system, bc, U, U0 = build_system(FULL_MESH, "cuda", seed=0)
+    print(f"[2] system: {system.mesh.num_cells} cells, {system.space.ndof} "
+          f"dofs, blocks " + ", ".join(
+              f"{b.name}={b.dofs.shape[0]}" for b in system.assembler.blocks))
+    records = Records()
+    phase_element_kernels(records, system, U, U0)
+    extra = phase_iterative_kernels(records, system, bc)
+    del system, U, U0
+    torch.cuda.empty_cache()
+    return records, extra
 
 
 def _run_quiet(overrides):
@@ -228,36 +587,47 @@ def _run_quiet(overrides):
 
 
 def phase_parity(tmp):
-    tic = time.perf_counter()
-    ns_c, it_c, _ = _run_quiet(dict(TINY, device="cpu",
-                                    folder=str(tmp / "tiny_cpu")))
-    t_cpu = time.perf_counter() - tic
-    tic = time.perf_counter()
-    ns_g, it_g, log = _run_quiet(dict(TINY, device="cuda",
-                                      folder=str(tmp / "tiny_cuda")))
-    t_gpu = time.perf_counter() - tic
-    Uc = ns_c["dvp_"]["n"]
-    Ug = ns_g["dvp_"]["n"].cpu()
-    rel = float((Ug - Uc).norm() / Uc.norm())
-    print(f"[3] tiny cylinder ({ns_c['mesh'].num_cells} cells, 3 steps): "
-          f"Newton iterations cpu {it_c} cuda {it_g}; U rel diff {rel:.3e}; "
-          f"wall cpu {t_cpu:.1f} s, cuda {t_gpu:.1f} s")
-    require(it_c == it_g, "Newton iteration counts differ between the CPU "
-                          "plain path and the CUDA kernel path")
-    require(rel <= TOL_PATH, f"U differs by {rel:.3e} relative (> 1e-8)")
-    require(log.count("Solved for timestep") == 3, "tiny run missed steps")
+    for label, extra, tol in (("LU", {}, TOL_PATH_LU),
+                              ("gmres", dict(linear_solver="gmres"),
+                               TOL_PATH_GMRES)):
+        tic = time.perf_counter()
+        ns_c, it_c, _ = _run_quiet(dict(TINY, device="cpu", **extra,
+                                        folder=str(tmp / f"tiny_cpu_{label}")))
+        t_cpu = time.perf_counter() - tic
+        tic = time.perf_counter()
+        ns_g, it_g, log = _run_quiet(dict(TINY, device="cuda", **extra,
+                                          folder=str(tmp / f"tiny_{label}")))
+        t_gpu = time.perf_counter() - tic
+        Uc = ns_c["dvp_"]["n"]
+        Ug = ns_g["dvp_"]["n"].cpu()
+        rel = float((Ug - Uc).norm() / Uc.norm())
+        print(f"[3] tiny cylinder, {label} path ({ns_c['mesh'].num_cells} "
+              f"cells, 3 steps): Newton iterations cpu {it_c} cuda {it_g}; "
+              f"U rel diff {rel:.3e}; wall cpu {t_cpu:.1f} s, cuda "
+              f"{t_gpu:.1f} s")
+        require(it_c == it_g, f"{label}: Newton iteration counts differ "
+                              f"between the CPU plain path and the CUDA "
+                              f"kernel path")
+        require(rel <= tol, f"{label}: U differs by {rel:.3e} relative "
+                            f"(> {tol:.0e})")
+        require(log.count("Solved for timestep") == 3,
+                f"{label}: tiny run missed steps")
 
 
-def phase_main(tmp, mesh_params):
+def run_main_path(tmp, label, mesh_params, **cfg):
+    """driver.main on -p cylinder for 5 steps of dt=1e-3, the launch
+    counters reset just before and read just after."""
     import torch
 
     from vasp_tpu_torch.kernels import build
     from vasp_tpu_torch.run import driver
 
-    cfg_path = tmp / "smoke_config.json"
+    cfg_path = tmp / f"{label}_config.json"
     cfg_path.write_text(json.dumps(dict(
-        mesh_path=None, generated_mesh_params=mesh_params, **NO_FILES)))
-    folder = tmp / "cylinder_smoke"
+        mesh_path=None, generated_mesh_params=mesh_params, **NO_FILES,
+        **cfg)))
+    folder = tmp / f"cylinder_{label}"
+    torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     tic = time.perf_counter()
     ns = driver.main(["-p", "cylinder", "-T", "0.005", "-dt", "0.001",
@@ -266,61 +636,134 @@ def phase_main(tmp, mesh_params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     launches = dict(build.LAUNCHES)
-
     steps = [json.loads(line) for line in
              (folder / "metrics.jsonl").read_text().splitlines()]
     U = ns["dvp_"]["n"]
-    require(U.is_cuda, "the main path's state is not on the card")
-    require(len(steps) == 5, f"{len(steps)} steps instead of 5")
-    require(all(s["converged"] for s in steps), "a step did not converge")
-    require(bool(torch.isfinite(U).all()), "U is not finite")
-    missing = [k for k, n in launches.items() if n == 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
-
+    require(U.is_cuda, f"{label}: the main path's state is not on the card")
+    require(len(steps) == 5, f"{label}: {len(steps)} steps instead of 5")
+    require(all(s["converged"] for s in steps),
+            f"{label}: a step did not converge")
+    require(bool(torch.isfinite(U).all()), f"{label}: U is not finite")
+    path = "lu" if label == "lu" else "gmres"
+    missing = [k for k, (_, _, p) in REPLACES.items()
+               if launches[k] == 0 and (p == path or (
+                   path == "lu" and k in ("fluid_residual", "solid_residual",
+                                          "dg0_project_speed",
+                                          "integrate_p2_dot_n")))]
+    require(not missing, f"{label}: kernels never launched on the path: "
+                         f"{missing}")
     secs = [s["cpu_time"] for s in steps]
-    print(f"[4] cylinder main path: {ns['mesh'].num_cells} cells, "
-          f"{ns['space'].ndof} dofs, 5 steps in {wall:.2f} s")
-    print(f"    s/step {', '.join(f'{x:.3f}' for x in secs)}; "
-          f"steps 2-5 mean {sum(secs[1:]) / 4:.3f} s")
-    print(f"    Newton iterations {[s['newton_iterations'] for s in steps]}; "
-          f"factorizations {ns['solver'].factorizations}")
-    timings = dict(ns["solver"].timings)
-    print("    solver time split (s): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(timings.items())))
+    print(f"    {ns['mesh'].num_cells} cells, {ns['space'].ndof} dofs, 5 "
+          f"steps in {wall:.2f} s")
+    print(f"    s/step {', '.join(f'{x:.3f}' for x in secs)}; steps 2-5 "
+          f"mean {sum(secs[1:]) / 4:.3f} s")
+    print(f"    Newton iterations {[s['newton_iterations'] for s in steps]}")
     print(f"    launches {launches}")
-    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB")
+    print(f"    peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return ns, launches
+
+
+def phase_lu(tmp):
+    print("[4] cylinder, LU path:")
+    ns, launches = run_main_path(tmp, "lu", LU_MESH)
+    timings = dict(ns["solver"].timings)
+    print(f"    factorizations {ns['solver'].factorizations}; solver time "
+          f"split (s): " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in sorted(timings.items())))
     return launches
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--full", action="store_true",
-                    help="run phases 2 and 4 on the 20,832-cell tube")
-    args = ap.parse_args(argv)
-    mesh_params = FULL_MESH if args.full else SMOKE_MESH
+def phase_gmres(tmp):
+    print("[5] cylinder, Newton-Krylov path (linear_solver=gmres):")
+    ns, launches = run_main_path(tmp, "gmres", FULL_MESH,
+                                 linear_solver="gmres")
+    st = ns["solver"].stepper
+    print(f"    GMRES inner iterations per step "
+          f"{[h['gmres_inner'] for h in st.history]}; rebuilds per step "
+          f"{[h['rebuilds'] for h in st.history]}; probe rel "
+          f"{st._last_rel:.3e}; c={st._bpat.c} nb={st._bpat.nb}")
+    print("    one-time host setup (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in st.setup.items()))
+    t = st.timings
+    rebuild = ("rebuild_jacobians", "ruiz", "assemble", "factorize", "hg",
+               "probe")
+    per_it = ("jacobians", "residual", "gmres", "matvec", "precond")
+    print("    rebuild split (s): " + ", ".join(
+        f"{k} {t[k]:.3f}" for k in rebuild))
+    print("    per-iteration split, summed over the run (s): " + ", ".join(
+        f"{k} {t[k]:.3f}" for k in per_it))
+    profile_one_step(ns)
+    return launches
 
+
+def profile_one_step(ns):
+    """A sixth step under torch.profiler (after the measured run, so its
+    overhead touches none of the numbers above)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dt = float(ns["dt"])
+    t = ns["t"] + dt
+    U = ns["dvp_"]["n"]
+    load = ns["load_fn"](t)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with redirect_stdout(io.StringIO()):
+            ns["solver"].solve(U, U, t=t, tstep=ns["counter"] + 1,
+                               load=load)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the device's own entries (kernels, copies, fills): the host ops that
+    # launched them carry the same time again
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA), key=device_us,
+                reverse=True)
+    busy = sum(device_us(e) for e in ev) * 1e-6
+    if busy <= 0.0:
+        print("    profiled step: the profiler recorded no device time "
+              "(busy share not measured)")
+        return
+    print(f"    profiled step: wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} "
+          f"%)")
+    for e in ev[:5]:
+        print(f"      {device_us(e) * 1e-3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def main():
     phase_device()
     import torch
 
-    records = phase_kernels(mesh_params)
+    records, extra = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
         phase_parity(tmp)
-        torch.cuda.reset_peak_memory_stats()
-        launches = phase_main(tmp, mesh_params)
+        launches = {"lu": phase_lu(tmp), "gmres": phase_gmres(tmp)}
 
     kernels = []
-    for name, (src, rep) in REPLACES.items():
+    for name, (src, rep, path) in REPLACES.items():
         r = records[name]
         require(all(math.isfinite(r[k]) for k in ("max_abs_err", "ms",
-                                                  "plain_ms")),
+                                                  "plain_ms", "bound_ms")),
                 f"{name}: non-finite measurement")
-        kernels.append(dict(name=name, route="cuda",
-                            source=f"vasp_tpu_torch/csrc/{src}",
-                            replaces=rep, launches=launches[name],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=f"vasp_tpu_torch/csrc/{src}",
+            replaces=rep, launches=launches[path][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], path=path,
+            **({"variants": r["variants"]} if "variants" in r else {})))
+    print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ import torch
 
 from vasp_tpu_torch.device import resolve_device
 from vasp_tpu_torch.fem import forms
+from vasp_tpu_torch.fem.timestepper import IterativeNewtonSolver, StepOptions
 from vasp_tpu_torch.kernels import build, element
 from vasp_tpu_torch.run.system import FSISystem
 
@@ -74,9 +75,52 @@ def test_unported_options_raise(tiny_tube, extra, item):
 
 @pytest.mark.parametrize("lin", ["gmres", "iterative", "ras"])
 def test_iterative_solvers_raise(tiny_tube, lin):
+    """The three iterative names build the Newton-Krylov solver with
+    vasp_tpu's defaults (they raised before it was ported; the name is
+    kept)."""
     system = FSISystem(tiny_tube, dict(CFG, linear_solver=lin))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    solver = system.make_solver(system.make_bcset([]))
+    assert isinstance(solver, IterativeNewtonSolver)
+    opt = solver.opt
+    assert (opt.precond, opt.jac_dtype, opt.krylov_dtype,
+            opt.residual_dtype, opt.recompute) == ("banded", "f32", None,
+                                                   None, 1)
+    assert solver.stepper.recompute_tstep == 20
+    assert solver.stepper._bpat.nb >= 1
+
+
+@pytest.mark.parametrize("extra,item", [
+    (dict(residual_dtype="f32"), 7), (dict(residual_dtype="mixed"), 7),
+    (dict(residual_dtype="f32f"), 7), (dict(precond="ras"), 14),
+    (dict(chain_anchor=True), 14),
+], ids=["f32", "mixed", "f32f", "ras", "chain_anchor"])
+def test_unported_iterative_options_raise(tiny_tube, extra, item):
+    system = FSISystem(tiny_tube, dict(CFG, linear_solver="gmres", **extra))
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         system.make_solver(system.make_bcset([]))
+
+
+@pytest.mark.parametrize("extra,item", [
+    (dict(jac_carry=True), 7), (dict(banded_factor_dtype="bf16"), 9),
+    (dict(banded_factor_dtype="hybrid"), 9),
+], ids=["jac_carry", "bf16", "hybrid"])
+def test_unported_step_options_raise(extra, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        StepOptions(**extra)
+
+
+def test_factor_escalation_raises(tiny_tube):
+    """A Newton stall under probe-flagged factors would take vasp_tpu's
+    f64 factor escalation, which is not ported: the step raises."""
+    system = FSISystem(tiny_tube, dict(CFG, linear_solver="gmres",
+                                       max_it=0))
+    stepper = system.make_solver(system.make_bcset([])).stepper
+    # factors of this step with a flagged probe; no Newton iteration runs,
+    # so the step ends unconverged under them
+    stepper._pinv, stepper._last_rebuild, stepper._last_rel = (), 1, 2.0
+    U = system.zero_state()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        stepper.step(U, torch.zeros_like(U), torch.ones_like(U), 1)
 
 
 def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
@@ -84,7 +128,9 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
     assert len(h) == 16 and h == build._source_hash()
     assert set(build.LAUNCHES) == {
         "fluid_residual", "solid_residual", "fluid_jacobian",
-        "solid_jacobian", "dg0_project_speed", "integrate_p2_dot_n"}
+        "solid_jacobian", "fluid_jacobian_f32", "solid_jacobian_f32",
+        "dg0_project_speed", "integrate_p2_dot_n", "elem_matvec",
+        "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

@@ -1,5 +1,19 @@
 """The CUDA kernels against their plain torch versions on the card, on the
-tiny tube (the same checks chip_smoke.py makes at full size).
+tiny tube (the same checks chip_smoke.py makes at full size). Tolerances,
+each with its reason:
+- float64 outputs: 1e-12 relative (the atomics' order varies, nothing
+  else);
+- float32 Jacobians: 2e-7 per block (both sides round the same float64
+  value, equal to 1e-12, once: at most one float32 ulp apart);
+- float32 element products (K4): 1e-5 relative (64-term float32 row sums
+  in another order than torch's);
+- K7 and K8: exact (max is exact, the products are the same two float32
+  multiplies, and the banded sums run in plan order on both sides);
+- K6: no fixed bound. Its float32 c-term dot products run in another
+  order than torch's, and the scans carry the difference through 2 nb - 1
+  steps, amplified by the factors' norms. The kernel must be as accurate
+  as the plain version: its distance to the same scans in float64 at most
+  twice the plain version's (plus 1e-6).
 
 Marked `cuda`: they need a CUDA device and nvcc, and skip without them.
 The module imports no jax and builds its own mesh, so on a GPU machine
@@ -9,10 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from vasp_tpu_torch.fem import banded as fb
+from vasp_tpu_torch.fem.dirichlet import DirichletBC
 from vasp_tpu_torch.fem.measures import BoundaryMeasure
+from vasp_tpu_torch.fem.scaling import ruiz_scales
 from vasp_tpu_torch.fem.quadrature import tet_quadrature
 from vasp_tpu_torch.fem.shape import p2_tet
+from vasp_tpu_torch.kernels import banded as kb
 from vasp_tpu_torch.kernels import build, element
+from vasp_tpu_torch.kernels import matvec as km4
+from vasp_tpu_torch.kernels import scaling as ks
 from vasp_tpu_torch.kernels import measures as km
 from vasp_tpu_torch.mesh.generate import fsi_tube_mesh
 from vasp_tpu_torch.run.system import FSISystem
@@ -83,3 +103,97 @@ def test_measure_kernels(system):
     fk = km.integrate_p2_dot_n(v, *tabs)
     fp = km.integrate_p2_dot_n_plain(v, *tabs)
     assert abs(float(fk - fp)) <= RTOL * abs(float(fp))
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["fluid", "solid"])
+def test_jacobian_kernel_f32(system, i):
+    sysm, U, U0 = system
+    b = sysm.assembler.blocks[i]
+    Ak = element.block_jacobian(b, U, U0, torch.float32)
+    Ap = element.jacobian_plain(b, U, U0).to(torch.float32)
+    assert Ak.dtype == torch.float32
+    K = Ak.shape[0]
+    per_block = (Ak - Ap).double().reshape(K, -1).norm(dim=1) / \
+        Ap.double().reshape(K, -1).norm(dim=1)
+    assert float(per_block.max()) <= 2e-7
+
+
+@pytest.mark.parametrize("a_dt,x_dt,tol", [
+    (torch.float32, torch.float64, 1e-5), (torch.float32, torch.float32, 1e-5),
+    (torch.float64, torch.float64, 1e-12), (torch.float64, torch.float32, 1e-5),
+], ids=["f32_f64", "f32_f32", "f64_f64", "f64_f32"])
+def test_matvec_kernel(system, a_dt, x_dt, tol):
+    sysm, U, U0 = system
+    x = torch.as_tensor(np.random.default_rng(3).normal(size=U.shape[0]),
+                        device="cuda").to(x_dt)
+    for b in sysm.assembler.blocks:
+        A = element.jacobian_plain(b, U, U0).to(a_dt)
+        yk = km4.elem_matvec(A, b.dofs, x, torch.zeros_like(x))
+        yp = km4.elem_matvec_plain(A, b.dofs, x, torch.zeros_like(x))
+        assert yk.dtype == x_dt
+        assert _rel(yk.double(), yp.double()) <= tol
+
+
+@pytest.fixture(scope="module")
+def banded_inputs(system):
+    """f32 Jacobians, bc mask, scaled Jacobians, pattern and plan of the
+    tiny tube with the cylinder's wall and inlet constraints."""
+    sysm, _, _ = system
+    sp = sysm.space
+    Z = torch.zeros(sp.ndof, dtype=torch.float64, device="cuda")
+    bcs = [DirichletBC(sp.field_dofs("d", sp.p2_dofs_on_facets(m)), 0.0)
+           for m in (2, 3, 11)]
+    bcs += [DirichletBC(sp.field_dofs("v", sp.p2_dofs_on_facets(m)), 0.0)
+            for m in (2, 11)]
+    bc = sysm.make_bcset(bcs)
+    mask = bc.mask_on("cuda")
+    asm = sysm.assembler
+    jacs = asm.element_jacobians(Z, Z, dtype=torch.float32)
+    dr, dc = ruiz_scales(asm.blocks, jacs, mask, asm.ndof, sweeps=4)
+    jf = [ks.ruiz_scale_plain(A, b.dofs, dr, dc)
+          for b, A in zip(asm.blocks, jacs)]
+    block_dofs = [b.dofs.cpu().numpy() for b in asm.blocks]
+    pat = fb.build_banded_pattern(block_dofs, asm.ndof)
+    plans = fb.build_banded_assembly_plan(block_dofs, pat, bc.mask)
+    diag = torch.as_tensor(fb.identity_diag_slots(pat, bc.mask))
+    return sysm, jacs, mask, dr, dc, jf, pat, plans, diag
+
+
+def test_ruiz_kernels(banded_inputs):
+    sysm, jacs, mask, dr, dc, *_ = banded_inputs
+    n = sysm.assembler.ndof
+    for b, A in zip(sysm.assembler.blocks, jacs):
+        out = [torch.zeros(n, dtype=torch.float32, device="cuda")
+               for _ in range(4)]
+        ks.ruiz_sweep_cuda(A, b.dofs, dr, dc, mask, out[0], out[1])
+        ks.ruiz_sweep_plain(A, b.dofs, dr, dc, mask, out[2], out[3])
+        assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+        assert torch.equal(ks.ruiz_scale_cuda(A, b.dofs, dr, dc),
+                           ks.ruiz_scale_plain(A, b.dofs, dr, dc))
+
+
+def test_banded_kernels(banded_inputs):
+    sysm, _, _, _, _, jf, pat, plans, diag = banded_inputs
+    Ck, Dk, Bk = kb.assemble_cuda(jf, fb.plans_to_device(plans, "cuda"),
+                                  pat.nb, pat.c, diag.cuda())
+    Cp, Dp, Bp = kb.assemble_plain([A.cpu() for A in jf],
+                                   fb.plans_to_device(plans, "cpu"),
+                                   pat.nb, pat.c, diag)
+    for k, p in ((Ck, Cp), (Dk, Dp), (Bk, Bp)):
+        assert torch.equal(k.cpu(), p)
+    Sinv, H, G, rel = fb.factorize_banded(Ck, Dk, Bk)
+    assert np.isfinite(rel)
+    perm = torch.as_tensor(pat.perm, device="cuda")
+    r = torch.as_tensor(np.random.default_rng(4).normal(size=pat.ndof),
+                        device="cuda")
+    rb = torch.zeros(pat.npad, dtype=torch.float64, device="cuda")
+    rb[:pat.ndof] = r[perm].float().double()
+    x64 = kb.solve_blocks_plain(Sinv.double(), H.double(), G.double(),
+                                rb.view(pat.nb, pat.c)).reshape(-1)
+    ref = torch.empty_like(r)
+    ref[perm] = x64[:pat.ndof]
+    for dt in (torch.float64, torch.float32):
+        xk = kb.apply_cuda(Sinv, H, G, perm, r.to(dt))
+        xp = kb.apply_plain(Sinv, H, G, perm, r.to(dt))
+        assert xk.dtype == dt
+        assert _rel(xk.double(), ref) <= 2 * _rel(xp.double(), ref) + 1e-6

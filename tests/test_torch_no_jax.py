@@ -17,8 +17,12 @@ SLICE = [
     "vasp_tpu_torch.fem.smallmat", "vasp_tpu_torch.fem.kinematics",
     "vasp_tpu_torch.fem.forms", "vasp_tpu_torch.fem.assembly",
     "vasp_tpu_torch.fem.solver", "vasp_tpu_torch.fem.measures",
-    "vasp_tpu_torch.kernels.build", "vasp_tpu_torch.kernels.element",
-    "vasp_tpu_torch.kernels.measures", "vasp_tpu_torch.bcs",
+    "vasp_tpu_torch.fem.scaling", "vasp_tpu_torch.fem.krylov",
+    "vasp_tpu_torch.fem.banded", "vasp_tpu_torch.fem.timestepper",
+    "vasp_tpu_torch.native", "vasp_tpu_torch.kernels.build",
+    "vasp_tpu_torch.kernels.element", "vasp_tpu_torch.kernels.measures",
+    "vasp_tpu_torch.kernels.matvec", "vasp_tpu_torch.kernels.scaling",
+    "vasp_tpu_torch.kernels.banded", "vasp_tpu_torch.bcs",
     "vasp_tpu_torch.bcs.waveforms", "vasp_tpu_torch.run.config",
     "vasp_tpu_torch.run.checkpoint", "vasp_tpu_torch.run.output",
     "vasp_tpu_torch.run.metrics", "vasp_tpu_torch.run.system",

@@ -16,7 +16,11 @@
 // - Jacobian: f64 FLOPs. One block per cell, one thread per column j:
 //   the thread runs the residual on Dual numbers seeded with e_j and
 //   writes column j of A_e, so a warp's stores to one row are coalesced.
-//   The cell's local state is staged once in shared memory.
+//   The cell's local state is staged once in shared memory. The output
+//   type is a template parameter: f64, or f32 for the iterative path's
+//   preconditioner and Krylov matrices (jac_dtype="f32"). The f32 output
+//   is computed in f64 and rounded once on the write, where vasp_tpu runs
+//   jax.jacfwd in f32 arithmetic on f32 inputs.
 #include <cstdint>
 
 #include "element_forms.cuh"
@@ -68,7 +72,7 @@ __global__ void residual_kernel(const double* __restrict__ U,
   }
 }
 
-template <class Params>
+template <class Params, class TOut>
 __global__ void __launch_bounds__(64)
 jacobian_kernel(const double* __restrict__ U, const double* __restrict__ U0,
                 const int64_t* __restrict__ dofs,
@@ -76,7 +80,7 @@ jacobian_kernel(const double* __restrict__ U, const double* __restrict__ U0,
                 const double* __restrict__ detJ,
                 const double* __restrict__ vol,
                 const double* __restrict__ rowmask,
-                double* __restrict__ A, int K, int nq, Params P) {
+                TOut* __restrict__ A, int K, int nq, Params P) {
   const int k = blockIdx.x;
   const int j = threadIdx.x;  // the column this thread differentiates by
   if (k >= K) return;
@@ -97,11 +101,11 @@ jacobian_kernel(const double* __restrict__ U, const double* __restrict__ U0,
 #pragma unroll
   for (int i = 0; i < 9; ++i) J[i] = s_J[i];
   eval_cell(P, u, u0, J, detJ[k], vol[k], nq, r);
-  double* Ak = A + (int64_t)k * 64 * 64;
+  TOut* Ak = A + (int64_t)k * 64 * 64;
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const double m = rowmask ? rowmask[(int64_t)k * 64 + i] : 1.0;
-    Ak[i * 64 + j] = r[i].d * m;
+    Ak[i * 64 + j] = (TOut)(r[i].d * m);
   }
 }
 
@@ -121,11 +125,14 @@ int launch_residual(const double* U, const double* U0, const int64_t* dofs,
 template <class Params>
 int launch_jacobian(const double* U, const double* U0, const int64_t* dofs,
                     const double* Jinv, const double* detJ, const double* vol,
-                    const double* rowmask, double* A, int K, int nq, Params P,
-                    void* stream) {
-  if (K > 0) {
-    jacobian_kernel<Params><<<K, 64, 0, (cudaStream_t)stream>>>(
-        U, U0, dofs, Jinv, detJ, vol, rowmask, A, K, nq, P);
+                    const double* rowmask, void* A, int out_f32, int K, int nq,
+                    Params P, void* stream) {
+  if (K > 0 && out_f32) {
+    jacobian_kernel<Params, float><<<K, 64, 0, (cudaStream_t)stream>>>(
+        U, U0, dofs, Jinv, detJ, vol, rowmask, (float*)A, K, nq, P);
+  } else if (K > 0) {
+    jacobian_kernel<Params, double><<<K, 64, 0, (cudaStream_t)stream>>>(
+        U, U0, dofs, Jinv, detJ, vol, rowmask, (double*)A, K, nq, P);
   }
   return (int)cudaGetLastError();
 }
@@ -167,22 +174,25 @@ int vt_solid_residual(const double* U, const double* U0, const int64_t* dofs,
   return launch_residual(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P, stream);
 }
 
+// A (K,64,64) is float32 when out_f32 is nonzero, else float64.
 int vt_fluid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
-                      const double* rowmask, double* A, int K, int nq,
+                      const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double dt, double theta,
                       double lift_coeff, int lift_sub, void* stream) {
   FluidParams P{rho, mu, dt, theta, lift_coeff, lift_sub};
-  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, K, nq, P, stream);
+  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K,
+                         nq, P, stream);
 }
 
 int vt_solid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
-                      const double* rowmask, double* A, int K, int nq,
+                      const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
                       void* stream) {
   SolidParams P{rho, mu, lam, dt, theta};
-  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, K, nq, P, stream);
+  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K,
+                         nq, P, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
-"""Block-based residual / element-Jacobian assembly on torch tensors.
+"""Block-based residual / element-Jacobian / matvec assembly on torch
+tensors.
 
 Counterpart of vasp_tpu.fem.assembly (the plain scatter-add path): gather
 -> element kernel -> masked scatter-add, with the element Jacobians kept
-as a batched (K, 64, 64) float64 tensor per block. On CUDA tensors the
-residual and Jacobians are the hand-written kernels of
-kernels/element.py; on CPU tensors their plain torch versions.
+as a batched (K, 64, 64) float64 or float32 tensor per block, and the
+matrix-free matvec over them. On CUDA tensors the residual, Jacobians and
+matvec are the hand-written kernels of kernels/element.py and
+kernels/matvec.py; on CPU tensors their plain torch versions.
 """
 from dataclasses import dataclass
 from typing import Optional
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from vasp_tpu_torch.kernels import element
+from vasp_tpu_torch.kernels.matvec import elem_matvec
 
 
 def cell_geometry(coords, cells):
@@ -65,9 +68,19 @@ class Assembler:
             element.block_residual(b, U, U0, R)
         return R
 
-    def element_jacobians(self, U, U0):
-        """Per block, the (K,64,64) float64 element Jacobians, rows masked."""
-        return [element.block_jacobian(b, U, U0) for b in self.blocks]
+    def element_jacobians(self, U, U0, dtype=torch.float64):
+        """Per block, the (K,64,64) element Jacobians in `dtype` (float64
+        or float32, see kernels/element.py on how float32 is rounded),
+        rows masked."""
+        return [element.block_jacobian(b, U, U0, dtype) for b in self.blocks]
+
+    def matvec(self, jacs, x):
+        """y = J x from element Jacobians, in x's dtype: each element
+        product is taken in the Jacobians' dtype and accumulated in x's."""
+        y = torch.zeros(self.ndof, dtype=x.dtype, device=x.device)
+        for b, A in zip(self.blocks, jacs):
+            elem_matvec(A, b.dofs, x, y)
+        return y
 
     # ---------------- host-side sparse export (direct solver path) ----------
     def to_csr(self, jacs, bc_mask: Optional[np.ndarray] = None):

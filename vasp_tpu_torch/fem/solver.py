@@ -75,9 +75,9 @@ class NewtonSolver:
     def __init__(self, assembler, bc_set, options: NewtonOptions):
         if options.linear_solver != "lu":
             raise NotImplementedError(
-                f"linear_solver={options.linear_solver!r}: only the host LU "
-                f"path is ported to vasp_tpu_torch (GMRES is ROADMAP.md "
-                f"queue 1, item 5)")
+                f"linear_solver={options.linear_solver!r}: NewtonSolver is "
+                f"the host LU path; the Krylov solvers are "
+                f"fem/timestepper.py IterativeNewtonSolver")
         self.asm = assembler
         self.bc = bc_set
         self.opt = options

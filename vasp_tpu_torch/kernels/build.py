@@ -2,8 +2,9 @@
 
 nvcc compiles the sources into build/vasp_tpu_torch/ at the checkout's root
 at first use, and again whenever a source or flag changes (the library's
-name carries a hash of both). The library has a plain C interface bound
-with ctypes: nothing here includes PyTorch's headers, so a cold build takes
+name carries a hash of both): one nvcc process per source, all started
+together, then one link. The library has a plain C interface bound with
+ctypes: nothing here includes PyTorch's headers, so a cold build takes
 seconds. Nothing is imported or built when this module is imported.
 """
 import ctypes
@@ -20,15 +21,19 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
-SOURCES = ("element_kernels.cu", "measures.cu")
+SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
+           "banded.cu")
 HEADERS = ("element_forms.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # one count per kernel, bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_jacobian", "solid_jacobian",
-     "dg0_project_speed", "integrate_p2_dot_n"), 0)
+     "fluid_jacobian_f32", "solid_jacobian_f32", "dg0_project_speed",
+     "integrate_p2_dot_n", "elem_matvec", "ruiz_sweep", "ruiz_scale",
+     "banded_assemble", "banded_apply"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -62,16 +67,30 @@ def library():
     so = BUILD_DIR / f"libvasp_tpu_torch_{_source_hash()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(CSRC / s) for s in SOURCES]]
+        tag = f"{_source_hash()}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
         tic = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run(
+                [_nvcc(), *GENCODE, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
         BUILD_SECONDS["nvcc"] = time.perf_counter() - tic
-        (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        (BUILD_DIR / "nvcc.log").write_text(log)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log[-4000:]}")
         os.replace(tmp, so)
     return _bind(ctypes.CDLL(str(so)))
 
@@ -82,11 +101,18 @@ def _bind(lib):
         "vt_element_nq_max": [],
         "vt_set_element_tables": [P, P, P, P, I],
         "vt_fluid_residual": [P] * 8 + [I, I, D, D, D, D, D, I, P],
-        "vt_fluid_jacobian": [P] * 8 + [I, I, D, D, D, D, D, I, P],
+        "vt_fluid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
         "vt_solid_residual": [P] * 8 + [I, I, D, D, D, D, D, P],
-        "vt_solid_jacobian": [P] * 8 + [I, I, D, D, D, D, D, P],
+        "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
+        "vt_elem_matvec": [P, I, P, P, P, I, I, P],
+        "vt_ruiz_sweep": [P] * 7 + [I, P],
+        "vt_ruiz_scale": [P] * 5 + [I, P],
+        "vt_banded_segsum": [P, P, P, P, I, I, P, P],
+        "vt_banded_solve": [P] * 5 + [I, I, P],
+        "vt_banded_permute": [P, I, P, I, I, P, P],
+        "vt_banded_unpermute": [P, P, I, P, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

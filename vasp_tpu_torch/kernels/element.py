@@ -12,6 +12,13 @@ Replaces vasp_tpu/fem/assembly.py CellBlock.residual_local + the plain
 scatter of Assembler.residual (K1 fluid, K2 solid) and
 CellBlock.jacobian_local (K3). Costs and design: see the head of
 csrc/element_kernels.cu.
+
+Jacobians come in float64 or float32 (``dtype``). vasp_tpu computes its
+float32 Jacobians by jax.jacfwd in float32 arithmetic on float32 inputs;
+the port computes them in float64 and rounds once on the write (the
+kernel's output type, and ``jacobian_plain(...).to(float32)``). This is a
+designed difference: the port's float32 Jacobians are the correctly
+rounded float64 ones, vasp_tpu's carry float32 rounding from every step.
 """
 import numpy as np
 import torch
@@ -125,18 +132,23 @@ def residual_cuda(block, U, U0, R):
     return R
 
 
-def jacobian_cuda(block, U, U0):
-    """(K,64,64) masked element Jacobians, by the K3 kernel."""
+def jacobian_cuda(block, U, U0, dtype=torch.float64):
+    """(K,64,64) masked element Jacobians in `dtype` (float64 or float32),
+    by the K3 kernel."""
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"K3 writes float64 or float32, not {dtype}")
     lib, nq, stream = _prepare(block, U, U0)
     K = block.dofs.shape[0]
-    A = torch.empty((K, 64, 64), dtype=torch.float64, device=U.device)
+    A = torch.empty((K, 64, 64), dtype=dtype, device=U.device)
     kind = block.kernel.kind
+    f32 = dtype == torch.float32
     fn = lib.vt_fluid_jacobian if kind == "fluid" else lib.vt_solid_jacobian
     args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
                                    block.vol, block.rowmask, A)]
-    build.check(fn(*args, K, nq, *cuda_params(block.kernel), stream),
-                f"{kind}_jacobian")
-    build.LAUNCHES[f"{kind}_jacobian"] += 1
+    name = f"{kind}_jacobian" + ("_f32" if f32 else "")
+    build.check(fn(*args, int(f32), K, nq, *cuda_params(block.kernel),
+                   stream), name)
+    build.LAUNCHES[name] += 1
     return A
 
 
@@ -149,9 +161,9 @@ def block_residual(block, U, U0, R):
     return residual_plain(block, U, U0, R)
 
 
-def block_jacobian(block, U, U0):
-    """(K,64,64) masked element Jacobians: plain on CPU tensors, the CUDA
-    kernel on CUDA tensors."""
+def block_jacobian(block, U, U0, dtype=torch.float64):
+    """(K,64,64) masked element Jacobians in `dtype`: plain on CPU
+    tensors, the CUDA kernel on CUDA tensors."""
     if build.on_cuda(U, "element"):
-        return jacobian_cuda(block, U, U0)
-    return jacobian_plain(block, U, U0)
+        return jacobian_cuda(block, U, U0, dtype)
+    return jacobian_plain(block, U, U0).to(dtype)

@@ -1,0 +1,75 @@
+"""K7: one Ruiz sweep (row/column maxima) and the element rescale.
+
+Plain torch versions (``ruiz_sweep_plain``, ``ruiz_scale_plain``), CUDA
+launches (csrc/ruiz.cu) and the dispatch fem/scaling.py calls: a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises. The
+kernels take float32 element matrices, the only ones the iterative path
+equilibrates.
+
+Replaces the sweep body of vasp_tpu/fem/scaling.py ruiz_scales and
+scale_element_jacobians. Costs and design: see the head of csrc/ruiz.cu.
+"""
+import torch
+
+from vasp_tpu_torch.kernels import build
+
+
+# ------------------------------------------------------------ plain ----
+def ruiz_sweep_plain(A, dofs, dr, dc, mask, rmax, cmax):
+    """rmax/cmax (in place) max= the row/column maxima of |dr_i A_ij dc_j|
+    over the block's cells, bc rows and columns left out."""
+    As = torch.abs(dr[dofs][:, :, None] * A * dc[dofs][:, None, :])
+    bcm = mask[dofs]
+    As = torch.where(bcm[:, :, None] | bcm[:, None, :], 0.0, As)
+    flat = dofs.reshape(-1)
+    rmax.scatter_reduce_(0, flat, As.amax(dim=2).reshape(-1), "amax")
+    cmax.scatter_reduce_(0, flat, As.amax(dim=1).reshape(-1), "amax")
+
+
+def ruiz_scale_plain(A, dofs, dr, dc):
+    """dr[rows] A_e dc[cols] for every cell of the block."""
+    return dr[dofs][:, :, None] * A * dc[dofs][:, None, :]
+
+
+# ------------------------------------------------------------- cuda ----
+def _check(A, dofs, dr, dc):
+    dev, f32 = A.device, torch.float32
+    K = dofs.shape[0]
+    build.require(A, "A", f32, (K, 64, 64), dev)
+    build.require(dofs, "dofs", torch.int64, (K, 64), dev)
+    build.require(dr, "dr", f32, dr.shape[:1], dev)
+    build.require(dc, "dc", f32, dr.shape, dev)
+    return build.library(), K, build.stream_handle(dev)
+
+
+def ruiz_sweep_cuda(A, dofs, dr, dc, mask, rmax, cmax):
+    lib, K, stream = _check(A, dofs, dr, dc)
+    build.require(mask, "mask", torch.bool, dr.shape, A.device)
+    build.require(rmax, "rmax", torch.float32, dr.shape, A.device)
+    build.require(cmax, "cmax", torch.float32, dr.shape, A.device)
+    build.check(lib.vt_ruiz_sweep(*map(build.ptr, (A, dofs, dr, dc, mask,
+                                                   rmax, cmax)), K, stream),
+                "ruiz_sweep")
+    build.LAUNCHES["ruiz_sweep"] += 1
+
+
+def ruiz_scale_cuda(A, dofs, dr, dc):
+    lib, K, stream = _check(A, dofs, dr, dc)
+    out = torch.empty_like(A)
+    build.check(lib.vt_ruiz_scale(*map(build.ptr, (A, dofs, dr, dc, out)), K,
+                                  stream), "ruiz_scale")
+    build.LAUNCHES["ruiz_scale"] += 1
+    return out
+
+
+# --------------------------------------------------------- dispatch ----
+def ruiz_sweep(A, dofs, dr, dc, mask, rmax, cmax):
+    if build.on_cuda(A, "ruiz_sweep"):
+        return ruiz_sweep_cuda(A, dofs, dr, dc, mask, rmax, cmax)
+    return ruiz_sweep_plain(A, dofs, dr, dc, mask, rmax, cmax)
+
+
+def ruiz_scale(A, dofs, dr, dc):
+    if build.on_cuda(A, "ruiz_scale"):
+        return ruiz_scale_cuda(A, dofs, dr, dc)
+    return ruiz_scale_plain(A, dofs, dr, dc)
