@@ -93,8 +93,8 @@ def test_exact_newton_matches_vasp_tpu(pair):
     tU, _ = tst.step(ts.zero_state(), tbcv, tload, 1)
     jU2, _, jstats = jst._newton_chunked(jU, jU, jbcv, 2.0 * jload, False,
                                          OPTS["max_it"], exact=True)
-    tU2, _, tstats = tst._newton(tU, tU, tbcv, 2.0 * tload, OPTS["max_it"],
-                                 exact=True)
+    tU2, tstats = tst._newton(tU, tU, tbcv, 2.0 * tload, OPTS["max_it"],
+                              exact=True)
     assert tstats["iterations"] == int(jstats["iterations"])
     assert _rel(tU2.numpy(), np.asarray(jU2)) <= 1e-7
 
@@ -114,7 +114,7 @@ def test_stall_triggered_rebuild(pair):
     noise = torch.as_tensor(rng.uniform(-1.0, 1.0, tuple(Sinv.shape)),
                             dtype=Sinv.dtype)
     tst._pinv = (Sinv * (1.0 + 5.0 * noise), H, G)
-    _, _, stale = tst._newton(U1, U1, tbcv, 3.0 * tload, OPTS["max_it"])
+    _, stale = tst._newton(U1, U1, tbcv, 3.0 * tload, OPTS["max_it"])
     assert stale["stalled"], "damaged factors must stall raw Newton"
     U2, stats = tst.step(U1, tbcv, 3.0 * tload, 2)
     assert tst.rebuilds == 2 and tst._last_rebuild == 2

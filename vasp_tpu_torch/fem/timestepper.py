@@ -257,7 +257,7 @@ class IterativeStepper:
 
     def _newton(self, U0, Ustart, bcv, load, it_cap, exact=False):
         """Damped Newton from Ustart (bc values imposed) on the residual of
-        the step from U0. Returns (U, R, stats) for the best state seen,
+        the step from U0. Returns (U, stats) for the best state seen,
         stats = iterations, residual (best), r0, stalled. exact=True:
         float64 Jacobians and float64 GMRES with the exact tier's
         tolerance and cycles."""
@@ -268,7 +268,7 @@ class IterativeStepper:
         R, rnorm = self._residual(U, U0, load)
         r0 = rnorm
         r0_safe = r0 if r0 > 0 else 1.0
-        Ub, rb, Rb = U, rnorm, R
+        Ub, rb = U, rnorm
         stall, it, eta = 0, 0, opt.gmres_tol
         # a stall is a residual not decreasing; the exact variant counts
         # only near-zero progress as one
@@ -292,7 +292,7 @@ class IterativeStepper:
             rn = min(rs)
             stall = stall + 1 if rn > sthr * rnorm else 0
             if rn < rb:
-                Ub, rb, Rb = U, rn, R
+                Ub, rb = U, rn
             # Eisenstat-Walker forcing term of the next direction
             eta = float(np.clip(
                 max(opt.ew_gamma * (rn / max(rnorm, 1e-300)) ** 2,
@@ -300,8 +300,8 @@ class IterativeStepper:
                 opt.gmres_tol, opt.ew_max))
             rnorm = rn
             it += 1
-        return Ub, Rb, dict(iterations=it, residual=rb, r0=r0,
-                            stalled=stall >= 2)
+        return Ub, dict(iterations=it, residual=rb, r0=r0,
+                        stalled=stall >= 2)
 
     # -------------- public --------------
     def step(self, U0, bc_values, load, tstep):
@@ -318,8 +318,8 @@ class IterativeStepper:
                 and tstep == self._pred_tstep + 1):
             Ustart = U0 + (U0 - self._pred_prev)
         self._pred_prev, self._pred_tstep = U0, tstep
-        U, _, stats = self._newton(U0, Ustart, bc_values, load,
-                                   self.opt.max_it)
+        U, stats = self._newton(U0, Ustart, bc_values, load,
+                                self.opt.max_it)
         converged = (stats["residual"] <= self.opt.atol
                      or stats["residual"] <= self.opt.rtol
                      * max(stats["r0"], 1e-300))
@@ -334,8 +334,8 @@ class IterativeStepper:
             # best mid-Newton state and continue from it
             self._rebuild(U, U0, tstep)
             it0 = stats["iterations"]
-            U, _, stats = self._newton(U0, U, bc_values, load,
-                                       self.opt.max_it)
+            U, stats = self._newton(U0, U, bc_values, load,
+                                    self.opt.max_it)
             stats["iterations"] += it0
         self.history.append(dict(
             tstep=tstep, iterations=stats["iterations"],
