@@ -57,8 +57,14 @@ def _two_steps(pair, **extra):
     return jst, tst, out
 
 
-def test_steps_match_vasp_tpu(pair):
-    jst, tst, out = _two_steps(pair)
+@pytest.fixture(scope="module")
+def default_steps(pair):
+    """Two steps of both steppers with OPTS (one rebuild, one reuse)."""
+    return _two_steps(pair)
+
+
+def test_steps_match_vasp_tpu(default_steps):
+    jst, tst, out = default_steps
     for jU, jstats, tU, tstats in out:
         assert tU.dtype == torch.float64
         assert tstats["iterations"] == int(jstats["iterations"])
@@ -83,15 +89,14 @@ def test_f32_krylov_ew_forcing_and_predictor_match_vasp_tpu(pair):
         assert _rel(tU.numpy(), jU) <= 1e-7
 
 
-def test_exact_newton_matches_vasp_tpu(pair):
-    """The exact variant (float64 Jacobians, float64 GMRES, 5x cycles) on
-    top of the first step's preconditioner."""
-    (js, jbc, jload, jbcv), (ts, tbc, tload, tbcv) = pair
-    jst = JaxStepper(js, jbc, JaxOptions(**OPTS), recompute_tstep=5)
-    tst = IterativeStepper(ts, tbc, StepOptions(**OPTS), recompute_tstep=5)
-    jU, _ = jst.step(js.zero_state(), jbcv, jload, 1)
-    tU, _ = tst.step(ts.zero_state(), tbcv, tload, 1)
-    jU2, _, jstats = jst._newton_chunked(jU, jU, jbcv, 2.0 * jload, False,
+def test_exact_newton_matches_vasp_tpu(pair, default_steps):
+    """The exact variant (float64 Jacobians, float64 GMRES, 5x cycles) from
+    the second step's state, on top of the first step's preconditioner."""
+    (_, _, jload, jbcv), (_, _, tload, tbcv) = pair
+    jst, tst, out = default_steps
+    jU, _, tU, _ = out[-1]
+    jU2, _, jstats = jst._newton_chunked(jnp.asarray(jU), jnp.asarray(jU),
+                                         jbcv, 2.0 * jload, False,
                                          OPTS["max_it"], exact=True)
     tU2, tstats = tst._newton(tU, tU, tbcv, 2.0 * tload, OPTS["max_it"],
                               exact=True)

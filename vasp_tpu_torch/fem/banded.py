@@ -194,13 +194,9 @@ def probe_rel(Cm, D, Bm, Sinv, H, G):
     b = torch.where(torch.arange(nb * c, device=D.device) % 2 == 0, 1.0,
                     -1.0).to(torch.float32).view(nb, c)
     x = kb.solve_blocks(Sinv, H, G, b)
-
-    def bgemv(M, v):
-        return torch.matmul(M, v[..., None])[..., 0]
-
-    y = bgemv(D, x)
-    y[1:] += bgemv(Cm[1:], x[:-1])
-    y[:-1] += bgemv(Bm[:-1], x[1:])
+    y = kb.bgemv(D, x)
+    y[1:] += kb.bgemv(Cm[1:], x[:-1])
+    y[:-1] += kb.bgemv(Bm[:-1], x[1:])
     return float(torch.linalg.norm(y - b) / torch.linalg.norm(b))
 
 

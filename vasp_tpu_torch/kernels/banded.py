@@ -33,20 +33,21 @@ def assemble_plain(jacs, plans, nb, c, diag_flat):
     return tuple(b.view(nb, c, c) for b in bufs)
 
 
-def _bgemv(M, v):
+def bgemv(M, v):
+    """Batched block GEMV: M (..., c, c) times v (..., c)."""
     return torch.matmul(M, v[..., None])[..., 0]
 
 
 def solve_blocks_plain(Sinv, H, G, rb):
     """x (nb, c) with t_k = Sinv_k r_k, w_k = t_k - H_k w_{k-1},
     x_k = w_k - G_k x_{k+1}."""
-    t = _bgemv(Sinv, rb)
+    t = bgemv(Sinv, rb)
     w = [t[0]]
     for k in range(1, t.shape[0]):
-        w.append(t[k] - _bgemv(H[k], w[-1]))
+        w.append(t[k] - bgemv(H[k], w[-1]))
     x = [w[-1]]
     for k in range(t.shape[0] - 2, -1, -1):
-        x.append(w[k] - _bgemv(G[k], x[-1]))
+        x.append(w[k] - bgemv(G[k], x[-1]))
     return torch.stack(x[::-1])
 
 
