@@ -80,8 +80,7 @@ TOL_MATVEC_F32 = 1e-5
 TOL_PATH_LU = 1e-8
 TOL_PATH_GMRES = 3e-5
 # H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores (NVIDIA
-# H100 data sheet; the f64 figure is the data sheet's FP64, the f32 one the
-# on-chip-measurement table's)
+# H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"f64": 34e12, "f32": 67e12}
 FULL_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04, n_theta=16,
