@@ -7,15 +7,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Device: needs torch.cuda; prints the card's name and power limit and
    builds the CUDA kernels from csrc/ (one nvcc per source, in parallel;
-   build seconds, ptxas register and spill report).
+   build seconds, ptxas register and spill report); the SASS of the
+   float32 residual instances must hold no float64 arithmetic.
 2. Kernel vs plain on the card at the 20,832-cell tube (184,845 dofs):
    every kernel against its plain torch version on the same inputs, each
    timed with CUDA events beside its plain version, its bound (bytes over
-   3.35 TB/s or operations over the f64/f32 peak, the larger) and, for
-   the element matvec, cuSPARSE's SpMV of the same matrix as a yardstick.
-   Tolerances, each with its reason:
+   3.35 TB/s or operations over the peak of their type, the larger) and,
+   for the element matvec, cuSPARSE's SpMV of the same matrix as a
+   yardstick. Tolerances, each with its reason:
    - float64 outputs (K1, K2, K3, K4 f64, K19): 1e-12 relative; the f64
      atomics' order varies, nothing else;
+   - float32 element residuals (K1/K2 f32): as accurate as the plain
+     version, ||R_kernel - R_plain|| <= 2 ||R_plain - R_f64|| + 1e-14
+     ||R_f64||; both are float32 element work summed in float64, in other
+     orders;
    - float32 Jacobians (K3 f32): 2e-7 per cell block; both sides round
      float64 values that agree to 1e-12 once, so they are at most one
      float32 ulp apart;
@@ -31,13 +36,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      version's plus 1e-6; both sum c-term float32 dot products, in other
      orders, through 2 nb - 1 scan steps.
    The Schur scan (K9, cuBLAS/cuSOLVER through torch), H/G and the probe
-   (K10) are timed on the same factors.
+   (K10) are timed on the same factors, and beside them the escalation
+   tier's float64 scan (K11, torch in float64), whose factors must probe
+   no worse than K9's; its first two blocks against the same recursion on
+   the host, 1e-5 relative (float32 roundings of float64 inverses from
+   cuSOLVER and LAPACK).
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
    (plain versions) and on the card (kernels), on the LU path (U within
-   1e-8 relative) and on the Newton-Krylov path (linear_solver="gmres"; U
+   1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
    within 3e-5 relative: one inexact Newton step per time step, its
    direction solved to gmres_tol = 1e-6, with float32 sums in other
-   orders): the same Newton iteration counts.
+   orders) and on the bench configuration (f32f residuals, float32 Krylov,
+   gmres_tol = 1e-3; U within 3e-2 relative: 30 x gmres_tol as on the
+   gmres path, by the same argument): the same Newton iteration counts
+   and ladder tiers. Then two forced ladder runs on a small tube of
+   bench.py's physics, each from factors damaged before its first step
+   (every Sinv entry scaled by 1 + 5 u, so that every tier fires for a
+   reason that does not depend on rounding): under a flagged probe at
+   atol 1e-8 (the K11 escalation), and with f32f at atol 1e-11, under
+   the float32 residual floor (the fine retry, the exact tier and the
+   rebuild-at-current-state retry); the same tiers and Newton counts on
+   the CPU and the card, U within 1e-5 relative (the escalation run ends
+   on float32 GMRES directions at a residual near 5e-10; measured 6e-7).
+   The launch counters are reset before the card's forced runs and read
+   after them: the ladder's own path.
 4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
    cylinder of 10 layers; its host splu takes under a minute on a
    CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
@@ -50,13 +72,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    after; every step must converge, U must be finite and on the card, and
    every kernel of the path must have launched. Prints s/step, Newton
    and GMRES inner iterations per step, the rebuild and per-iteration
-   time splits, the probe, peak device memory and the one-time host
-   setup (pattern, RCM, assembly plan). Then one more step under
-   torch.profiler: the device's busy share of that step's wall time (the
-   sum of device time over the step's kernels and copies, which run on one
-   stream) and its five costliest device functions.
+   time splits, GMRES's bound per direction (K5: its matvecs and applies
+   at the K4 and K6 bounds plus the bytes of its CGS2 projections, spread
+   as evenly over the restart cycles as the counts allow), the probe,
+   peak device memory and the one-time host setup (pattern, RCM,
+   assembly plan). Then one more step under torch.profiler: the device's
+   busy share of that step's wall time (the sum of device time over the
+   step's kernels and copies, which run on one stream) and its five
+   costliest device functions.
+6. The bench configuration through the driver: -p cylinder at the
+   20,832-cell tube, 5 steps, with bench.py's options as config keys
+   (linear_solver="gmres", residual_dtype="f32f", krylov_dtype="f32",
+   gmres_tol=1e-3, gmres_restart=60, gmres_maxiter=120, jac_recompute=2,
+   atol=rtol=1e-6, max_it=12); the same checks and lines as phase 5.
+7. The bench tube of bench.py (the stenosed 20,832-cell tube, quadrature
+   degree 3, its Dirichlet sets, the 150x interface load ramped over 6
+   steps) through the port's IterativeStepper with the same options, 6
+   ramp steps and 3 more; counters reset just before and read just after;
+   every step must converge; the same lines as phase 5.
 
-Phases 3-5 run with HDF5 output off (save_step=0, checkpoint_step=0),
+Phases 3-6 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -79,10 +114,13 @@ TOL_JAC_F32 = 2e-7
 TOL_MATVEC_F32 = 1e-5
 TOL_PATH_LU = 1e-8
 TOL_PATH_GMRES = 3e-5
-# H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores (NVIDIA
-# H100 SXM data sheet)
+TOL_PATH_F32F = 3e-2
+TOL_LADDER = 1e-5
+# H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores, and the
+# f64 tensor-core peak that cuBLAS's DGEMM can reach (NVIDIA H100 SXM data
+# sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"f64": 34e12, "f32": 67e12}
+PEAK = {"f64": 34e12, "f32": 67e12, "f64_tensor": 67e12}
 FULL_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04, n_theta=16,
                  n_r_fluid=3, n_r_solid=1, n_z=62)  # 20,832 cells
 # 10 layers of the 11,088-cell tube's cross-section: 2,520 cells
@@ -95,29 +133,70 @@ NO_FILES = dict(save_step=0, checkpoint_step=0)
 TINY = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
             atol=1e-7, rtol=1e-7, recompute=5, recompute_tstep=1,
             verbose=True, **NO_FILES)
-# kernel -> (source, the vasp_tpu device code it replaces, its path)
+# bench.py's options of the Newton-Krylov path (bench.py:102-162) as
+# config keys, and as StepOptions
+BENCH_CFG = dict(linear_solver="gmres", residual_dtype="f32f",
+                 krylov_dtype="f32", gmres_tol=1e-3, gmres_restart=60,
+                 gmres_maxiter=120, jac_recompute=2, atol=1e-6, rtol=1e-6,
+                 max_it=12)
+BENCH_STEP = dict(atol=1e-6, rtol=1e-6, max_it=12, recompute=2,
+                  gmres_tol=1e-3, gmres_restart=60, gmres_maxiter=120,
+                  jac_chunk=8192, overlap=2, jac_dtype="f32",
+                  krylov_dtype="f32", residual_dtype="f32f")
+# a small tube (bench.py's physics) for the forced ladder runs
+LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
+                   n_r_fluid=2, n_r_solid=1, n_z=5)
+CSRC = "vasp_tpu_torch/csrc/"
+# kernel -> (source, the vasp_tpu device code it replaces, the path whose
+# run reports its launches)
 REPLACES = {
-    "fluid_residual": ("element_kernels.cu", "vasp_tpu/fem/forms.py:86",
-                       "gmres"),
-    "solid_residual": ("element_kernels.cu", "vasp_tpu/fem/forms.py:205",
-                       "gmres"),
-    "fluid_jacobian": ("element_kernels.cu", "vasp_tpu/fem/assembly.py:92",
-                       "lu"),
-    "solid_jacobian": ("element_kernels.cu", "vasp_tpu/fem/assembly.py:92",
-                       "lu"),
-    "fluid_jacobian_f32": ("element_kernels.cu",
+    "fluid_residual": (CSRC + "element_kernels.cu",
+                       "vasp_tpu/fem/forms.py:86", "gmres"),
+    "solid_residual": (CSRC + "element_kernels.cu",
+                       "vasp_tpu/fem/forms.py:205", "gmres"),
+    "fluid_residual_f32": (CSRC + "element_kernels.cu",
+                           "vasp_tpu/fem/forms.py:86 via "
+                           "vasp_tpu/fem/assembly.py:83 (dtype=float32)",
+                           "f32f"),
+    "solid_residual_f32": (CSRC + "element_kernels.cu",
+                           "vasp_tpu/fem/forms.py:205 via "
+                           "vasp_tpu/fem/assembly.py:83 (dtype=float32)",
+                           "f32f"),
+    "fluid_jacobian": (CSRC + "element_kernels.cu",
+                       "vasp_tpu/fem/assembly.py:92", "lu"),
+    "solid_jacobian": (CSRC + "element_kernels.cu",
+                       "vasp_tpu/fem/assembly.py:92", "lu"),
+    "fluid_jacobian_f32": (CSRC + "element_kernels.cu",
                            "vasp_tpu/fem/assembly.py:92", "gmres"),
-    "solid_jacobian_f32": ("element_kernels.cu",
+    "solid_jacobian_f32": (CSRC + "element_kernels.cu",
                            "vasp_tpu/fem/assembly.py:92", "gmres"),
-    "dg0_project_speed": ("measures.cu", "vasp_tpu/fem/measures.py:103",
-                          "gmres"),
-    "integrate_p2_dot_n": ("measures.cu", "vasp_tpu/fem/measures.py:88",
-                           "gmres"),
-    "elem_matvec": ("matvec.cu", "vasp_tpu/fem/assembly.py:354", "gmres"),
-    "ruiz_sweep": ("ruiz.cu", "vasp_tpu/fem/scaling.py:31", "gmres"),
-    "ruiz_scale": ("ruiz.cu", "vasp_tpu/fem/scaling.py:71", "gmres"),
-    "banded_assemble": ("banded.cu", "vasp_tpu/fem/banded.py:224", "gmres"),
-    "banded_apply": ("banded.cu", "vasp_tpu/fem/banded.py:651", "gmres"),
+    "dg0_project_speed": (CSRC + "measures.cu",
+                          "vasp_tpu/fem/measures.py:103", "gmres"),
+    "integrate_p2_dot_n": (CSRC + "measures.cu",
+                           "vasp_tpu/fem/measures.py:88", "gmres"),
+    "elem_matvec": (CSRC + "matvec.cu", "vasp_tpu/fem/assembly.py:354",
+                    "gmres"),
+    "ruiz_sweep": (CSRC + "ruiz.cu", "vasp_tpu/fem/scaling.py:31", "gmres"),
+    "ruiz_scale": (CSRC + "ruiz.cu", "vasp_tpu/fem/scaling.py:71", "gmres"),
+    "banded_assemble": (CSRC + "banded.cu", "vasp_tpu/fem/banded.py:224",
+                        "gmres"),
+    "banded_apply": (CSRC + "banded.cu", "vasp_tpu/fem/banded.py:651",
+                     "gmres"),
+    "banded_factorize_f64": ("vasp_tpu_torch/fem/banded.py",
+                             "vasp_tpu/fem/banded.py:576", "ladder"),
+}
+# the kernels each path's run must launch
+_KRYLOV = {"fluid_jacobian_f32", "solid_jacobian_f32", "elem_matvec",
+           "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply"}
+_MEASURES = {"dg0_project_speed", "integrate_p2_dot_n"}
+PATHS = {
+    "lu": {"fluid_residual", "solid_residual", "fluid_jacobian",
+           "solid_jacobian"} | _MEASURES,
+    "gmres": {"fluid_residual", "solid_residual"} | _KRYLOV | _MEASURES,
+    "f32f": {"fluid_residual_f32", "solid_residual_f32"} | _KRYLOV
+    | _MEASURES,
+    "bench": {"fluid_residual_f32", "solid_residual_f32"} | _KRYLOV,
+    "ladder": {"banded_factorize_f64"},
 }
 
 
@@ -235,6 +314,29 @@ def phase_device():
         for line in log.read_text().splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print("    " + line.strip())
+    check_f32_residual_sass(build)
+
+
+def check_f32_residual_sass(build):
+    """The float32 residual instances must do no float64 arithmetic (a
+    stray double literal or parameter would promote their math): count
+    the f64 arithmetic instructions in their SASS. Only the input
+    roundings (F2F) and the float64 scatter (RED.ADD.F64) may touch f64."""
+    import re
+
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    so = next(build.BUILD_DIR.glob("libvasp_tpu_torch_*.so"))
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if "residual_kernelIf" in f.split("\n", 1)[0]]
+    require(len(funcs) == 2, f"found {len(funcs)} float32 residual "
+                             f"instances in the SASS, expected 2")
+    for f in funcs:
+        n = len(re.findall(r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b", f))
+        print(f"    SASS of {f.split(chr(10), 1)[0].strip()[:90]}: {n} "
+              f"float64 arithmetic instructions")
+        require(n == 0, "the float32 residual does float64 arithmetic")
 
 
 def build_system(mesh_params, device, seed):
@@ -263,6 +365,38 @@ def build_system(mesh_params, device, seed):
     U = torch.as_tensor(rng.normal(size=space.ndof) * scale, device=device)
     U0 = torch.as_tensor(rng.normal(size=space.ndof) * scale, device=device)
     return system, bc, U, U0
+
+
+def bench_tube(mesh_params, device, stenosis=True):
+    """bench.py's build(): the FSI tube (stenosed by its radius profile
+    unless stenosis=False), its physics at quadrature degree 3, its
+    Dirichlet sets and its 150x interface load; (system, bc set, load)."""
+    import numpy as np
+
+    from vasp_tpu_torch.fem.dirichlet import DirichletBC
+    from vasp_tpu_torch.mesh.generate import fsi_tube_mesh
+    from vasp_tpu_torch.run.system import FSISystem
+
+    def profile(z):
+        return 1.0 - 0.35 * np.exp(-((z - 0.012) / 0.004) ** 2)
+
+    mesh = fsi_tube_mesh(**mesh_params,
+                         radius_profile=profile if stenosis else None)
+    E, nu = 1e6, 0.45
+    mu_s = E / (2 * (1 + nu))
+    system = FSISystem(mesh, dict(
+        dt=0.001, theta=0.501, rho_f=1.0e3, mu_f=1.5e-3, dx_f_id=1,
+        rho_s=1e3, mu_s=mu_s, lambda_s=nu * 2 * mu_s / (1 - 2 * nu),
+        dx_s_id=2, material_model="StVenantKirchoff",
+        extrapolation="laplace", extrapolation_sub_type="constant",
+        quadrature_degree=3, device=device))
+    space = system.space
+    bcs = [DirichletBC(space.field_dofs("d", space.p2_dofs_on_facets(m)),
+                       0.0) for m in (2, 3, 11)]
+    bcs += [DirichletBC(space.field_dofs("v", space.p2_dofs_on_facets(m)),
+                        0.0) for m in (2, 11)]
+    return (system, system.make_bcset(bcs),
+            150.0 * system.interface_pressure_load())
 
 
 class Records(dict):
@@ -327,6 +461,27 @@ def phase_element_kernels(records, system, U, U0):
                     cuda_ms(lambda: element.residual_plain(b, U, U0, R), 3),
                     (inputs + 8 * ndof, res_ops, "f64"), TOL_F64,
                     f"K={K} -> ({ndof},)")
+
+        # float32 element work: as accurate as the plain version, whose
+        # distance to the float64 residual sets the bound
+        f32 = torch.float32
+        Rk32 = element.residual_cuda(b, U, U0, torch.zeros_like(U), f32)
+        Rp32 = element.residual_plain(b, U, U0, torch.zeros_like(U), f32)
+        floor = float((Rp32 - Rp).norm())
+        tol32 = (2 * floor + 1e-14 * float(Rp.norm())) / float(Rp32.norm())
+        res32_ops = count_ops(lambda: element.residual_plain(
+            sub, U, U0, torch.zeros_like(U), f32)) * K / 32
+        records.add(f"{kind}_residual_f32", rel_err(Rk32, Rp32),
+                    cuda_ms(lambda: element.residual_cuda(b, U, U0, R, f32),
+                            20),
+                    cuda_ms(lambda: element.residual_plain(b, U, U0, R, f32),
+                            3),
+                    (inputs + 8 * ndof, res32_ops, "f32"), tol32,
+                    f"K={K} f32 -> ({ndof},)",
+                    plain_rel_to_f64=floor / float(Rp.norm()),
+                    kernel_rel_to_f64=float((Rk32 - Rp).norm()
+                                            / Rp.norm()))
+        del Rk, Rp, Rk32, Rp32
 
         Ap = element.jacobian_plain(b, U, U0, chunk=128)
         for dt, suffix, tol in ((torch.float64, "", TOL_F64),
@@ -527,9 +682,10 @@ def phase_iterative_kernels(records, system, bc):
     print(f"    Schur scan (K9, torch) {t_scan * 1e3:.1f} ms, H/G "
           f"{t_hg * 1e3:.1f} ms, probe (K10) {t_probe * 1e3:.1f} ms, probe "
           f"rel {probe:.3e}")
-    del Ck, Dk, Bk
     require(math.isfinite(probe), "the probe of the banded factors is not "
                                   "finite")
+    k11 = phase_k11(records, Ck, Dk, Bk, probe, pat)
+    del Ck, Dk, Bk
     perm = torch.as_tensor(pat.perm, device="cuda")
     r = torch.where(mask, 0.0, x64)
     xk = kb.apply_cuda(Sinv, H, G, perm, r)
@@ -555,7 +711,47 @@ def phase_iterative_kernels(records, system, bc):
                 f64_rel_kernel=dk, f64_rel_plain=dp)
     return dict(scan_ms=t_scan * 1e3, hg_ms=t_hg * 1e3,
                 probe_ms=t_probe * 1e3, probe_rel=probe, setup=setup,
-                c=pat.c, nb=pat.nb)
+                c=pat.c, nb=pat.nb, **k11)
+
+
+def phase_k11(records, Ck, Dk, Bk, probe32, pat):
+    """K11, the escalation tier's float64 Schur scan and its H/G, on the
+    C/D/B of K9: timed once (it is seconds), its probe no worse than K9's,
+    and its first two blocks held against the same recursion on the host
+    (the recursion of block k reads blocks 0..k only)."""
+    import torch
+
+    from vasp_tpu_torch.fem import banded as fb
+
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    Sinv = fb.schur_scan_f64(Ck, Dk, Bk)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - tic
+    tic = time.perf_counter()
+    H, G = fb.hg_factors(Sinv, Ck, Bk)
+    torch.cuda.synchronize()
+    t_hg = time.perf_counter() - tic
+    probe = fb.probe_rel(Ck, Dk, Bk, Sinv, H, G)
+    del H, G
+    print(f"    f64 Schur scan (K11, torch float64) {t_scan * 1e3:.1f} ms, "
+          f"H/G {t_hg * 1e3:.1f} ms, probe rel {probe:.3e} (K9 "
+          f"{probe32:.3e})")
+    require(probe <= probe32, f"the f64 factors probe worse than the f32 "
+                              f"ones: {probe:.3e} > {probe32:.3e}")
+    host = fb.schur_scan_f64(Ck[:2].cpu(), Dk[:2].cpu(), Bk[:2].cpu())
+    err = rel_err(Sinv[:2].cpu(), host)
+    del Sinv, host
+    c, nb = pat.c, pat.nb
+    ms = (t_scan + t_hg) * 1e3
+    # 6 c^3 float64 per block (C G, the LU inverse, Sinv B) on the f64
+    # tensor cores, 4 c^3 float32 per block (H, G); each at 67 TFLOP/s
+    records.add("banded_factorize_f64", err, ms, ms,
+                (6 * pat.factor_bytes, 10 * c ** 3 * nb, "f64_tensor"),
+                1e-5, f"3x({nb},{c},{c}) f32, f64 recursion",
+                plain_is_kernel=True)
+    return dict(scan64_ms=t_scan * 1e3, hg64_ms=t_hg * 1e3,
+                probe64_rel=probe)
 
 
 def phase_kernels():
@@ -588,7 +784,8 @@ def _run_quiet(overrides):
 def phase_parity(tmp):
     for label, extra, tol in (("LU", {}, TOL_PATH_LU),
                               ("gmres", dict(linear_solver="gmres"),
-                               TOL_PATH_GMRES)):
+                               TOL_PATH_GMRES),
+                              ("f32f", BENCH_CFG, TOL_PATH_F32F)):
         tic = time.perf_counter()
         ns_c, it_c, _ = _run_quiet(dict(TINY, device="cpu", **extra,
                                         folder=str(tmp / f"tiny_cpu_{label}")))
@@ -600,17 +797,92 @@ def phase_parity(tmp):
         Uc = ns_c["dvp_"]["n"]
         Ug = ns_g["dvp_"]["n"].cpu()
         rel = float((Ug - Uc).norm() / Uc.norm())
+        tiers = [[h["tiers"] for h in ns["solver"].stepper.history]
+                 if label != "LU" else [] for ns in (ns_c, ns_g)]
         print(f"[3] tiny cylinder, {label} path ({ns_c['mesh'].num_cells} "
               f"cells, 3 steps): Newton iterations cpu {it_c} cuda {it_g}; "
-              f"U rel diff {rel:.3e}; wall cpu {t_cpu:.1f} s, cuda "
-              f"{t_gpu:.1f} s")
+              f"ladder tiers cpu {tiers[0]} cuda {tiers[1]}; U rel diff "
+              f"{rel:.3e}; wall cpu {t_cpu:.1f} s, cuda {t_gpu:.1f} s")
         require(it_c == it_g, f"{label}: Newton iteration counts differ "
                               f"between the CPU plain path and the CUDA "
                               f"kernel path")
+        require(tiers[0] == tiers[1], f"{label}: ladder tiers differ")
         require(rel <= tol, f"{label}: U differs by {rel:.3e} relative "
                             f"(> {tol:.0e})")
         require(log.count("Solved for timestep") == 3,
                 f"{label}: tiny run missed steps")
+    return phase_forced_ladder()
+
+
+# the forced ladder runs of phase 3: (label, StepOptions, probe flagged,
+# the tiers they must take)
+LADDER_RUNS = (
+    ("escalation", dict(atol=1e-8, rtol=1e-8, max_it=8, gmres_tol=1e-8,
+                        gmres_restart=60, gmres_maxiter=60, jac_dtype="f32"),
+     True, ["f64_factors"]),
+    ("exact", dict(atol=1e-11, rtol=1e-11, max_it=8, gmres_tol=1e-8,
+                   gmres_restart=60, gmres_maxiter=60, jac_dtype="f32",
+                   krylov_dtype="f32", residual_dtype="f32f"),
+     False, ["fine_retry", "exact", "exact_rebuild"]),
+)
+
+
+def forced_ladder(device):
+    """The forced ladder runs on `device`: per run (tiers, Newton
+    iterations, residual, U on the host)."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
+
+    system, bc, load = bench_tube(LADDER_MESH, device, stenosis=False)
+    bcv = torch.as_tensor(bc.values_at(1e-3), device=device)
+    U0 = system.zero_state()
+    out = []
+    for label, opts, flag, _ in LADDER_RUNS:
+        st = IterativeStepper(system, bc, StepOptions(**opts),
+                              recompute_tstep=1000)
+        # the first step's factors, damaged; the probe flagged or not
+        st._rebuild(torch.where(st.mask, bcv, U0), U0, 1)
+        Sinv, H, G = st._pinv
+        noise = np.random.default_rng(0).uniform(-1.0, 1.0, tuple(Sinv.shape))
+        st._pinv = (Sinv * (1.0 + 5.0 * torch.as_tensor(
+            noise, dtype=Sinv.dtype, device=device)), H, G)
+        if flag:
+            st._last_rel = 1e9
+        with redirect_stdout(io.StringIO()):
+            U, stats = st.step(U0, bcv, load, 1)
+        out.append((st.history[-1]["tiers"], stats["iterations"],
+                    stats["residual"], U.cpu()))
+    return out
+
+
+def phase_forced_ladder():
+    """The forced ladder runs on the CPU and the card, the launch counters
+    reset just before the card's and read just after: the ladder path's
+    launches."""
+    from vasp_tpu_torch.kernels import build
+
+    cpu = forced_ladder("cpu")
+    build.reset_launch_counts()
+    cuda = forced_ladder("cuda")
+    launches = dict(build.LAUNCHES)
+    for (label, opts, _, want), c, g in zip(LADDER_RUNS, cpu, cuda):
+        rel = float((g[3] - c[3]).norm() / c[3].norm())
+        print(f"[3] forced ladder, {label}: tiers cpu {c[0]} cuda {g[0]}; "
+              f"Newton iterations cpu {c[1]} cuda {g[1]}; residual cpu "
+              f"{c[2]:.3e} cuda {g[2]:.3e}; U rel diff {rel:.3e}")
+        require(c[0] == g[0] == want, f"forced ladder {label}: tiers "
+                                      f"{c[0]} / {g[0]}, expected {want}")
+        require(c[1] == g[1], f"forced ladder {label}: Newton iteration "
+                              f"counts differ")
+        require(g[2] <= opts["atol"], f"forced ladder {label}: not "
+                                      f"converged")
+        require(rel <= TOL_LADDER, f"forced ladder {label}: U differs by "
+                                   f"{rel:.3e} relative")
+    missing = [k for k in PATHS["ladder"] if launches[k] == 0]
+    require(not missing, f"ladder: kernels never launched: {missing}")
+    return launches
 
 
 def run_main_path(tmp, label, mesh_params, **cfg):
@@ -643,24 +915,27 @@ def run_main_path(tmp, label, mesh_params, **cfg):
     require(all(s["converged"] for s in steps),
             f"{label}: a step did not converge")
     require(bool(torch.isfinite(U).all()), f"{label}: U is not finite")
-    path = "lu" if label == "lu" else "gmres"
-    missing = [k for k, (_, _, p) in REPLACES.items()
-               if launches[k] == 0 and (p == path or (
-                   path == "lu" and k in ("fluid_residual", "solid_residual",
-                                          "dg0_project_speed",
-                                          "integrate_p2_dot_n")))]
-    require(not missing, f"{label}: kernels never launched on the path: "
-                         f"{missing}")
+    check_launches(label, launches)
     secs = [s["cpu_time"] for s in steps]
     print(f"    {ns['mesh'].num_cells} cells, {ns['space'].ndof} dofs, 5 "
           f"steps in {wall:.2f} s")
-    print(f"    s/step {', '.join(f'{x:.3f}' for x in secs)}; steps 2-5 "
-          f"mean {sum(secs[1:]) / 4:.3f} s")
-    print(f"    Newton iterations {[s['newton_iterations'] for s in steps]}")
+    print_steps(secs, [s["newton_iterations"] for s in steps])
     print(f"    launches {launches}")
     print(f"    peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return ns, launches
+
+
+def check_launches(label, launches):
+    missing = sorted(k for k in PATHS[label] if launches[k] == 0)
+    require(not missing, f"{label}: kernels never launched on the path: "
+                         f"{missing}")
+
+
+def print_steps(secs, newton):
+    print(f"    s/step {', '.join(f'{x:.3f}' for x in secs)}; steps 2-"
+          f"{len(secs)} mean {sum(secs[1:]) / (len(secs) - 1):.3f} s")
+    print(f"    Newton iterations {newton}")
 
 
 def phase_lu(tmp):
@@ -673,15 +948,16 @@ def phase_lu(tmp):
     return launches
 
 
-def phase_gmres(tmp):
-    print("[5] cylinder, Newton-Krylov path (linear_solver=gmres):")
-    ns, launches = run_main_path(tmp, "gmres", FULL_MESH,
-                                 linear_solver="gmres")
-    st = ns["solver"].stepper
+def report_stepper(st, records):
+    """The Krylov path's lines: GMRES counts, ladder tiers, the probe, the
+    host setup, the time splits and GMRES's bound per direction (K5)."""
+    hist = st.history
     print(f"    GMRES inner iterations per step "
-          f"{[h['gmres_inner'] for h in st.history]}; rebuilds per step "
-          f"{[h['rebuilds'] for h in st.history]}; probe rel "
-          f"{st._last_rel:.3e}; c={st._bpat.c} nb={st._bpat.nb}")
+          f"{[h['gmres_inner'] for h in hist]}, restart cycles "
+          f"{[h['gmres_cycles'] for h in hist]}; rebuilds per step "
+          f"{[h['rebuilds'] for h in hist]}; ladder tiers "
+          f"{[h['tiers'] for h in hist]}; probe rel {st._last_rel:.3e}; "
+          f"c={st._bpat.c} nb={st._bpat.nb}")
     print("    one-time host setup (s): " + ", ".join(
         f"{k} {v:.2f}" for k, v in st.setup.items()))
     t = st.timings
@@ -692,8 +968,78 @@ def phase_gmres(tmp):
         f"{k} {t[k]:.3f}" for k in rebuild))
     print("    per-iteration split, summed over the run (s): " + ", ".join(
         f"{k} {t[k]:.3f}" for k in per_it))
+    # K5 per direction: 1 + 2 cycles + inner matvecs and cycles + inner
+    # applies at the K4 and K6 bounds, plus the CGS2 projections (four
+    # passes over V[:j+1] at inner step j, one over V[:j] per cycle's
+    # update) with the inner steps spread evenly over the cycles
+    dirs = sum(h["iterations"] for h in hist)
+    inner = sum(h["gmres_inner"] for h in hist)
+    cycles = sum(h["gmres_cycles"] for h in hist)
+    es = 4 if st.opt.krylov_dtype == "f32" else 8
+    q, extra = divmod(inner, max(cycles, 1))
+    js = [q + 1] * extra + [q] * (max(cycles, 1) - extra)
+    gemv = sum(4 * m * (m + 1) // 2 + m for m in js) * st.ndof * es
+    k5 = ((dirs + 2 * cycles + inner) * records["elem_matvec"]["bound_ms"]
+          + (inner + cycles) * records["banded_apply"]["bound_ms"]
+          + gemv / HBM_BYTES_PER_S * 1e3) / max(dirs, 1)
+    print(f"    GMRES (K5) per direction: {t['gmres'] / max(dirs, 1) * 1e3:.2f}"
+          f" ms against a bound of {k5:.2f} ms ({dirs} directions, "
+          f"{inner} inner iterations, {cycles} cycles)")
+    return k5
+
+
+def phase_krylov(tmp, records, label, title, **cfg):
+    """driver.main on the Krylov path at the 20,832-cell tube (phases 5
+    and 6): the main-path checks, the stepper's lines, a profiled step."""
+    print(title)
+    ns, launches = run_main_path(tmp, label, FULL_MESH, **cfg)
+    k5 = report_stepper(ns["solver"].stepper, records)
     profile_one_step(ns)
-    return launches
+    return launches, k5
+
+
+def phase_bench(records):
+    """bench.py's measure() on the port: the stenosed tube, 6 ramp steps
+    and 3 more through IterativeStepper.step."""
+    import torch
+
+    from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
+    from vasp_tpu_torch.kernels import build
+
+    print("[7] bench tube (bench.py: stenosed 20,832-cell tube, quadrature "
+          "degree 3, 150x interface load ramped over 6 steps), "
+          "IterativeStepper with bench.py's options:")
+    system, bc, load = bench_tube(FULL_MESH, "cuda")
+    bcv = torch.as_tensor(bc.values_at(1e-3), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    tic = time.perf_counter()
+    st = IterativeStepper(system, bc, StepOptions(**BENCH_STEP),
+                          recompute_tstep=20)
+    U = system.zero_state()
+    secs, newton = [], []
+    for k in range(1, 10):
+        t0 = time.perf_counter()
+        U, stats = st.step(U, bcv, min(1.0, k / 6) * load, k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        newton.append(stats["iterations"])
+        require(stats["residual"] <= BENCH_STEP["atol"] or stats["residual"]
+                <= BENCH_STEP["rtol"] * stats["r0"],
+                f"bench tube: step {k} did not converge "
+                f"({stats['residual']:.3e})")
+    wall = time.perf_counter() - tic
+    launches = dict(build.LAUNCHES)
+    require(bool(torch.isfinite(U).all()), "bench tube: U is not finite")
+    check_launches("bench", launches)
+    print(f"    {system.mesh.num_cells} cells, {system.space.ndof} dofs, 9 "
+          f"steps in {wall:.2f} s (stepper setup included)")
+    print_steps(secs, newton)
+    print(f"    launches {launches}")
+    print(f"    peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    k5 = report_stepper(st, records)
+    return launches, k5
 
 
 def profile_one_step(ns):
@@ -741,13 +1087,26 @@ def profile_one_step(ns):
 
 def main():
     phase_device()
+    import gc
+
     import torch
 
     records, extra = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
-        phase_parity(tmp)
-        launches = {"lu": phase_lu(tmp), "gmres": phase_gmres(tmp)}
+        launches = {"ladder": phase_parity(tmp), "lu": phase_lu(tmp)}
+        launches["gmres"], extra["k5_bound_ms_gmres"] = phase_krylov(
+            tmp, records, "gmres", "[5] cylinder, Newton-Krylov path "
+            "(linear_solver=gmres):", linear_solver="gmres")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["f32f"], extra["k5_bound_ms_f32f"] = phase_krylov(
+            tmp, records, "f32f", "[6] cylinder, bench configuration "
+            "(residual_dtype=f32f, krylov_dtype=f32, gmres_tol=1e-3, "
+            "jac_recompute=2, atol=1e-6):", **BENCH_CFG)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["bench"], extra["k5_bound_ms_bench"] = phase_bench(records)
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():
@@ -756,11 +1115,10 @@ def main():
                                                   "plain_ms", "bound_ms")),
                 f"{name}: non-finite measurement")
         kernels.append(dict(
-            name=name, route="cuda", source=f"vasp_tpu_torch/csrc/{src}",
-            replaces=rep, launches=launches[path][name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], path=path,
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launches[path][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], path=path,
             **({"variants": r["variants"]} if "variants" in r else {})))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))

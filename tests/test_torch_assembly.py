@@ -15,8 +15,9 @@ from vasp_tpu_torch.convert import from_vasp_tpu
 from vasp_tpu_torch.fem.assembly import Assembler
 from vasp_tpu_torch.run.system import FSISystem as TFSISystem
 from vasp_tpu_torch.mesh.tetmesh import TetMesh
+from _torch_small_fsi import torch_threads
 
-torch.set_num_threads(2)
+_threads = torch_threads(2)
 
 E_s, nu_s = 1e6, 0.45
 MU_S = E_s / (2 * (1 + nu_s))
@@ -134,3 +135,44 @@ def test_from_vasp_tpu_carries_state_and_bcs(tiny_tube):
     Ut = torch.where(out["bc_mask"], out["bc_values"], out["U"])
     np.testing.assert_array_equal(
         Ut.numpy(), np.asarray(bcs.apply(jnp.asarray(U), 0.0)))
+
+
+# relative distance of a float32-element-work residual to the float64 one
+# on these states (measured at degree 6: 1.1e-7 vasp_tpu, 2.2e-7 the port,
+# whose plain float32 sums round more than XLA's); "mixed" keeps the solid
+# in float64, where the float32 cancellation noise lives (measured 9e-12
+# and 8e-12)
+F32_FLOOR = 5e-7
+MIXED_FLOOR = 5e-9
+
+
+@pytest.mark.parametrize("mode", ["f32", "mixed"])
+def test_hybrid_residual_matches_vasp_tpu(tiny_tube, mode):
+    """Assembler.residual(dtype=float32 / "mixed"): each package within its
+    noise floor of its own float64 residual, and the two packages no
+    further apart than twice the float32 floor (both are float32 element
+    work summed in float64, in other orders)."""
+    js, tasm, _ = _systems(tiny_tube, qd=6)
+    U, U0 = _states(js.space.ndof, 10)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "mixed": ("mixed", "mixed")}[mode]
+    args_j = (jnp.asarray(U), jnp.asarray(U0))
+    args_t = (torch.as_tensor(U), torch.as_tensor(U0))
+    Rj64 = np.asarray(js.assembler.residual(*args_j))
+    Rt64 = tasm.residual(*args_t).numpy()
+    Rj = np.asarray(js.assembler.residual(*args_j, dtype=jdt))
+    Rt = tasm.residual(*args_t, tdt)
+    assert Rt.dtype == torch.float64
+    Rt = Rt.numpy()
+    floor = F32_FLOOR if mode == "f32" else MIXED_FLOOR
+    assert 0.0 < _rel(Rj, Rj64) <= floor
+    assert 0.0 < _rel(Rt, Rt64) <= floor
+    assert _rel(Rt, Rj) <= 2 * F32_FLOOR
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, "f32"])
+def test_residual_refuses_other_precisions(tiny_tube, dtype):
+    _, tasm, _ = _systems(tiny_tube, qd=2)
+    U = torch.zeros(tasm.ndof, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32|mixed"):
+        tasm.residual(U, U, dtype)

@@ -11,8 +11,9 @@ from vasp_tpu_torch.fem import forms
 from vasp_tpu_torch.fem.timestepper import IterativeNewtonSolver, StepOptions
 from vasp_tpu_torch.kernels import build, element
 from vasp_tpu_torch.run.system import FSISystem
+from _torch_small_fsi import torch_threads
 
-torch.set_num_threads(1)
+_threads = torch_threads(1)
 CFG = dict(dt=1e-3, theta=0.501, rho_f=1e3, mu_f=3.5e-3, rho_s=1e3,
            mu_s=3e5, lambda_s=1e6, quadrature_degree=2, device="cpu")
 FLUID = dict(rho_f=1e3, mu_f=3.5e-3, dt=1e-3, theta=0.501)
@@ -90,47 +91,63 @@ def test_iterative_solvers_raise(tiny_tube, lin):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(residual_dtype="f32"), 7), (dict(residual_dtype="mixed"), 7),
-    (dict(residual_dtype="f32f"), 7), (dict(precond="ras"), 14),
+    (dict(residual_dtype="f32"), 14), (dict(precond="ras"), 14),
     (dict(chain_anchor=True), 14),
-], ids=["f32", "mixed", "f32f", "ras", "chain_anchor"])
+], ids=["f32", "ras", "chain_anchor"])
 def test_unported_iterative_options_raise(tiny_tube, extra, item):
+    """residual_dtype="f32" from a config keeps vasp_tpu's delta_endgame
+    default (True), the jet Taylor-delta endgame, which is not ported."""
     system = FSISystem(tiny_tube, dict(CFG, linear_solver="gmres", **extra))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         system.make_solver(system.make_bcset([]))
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(jac_carry=True), 7), (dict(banded_factor_dtype="bf16"), 9),
+    (dict(residual_dtype="f32", delta_endgame=True), 14),
+    (dict(chain_anchor=True), 14), (dict(banded_factor_dtype="bf16"), 9),
     (dict(banded_factor_dtype="hybrid"), 9),
-], ids=["jac_carry", "bf16", "hybrid"])
+], ids=["f32_delta_endgame", "chain_anchor", "bf16", "hybrid"])
 def test_unported_step_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         StepOptions(**extra)
 
 
-def test_factor_escalation_raises(tiny_tube):
-    """A Newton stall under probe-flagged factors would take vasp_tpu's
-    f64 factor escalation, which is not ported: the step raises."""
-    system = FSISystem(tiny_tube, dict(CFG, linear_solver="gmres",
-                                       max_it=0))
-    stepper = system.make_solver(system.make_bcset([])).stepper
-    # factors of this step with a flagged probe; no Newton iteration runs,
-    # so the step ends unconverged under them
-    stepper._pinv, stepper._last_rebuild, stepper._last_rel = (), 1, 2.0
-    U = system.zero_state()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        stepper.step(U, torch.zeros_like(U), torch.ones_like(U), 1)
+@pytest.mark.parametrize("extra", [
+    dict(residual_dtype="f32f"), dict(residual_dtype="mixed"),
+    dict(residual_dtype="f32", delta_endgame=False),
+    dict(jac_carry=True, recompute=2),
+], ids=["f32f", "mixed", "f32_raw_endgame", "jac_carry"])
+def test_ported_step_options_build(tiny_tube, extra):
+    """The hybrid residual precisions and jac_carry build, as StepOptions
+    and through a config (endgame_factor and chain_reanchor mapped as
+    vasp_tpu maps them)."""
+    assert StepOptions(**extra)
+    cfg = dict(CFG, linear_solver="gmres", endgame_factor=3.0,
+               chain_reanchor=2, **{k: v for k, v in extra.items()
+                                    if k == "residual_dtype"})
+    system = FSISystem(tiny_tube, cfg)
+    solver = system.make_solver(system.make_bcset([]), **extra)
+    assert isinstance(solver, IterativeNewtonSolver)
+    assert (solver.opt.endgame_factor, solver.opt.chain_reanchor) == (3.0, 2)
+    for k, v in extra.items():
+        assert getattr(solver.opt, k) == v
+
+
+def test_unknown_residual_dtype_is_refused():
+    with pytest.raises(ValueError, match="residual_dtype"):
+        StepOptions(residual_dtype="f16")
 
 
 def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
     h = build._source_hash()
     assert len(h) == 16 and h == build._source_hash()
     assert set(build.LAUNCHES) == {
-        "fluid_residual", "solid_residual", "fluid_jacobian",
+        "fluid_residual", "solid_residual", "fluid_residual_f32",
+        "solid_residual_f32", "fluid_jacobian",
         "solid_jacobian", "fluid_jacobian_f32", "solid_jacobian_f32",
         "dg0_project_speed", "integrate_p2_dot_n", "elem_matvec",
-        "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply"}
+        "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply",
+        "banded_factorize_f64"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

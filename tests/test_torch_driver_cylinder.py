@@ -17,8 +17,9 @@ import torch
 
 from vasp_tpu_torch.run import checkpoint as tckpt
 from vasp_tpu_torch.run.driver import main, run_simulation
+from _torch_small_fsi import torch_threads
 
-torch.set_num_threads(2)
+_threads = torch_threads(2)
 
 OVERRIDES = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
                  save_deg=2, save_step=1, checkpoint_step=2, atol=1e-7,

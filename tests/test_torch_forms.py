@@ -13,8 +13,9 @@ from vasp_tpu.fem import forms as jforms
 from vasp_tpu.fem import kinematics as jkin
 from vasp_tpu_torch.fem import forms as tforms
 from vasp_tpu_torch.fem import kinematics as tkin
+from _torch_small_fsi import torch_threads
 
-torch.set_num_threads(1)
+_threads = torch_threads(1)
 
 RTOL = 1e-12  # both sides f64; only summation order differs
 FLUID = dict(rho_f=1.025e3, mu_f=3.5e-3, dt=1e-3, theta=0.501)

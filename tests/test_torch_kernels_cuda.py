@@ -3,6 +3,10 @@ tiny tube (the same checks chip_smoke.py makes at full size). Tolerances,
 each with its reason:
 - float64 outputs: 1e-12 relative (the atomics' order varies, nothing
   else);
+- float32 element residuals (K1/K2 f32): as accurate as the plain
+  version, ||R_kernel - R_plain|| <= 2 ||R_plain - R_f64|| + 1e-14
+  ||R_f64||; both are float32 element work summed in float64, in other
+  orders;
 - float32 Jacobians: 2e-7 per block (both sides round the same float64
   value, equal to 1e-12, once: at most one float32 ulp apart);
 - float32 element products (K4): 1e-5 relative (64-term float32 row sums
@@ -75,6 +79,23 @@ def test_residual_kernel(system, i):
     torch.cuda.synchronize()
     assert build.LAUNCHES[f"{b.kernel.kind}_residual"] == n0 + 1
     assert _rel(Rk, Rp) <= RTOL
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["fluid", "solid"])
+def test_residual_kernel_f32(system, i):
+    sysm, U, U0 = system
+    b = sysm.assembler.blocks[i]
+    name = f"{b.kernel.kind}_residual_f32"
+    n0 = build.LAUNCHES[name]
+    f32 = torch.float32
+    Rk = element.block_residual(b, U, U0, torch.zeros_like(U), f32)
+    Rp = element.residual_plain(b, U, U0, torch.zeros_like(U), f32)
+    R64 = element.residual_plain(b, U, U0, torch.zeros_like(U))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 1
+    assert Rk.dtype == torch.float64
+    assert float((Rk - Rp).norm()) <= 2 * float((Rp - R64).norm()) \
+        + 1e-14 * float(R64.norm())
 
 
 @pytest.mark.parametrize("i", [0, 1], ids=["fluid", "solid"])

@@ -12,8 +12,9 @@ import jax.numpy as jnp
 
 from vasp_tpu.fem.krylov import gmres as jax_gmres
 from vasp_tpu_torch.fem.krylov import gmres
+from _torch_small_fsi import torch_threads
 
-torch.set_num_threads(1)
+_threads = torch_threads(1)
 
 
 def _system(n, seed):

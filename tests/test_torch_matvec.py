@@ -17,11 +17,11 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_small_fsi import build_pair, random_state
+from _torch_small_fsi import build_pair, random_state, torch_threads
 from vasp_tpu.fem.assembly import Assembler as JAssembler
 from vasp_tpu.fem.assembly import build_scatter_plan
 
-torch.set_num_threads(2)
+_threads = torch_threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -16,8 +16,9 @@ from vasp_tpu_torch.fem.measures import BoundaryMeasure as TMeasure
 from vasp_tpu_torch.fem.measures import dg0_project_jacobian as t_jac
 from vasp_tpu_torch.fem.measures import dg0_project_speed as t_speed
 from vasp_tpu_torch.mesh.tetmesh import TetMesh
+from _torch_small_fsi import torch_threads
 
-torch.set_num_threads(1)
+_threads = torch_threads(1)
 RTOL = 1e-12
 
 

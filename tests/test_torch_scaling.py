@@ -11,12 +11,12 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_small_fsi import build_pair, random_state
+from _torch_small_fsi import build_pair, random_state, torch_threads
 from vasp_tpu.fem.scaling import ruiz_scales as jax_ruiz_scales
 from vasp_tpu.fem.scaling import scale_element_jacobians as jax_scale
 from vasp_tpu_torch.fem.scaling import ruiz_scales, scale_element_jacobians
 
-torch.set_num_threads(2)
+_threads = torch_threads(2)
 
 
 @pytest.fixture(scope="module")

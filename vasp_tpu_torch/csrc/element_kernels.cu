@@ -1,18 +1,22 @@
-// K1/K2 (element residual + scatter) and K3 (element Jacobians) on Hopper.
+// K1/K2 (element residual + scatter, float64 and float32 element work) and
+// K3 (element Jacobians) on Hopper.
 //
 // Replaces vasp_tpu/fem/assembly.py: CellBlock.residual_local with
 // Assembler.residual (vmapped make_fluid_kernel / make_solid_kernel, then
-// a scatter-add into R), and CellBlock.jacobian_local (jax.jacfwd through
-// chunked_vmap). Plain torch twin: vasp_tpu_torch/kernels/element.py
-// residual_plain / jacobian_plain.
+// a scatter-add into R; with dtype=float32 the element work in float32 on
+// float32-rounded inputs, accumulated in float64), and
+// CellBlock.jacobian_local (jax.jacfwd through chunked_vmap). Plain torch
+// twin: vasp_tpu_torch/kernels/element.py residual_plain / jacobian_plain.
 //
 // What bounds them on an H100 and what the design does about it:
-// - Residual: a few hundred KFLOP of f64 per cell against a 64-entry
-//   gather and 64 scattered f64 atomics. One thread per cell keeps the
-//   whole quadrature loop in registers (spills to L1 accepted); the
-//   scatter is a native f64 atomicAdd straight into R, so no (K,64)
-//   intermediate goes through device memory. The atomics' order varies
-//   from run to run, which moves R by rounding only.
+// - Residual: a few hundred KFLOP per cell against a 64-entry gather and
+//   64 scattered f64 atomics. One thread per cell keeps the whole
+//   quadrature loop in registers (spills to L1 accepted); the scatter is a
+//   native f64 atomicAdd straight into R, so no (K,64) intermediate goes
+//   through device memory. The atomics' order varies from run to run,
+//   which moves R by rounding only. The float32 instance (S = float) runs
+//   the same code at twice the f64 rate with half the registers per
+//   value; it reads float32 copies of the tables and keeps the f64 scatter.
 // - Jacobian: f64 FLOPs. One block per cell, one thread per column j:
 //   the thread runs the residual on Dual numbers seeded with e_j and
 //   writes column j of A_e, so a warp's stores to one row are coalesced.
@@ -28,22 +32,24 @@
 namespace {
 
 template <class T>
-__device__ inline void eval_cell(const FluidParams& P, const T* u, const double* u0,
-                                 const double* Jinv, double detJ, double vol,
-                                 int nq, T* r) {
+__device__ inline void eval_cell(const FluidParams<Real<T>>& P, const T* u,
+                                 const Real<T>* u0, const Real<T>* Jinv, Real<T> detJ,
+                                 Real<T> vol, int nq, T* r) {
   fluid_residual(u, u0, Jinv, detJ, vol, P, nq, r);
 }
 
 template <class T>
-__device__ inline void eval_cell(const SolidParams& P, const T* u, const double* u0,
-                                 const double* Jinv, double detJ, double vol,
-                                 int nq, T* r) {
+__device__ inline void eval_cell(const SolidParams<Real<T>>& P, const T* u,
+                                 const Real<T>* u0, const Real<T>* Jinv, Real<T> detJ,
+                                 Real<T> vol, int nq, T* r) {
   solid_svk_residual(u, u0, Jinv, detJ, vol, P, nq, r);
 }
 
 constexpr int kResidualThreads = 64;
 
-template <class Params>
+// S = double: the float64 residual; S = float: every input rounded to
+// float32 on its read, float32 element work, the float64 scatter.
+template <class S, class Params>
 __global__ void residual_kernel(const double* __restrict__ U,
                                 const double* __restrict__ U0,
                                 const int64_t* __restrict__ dofs,
@@ -55,20 +61,21 @@ __global__ void residual_kernel(const double* __restrict__ U,
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
   const int64_t* dk = dofs + (int64_t)k * 64;
-  double u[64], u0[64], J[9], r[64];
+  S u[64], u0[64], J[9], r[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int64_t g = dk[i];
-    u[i] = U[g];
-    u0[i] = U0[g];
+    u[i] = S(U[g]);
+    u0[i] = S(U0[g]);
   }
 #pragma unroll
-  for (int i = 0; i < 9; ++i) J[i] = Jinv[(int64_t)k * 9 + i];
-  eval_cell(P, u, u0, J, detJ[k], vol[k], nq, r);
+  for (int i = 0; i < 9; ++i) J[i] = S(Jinv[(int64_t)k * 9 + i]);
+  eval_cell(P, u, u0, J, S(detJ[k]), S(vol[k]), nq, r);
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    const double m = rowmask ? rowmask[(int64_t)k * 64 + i] : 1.0;
-    atomicAdd(R + dk[i], r[i] * m);
+    // the 0/1 row mask applied in S, exactly; only the sum is in double
+    const S m = rowmask ? S(rowmask[(int64_t)k * 64 + i]) : S(1);
+    atomicAdd(R + dk[i], double(r[i] * m));
   }
 }
 
@@ -109,14 +116,14 @@ jacobian_kernel(const double* __restrict__ U, const double* __restrict__ U0,
   }
 }
 
-template <class Params>
+template <class S, class Params>
 int launch_residual(const double* U, const double* U0, const int64_t* dofs,
                     const double* Jinv, const double* detJ, const double* vol,
                     const double* rowmask, double* R, int K, int nq, Params P,
                     void* stream) {
   if (K > 0) {
     const int blocks = (K + kResidualThreads - 1) / kResidualThreads;
-    residual_kernel<Params><<<blocks, kResidualThreads, 0, (cudaStream_t)stream>>>(
+    residual_kernel<S, Params><<<blocks, kResidualThreads, 0, (cudaStream_t)stream>>>(
         U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P);
   }
   return (int)cudaGetLastError();
@@ -143,8 +150,11 @@ extern "C" {
 
 int vt_element_nq_max() { return VT_NQ_MAX; }
 
+int vt_element_nq_max_f32() { return VT_NQ_MAX_F32; }
+
 // Upload the quadrature tables (host pointers): wq (nq,), N1 (nq,4),
-// N2 (nq,10), dN2 (nq,10,3), all float64 and C-contiguous.
+// N2 (nq,10), dN2 (nq,10,3), all float64 and C-contiguous; their float32
+// roundings too where nq <= VT_NQ_MAX_F32.
 int vt_set_element_tables(const double* wq, const double* N1, const double* N2,
                           const double* dN2, int nq) {
   if (nq < 1 || nq > VT_NQ_MAX) return (int)cudaErrorInvalidValue;
@@ -153,25 +163,47 @@ int vt_set_element_tables(const double* wq, const double* N1, const double* N2,
   if ((e = cudaMemcpyToSymbol(c_N1, N1, sizeof(double) * nq * 4)) != cudaSuccess) return (int)e;
   if ((e = cudaMemcpyToSymbol(c_N2, N2, sizeof(double) * nq * 10)) != cudaSuccess) return (int)e;
   if ((e = cudaMemcpyToSymbol(c_dN2, dN2, sizeof(double) * nq * 30)) != cudaSuccess) return (int)e;
+  if (nq <= VT_NQ_MAX_F32) {
+    float f[VT_NQ_MAX_F32 * 30];
+    for (int i = 0; i < nq; ++i) f[i] = (float)wq[i];
+    if ((e = cudaMemcpyToSymbol(c_wq_f, f, sizeof(float) * nq)) != cudaSuccess) return (int)e;
+    for (int i = 0; i < nq * 4; ++i) f[i] = (float)N1[i];
+    if ((e = cudaMemcpyToSymbol(c_N1_f, f, sizeof(float) * nq * 4)) != cudaSuccess) return (int)e;
+    for (int i = 0; i < nq * 10; ++i) f[i] = (float)N2[i];
+    if ((e = cudaMemcpyToSymbol(c_N2_f, f, sizeof(float) * nq * 10)) != cudaSuccess) return (int)e;
+    for (int i = 0; i < nq * 30; ++i) f[i] = (float)dN2[i];
+    if ((e = cudaMemcpyToSymbol(c_dN2_f, f, sizeof(float) * nq * 30)) != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
+// f32 nonzero: the float32 instance (tables of at most VT_NQ_MAX_F32 points).
 int vt_fluid_residual(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
-                      const double* rowmask, double* R, int K, int nq,
+                      const double* rowmask, double* R, int f32, int K, int nq,
                       double rho, double mu, double dt, double theta,
                       double lift_coeff, int lift_sub, void* stream) {
-  FluidParams P{rho, mu, dt, theta, lift_coeff, lift_sub};
-  return launch_residual(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P, stream);
+  if (f32)
+    return launch_residual<float>(
+        U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
+        make_fluid_params<float>(rho, mu, dt, theta, lift_coeff, lift_sub), stream);
+  return launch_residual<double>(
+      U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
+      make_fluid_params<double>(rho, mu, dt, theta, lift_coeff, lift_sub), stream);
 }
 
 int vt_solid_residual(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
-                      const double* rowmask, double* R, int K, int nq,
+                      const double* rowmask, double* R, int f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
                       void* stream) {
-  SolidParams P{rho, mu, lam, dt, theta};
-  return launch_residual(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P, stream);
+  if (f32)
+    return launch_residual<float>(
+        U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
+        make_solid_params<float>(rho, mu, lam, dt, theta), stream);
+  return launch_residual<double>(
+      U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
+      make_solid_params<double>(rho, mu, lam, dt, theta), stream);
 }
 
 // A (K,64,64) is float32 when out_f32 is nonzero, else float64.
@@ -180,9 +212,10 @@ int vt_fluid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double dt, double theta,
                       double lift_coeff, int lift_sub, void* stream) {
-  FluidParams P{rho, mu, dt, theta, lift_coeff, lift_sub};
-  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K,
-                         nq, P, stream);
+  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
+                         make_fluid_params<double>(rho, mu, dt, theta, lift_coeff,
+                                                   lift_sub),
+                         stream);
 }
 
 int vt_solid_jacobian(const double* U, const double* U0, const int64_t* dofs,
@@ -190,9 +223,8 @@ int vt_solid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
                       void* stream) {
-  SolidParams P{rho, mu, lam, dt, theta};
-  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K,
-                         nq, P, stream);
+  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
+                         make_solid_params<double>(rho, mu, lam, dt, theta), stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ tensors.
 Counterpart of vasp_tpu.fem.assembly (the plain scatter-add path): gather
 -> element kernel -> masked scatter-add, with the element Jacobians kept
 as a batched (K, 64, 64) float64 or float32 tensor per block, and the
-matrix-free matvec over them. On CUDA tensors the residual, Jacobians and
+matrix-free matvec over them. The residual's element work runs in float64,
+float32 or "mixed" (float32 on the fluid only), always accumulated in
+float64. On CUDA tensors the residual, Jacobians and
 matvec are the hand-written kernels of kernels/element.py and
 kernels/matvec.py; on CPU tensors their plain torch versions.
 """
@@ -61,11 +63,26 @@ class Assembler:
         self.ndof = ndof
         self.blocks = list(blocks)
 
-    def residual(self, U, U0):
-        """R(U; U0) as a float64 (ndof,) tensor on U's device."""
+    def residual(self, U, U0, dtype=None):
+        """R(U; U0) as a float64 (ndof,) tensor on U's device.
+
+        dtype: the precision of the ELEMENT work, accumulated in float64
+        either way (vasp_tpu.fem.assembly.Assembler.residual): None for
+        float64, torch.float32 for float32 on every block, "mixed" for
+        float32 on the blocks whose name starts with "fluid" and float64
+        on the others (the stiff solid, where the float32 cancellation
+        noise lives)."""
+        if isinstance(dtype, str):
+            if dtype != "mixed":
+                raise ValueError(f"residual dtype {dtype!r}: expected None, "
+                                 f"torch.float32 or 'mixed'")
+            per_block = [torch.float32 if b.name.startswith("fluid") else None
+                         for b in self.blocks]
+        else:
+            per_block = [dtype] * len(self.blocks)
         R = torch.zeros(self.ndof, dtype=torch.float64, device=U.device)
-        for b in self.blocks:
-            element.block_residual(b, U, U0, R)
+        for b, dt in zip(self.blocks, per_block):
+            element.block_residual(b, U, U0, R, dt)
         return R
 
     def element_jacobians(self, U, U0, dtype=torch.float64):

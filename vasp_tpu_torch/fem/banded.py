@@ -22,12 +22,14 @@ Host (numpy, once per mesh): the ordering and block size
 (K6) are the hand-written kernels of kernels/banded.py; the Schur scan
 (K9) runs torch.matmul and torch.linalg.inv (cuBLAS/cuSOLVER on the card),
 with one Newton polish per block inverse, and the probe (K10) is the K6
-scans plus batched torch.matmul.
+scans plus batched torch.matmul. The escalation tier's scan (K11,
+``factorize_banded_f64``) runs the same recursion in native float64.
 
 Not ported: the spectral ordering, clip/qclip and their VASP_BANDED_*
-environment knobs, the blocked Schur inversion ``_inv_blocked`` (a TPU
-matrix-unit workaround), the f64 escalation factorization and the lowmem
-layouts (ROADMAP.md queue 1, item 9).
+environment knobs, the blocked Schur inversion ``_inv_blocked`` and the
+f32-seeded float64 inverse ``_inv64`` (TPU workarounds: a matrix-unit
+inverse, and a float64 inverse on a chip without a float64 LU), and the
+lowmem layouts (ROADMAP.md queue 1, item 9).
 """
 from dataclasses import dataclass
 
@@ -36,6 +38,7 @@ import torch
 
 from vasp_tpu_torch import native
 from vasp_tpu_torch.kernels import banded as kb
+from vasp_tpu_torch.kernels import build
 
 
 @dataclass
@@ -206,6 +209,36 @@ def factorize_banded(Cm, D, Bm):
     Sinv = schur_scan(Cm, D, Bm)
     H, G = hg_factors(Sinv, Cm, Bm)
     return Sinv, H, G, probe_rel(Cm, D, Bm, Sinv, H, G)
+
+
+def schur_scan_f64(Cm, D, Bm):
+    """Sinv (nb, c, c) f32 of the block-Thomas recursion in float64 (K11):
+    S_k = D_k - C_k G_{k-1}, Sinv_k = S_k^{-1} and G_k = Sinv_k B_k all in
+    float64 (native on the card: cuBLAS DGEMM and the cuSOLVER LU
+    inverse, where vasp_tpu polishes an f32-seeded inverse), Sinv stored
+    in float32. Counted in build.LAUNCHES on the card, as the hand-written
+    kernels are."""
+    nb, c, _ = D.shape
+    Sinv = torch.empty_like(D)
+    Gprev = torch.zeros((c, c), dtype=torch.float64, device=D.device)
+    for k in range(nb):
+        S = D[k].double() - Cm[k].double() @ Gprev
+        Si = torch.linalg.inv(S)
+        Gprev = Si @ Bm[k].double()
+        Sinv[k] = Si
+    if D.is_cuda:
+        build.LAUNCHES["banded_factorize_f64"] += 1
+    return Sinv
+
+
+def factorize_banded_f64(Cm, D, Bm):
+    """(Sinv, H, G) f32 — vasp_tpu's factorize_banded_f64 (K11), the
+    escalation tier for Schur blocks too ill-conditioned for the float32
+    recursion: the float64 scan, then H = Sinv C and G = Sinv B from the
+    stored float32 Sinv as in hg_factors. No probe: vasp_tpu takes none on
+    this tier."""
+    Sinv = schur_scan_f64(Cm, D, Bm)
+    return (Sinv, *hg_factors(Sinv, Cm, Bm))
 
 
 def make_banded_apply(pattern: BandedPattern, device):

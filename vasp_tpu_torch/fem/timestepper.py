@@ -1,33 +1,43 @@
 """Newton-Krylov timestepper of the iterative path (banded preconditioner).
 
 Counterpart of vasp_tpu.fem.timestepper: ``StepOptions``,
-``IterativeStepper`` with precond="banded" in its full-f32 factor layout,
-and ``IterativeNewtonSolver``. Each Newton iteration builds element
-Jacobians (float32 by default, K3), solves the Ruiz-equilibrated system
-(Dr J Dc) y = Dr R by right-preconditioned GMRES (K5) whose operator is the
-element matvec (K4) and whose preconditioner is the banded two-scan apply
-(K6), and takes a full-step-first line search on the float64 residual (K1,
-K2). A rebuild (every ``recompute_tstep`` steps, or on a stall) refreshes
-the preconditioner: float32 Jacobians -> Ruiz scales and element rescale
-(K7) -> banded assembly (K8) -> Schur scan, H/G and probe (K9, K10).
+``IterativeStepper`` with precond="banded" in its full-f32 factor layout
+and its precision ladder, and ``IterativeNewtonSolver``. Each Newton
+iteration builds element Jacobians (float32 by default, K3), solves the
+Ruiz-equilibrated system (Dr J Dc) y = Dr R by right-preconditioned GMRES
+(K5) whose operator is the element matvec (K4) and whose preconditioner is
+the banded two-scan apply (K6), and takes a full-step-first line search on
+the residual (K1, K2). A rebuild (every ``recompute_tstep`` steps, or on a
+stall) refreshes the preconditioner: float32 Jacobians -> Ruiz scales and
+element rescale (K7) -> banded assembly (K8) -> Schur scan, H/G and probe
+(K9, K10), or the float64 Schur scan (K11) once a step has escalated.
+
+Hybrid residual precisions (``residual_dtype``): "f32" evaluates the
+residual with float32 element work (K1/K2 f32) while the norm is above
+``endgame_factor * atol`` and in float64 below it, "mixed" likewise with
+the fine residual float32 on the fluid and float64 on the solid, "f32f"
+with a float32 fine residual too; accumulation is float64 in every case.
+``step`` then climbs vasp_tpu's ladder, tier by tier: the certification of
+a coarse exit that claims convergence, the reactive float64 factor
+escalation under probe-flagged factors (K11), the coarse-phase stall retry
+with fine residuals, the exact tier (float64 Jacobians and GMRES), the
+rebuild-at-current-state exact retry and the stall-triggered rebuild.
+Each tier prints vasp_tpu's line for it and is recorded in ``history``.
 
 The Newton loop is a host loop of device calls: the residual norm, the
 line-search acceptance, the stall count and GMRES's early exit are read
 on the host as they are needed. vasp_tpu's TPU workarounds are not ported:
-the 8-iteration dispatch chunking (so iteration counts agree with
-vasp_tpu for steps of at most 8 iterations), the block_until_ready
-barriers, the remote-worker gate on the last ladder tier and the 7 GiB
+the 8-iteration dispatch chunking (so iteration counts and ``jac_carry``
+ages agree with vasp_tpu for Newton calls of at most 8 iterations), the
+block_until_ready barriers, the remote-worker gate on the last ladder tier
+(the port always takes it, as vasp_tpu does on the CPU) and the 7 GiB
 lowmem switch; the factor layout is checked against the card's free memory
 instead.
 
-Refused, each with the ROADMAP.md item that will port it: the hybrid
-residual precisions (residual_dtype f32/mixed/f32f) and jac_carry (item
-7), bf16/hybrid factor storage, the lowmem layouts and the probe-flagged
-f64 factor escalation (item 9), precond="ras" and chain_anchor (item 14).
-In vasp_tpu the ladder reaches its exact tier (f64 Jacobians and f64
-GMRES) and the rebuild-at-current-state retry only under the hybrid
-residual precisions, so those two ladder steps come with item 7; the exact
-Newton variant itself is here (``_newton(..., exact=True)``).
+Refused, each with the ROADMAP.md item that will port it: the jet
+Taylor-delta endgame (residual_dtype="f32" with delta_endgame=True) and
+chain_anchor (item 14), bf16/hybrid factor storage and the lowmem layouts
+(item 9), precond="ras" (item 14).
 """
 import time
 from collections import defaultdict
@@ -42,8 +52,8 @@ from vasp_tpu_torch.fem import banded as banded_mod
 from vasp_tpu_torch.fem.krylov import gmres
 from vasp_tpu_torch.fem.scaling import ruiz_scales, scale_element_jacobians
 
-# probe solve quality above which a Newton stall would take vasp_tpu's f64
-# factor escalation (its VASP_BANDED_RELMAX default)
+# probe solve quality above which a Newton stall takes the f64 factor
+# escalation (vasp_tpu's VASP_BANDED_RELMAX default)
 REL_MAX = 1.0
 
 
@@ -73,10 +83,21 @@ class StepOptions:
     jac_dtype: Optional[str] = None
     # "f32": the whole Krylov space in float32
     krylov_dtype: Optional[str] = None
+    # None (float64), or the hybrid "f32", "mixed", "f32f" (module doc)
     residual_dtype: Optional[str] = None
     ruiz_sweeps: int = 4
     precond: str = "banded"
     banded_factor_dtype: Optional[str] = None
+    # accepted for vasp_tpu's configurations; the RAS preconditioner that
+    # reads them is not ported
+    n_subdomains: Optional[int] = None
+    overlap: int = 2
+    # hybrid residuals: fine (exact-grade) residuals once the norm is
+    # within endgame_factor * atol
+    endgame_factor: float = 30.0
+    # the jet Taylor-delta endgame of residual_dtype="f32" (not ported;
+    # "mixed" and "f32f" never use it)
+    delta_endgame: bool = True
     # GMRES forcing: "fixed" solves every direction to gmres_tol; "ew" is
     # Eisenstat-Walker choice 2, eta = gamma (r_k / r_{k-1})^2 clipped into
     # [gmres_tol, ew_max] with the over-solve floor 0.1 atol / r_k
@@ -84,6 +105,10 @@ class StepOptions:
     ew_gamma: float = 0.9
     ew_max: float = 1e-2
     chain_anchor: bool = False
+    chain_reanchor: int = 1
+    # carry element Jacobians across steps on the `recompute` cadence
+    # (chord Newton, turtleFSI's recompute semantic); kept only on a
+    # converged exit, dropped by a rebuild
     jac_carry: bool = False
     # "extrapolate" starts Newton from 2 U_n - U_{n-1} on consecutive steps
     predictor: str = "none"
@@ -93,10 +118,13 @@ class StepOptions:
             raise ValueError(
                 f"banded_factor_dtype={self.banded_factor_dtype!r}: "
                 "expected None (auto), 'hybrid', 'bf16', or 'f32'")
-        if self.residual_dtype in ("f32", "mixed", "f32f"):
-            not_ported(f"residual_dtype={self.residual_dtype!r}", 7)
-        if self.jac_carry:
-            not_ported("jac_carry", 7)
+        if self.residual_dtype not in (None, "f32", "mixed", "f32f"):
+            raise ValueError(
+                f"residual_dtype={self.residual_dtype!r}: expected None, "
+                "'f32', 'mixed' or 'f32f'")
+        if self.residual_dtype == "f32" and self.delta_endgame:
+            not_ported("residual_dtype='f32' with delta_endgame=True (the "
+                       "jet Taylor-delta endgame)", 14)
         if self.banded_factor_dtype in ("hybrid", "bf16"):
             not_ported(f"banded_factor_dtype={self.banded_factor_dtype!r}", 9)
         if self.precond == "ras":
@@ -116,9 +144,11 @@ class IterativeStepper:
     assemble, factorize, hg, probe) and per-iteration phases (jacobians,
     residual, gmres, and inside gmres its matvec and precond shares).
     ``setup`` holds the one-time host seconds (pattern, rcm, plan),
-    ``rebuilds`` the rebuild count, ``gmres_inner`` the GMRES inner
-    iterations over the run and ``history`` one record per step (Newton
-    iterations, GMRES inner iterations, rebuilds)."""
+    ``rebuilds`` the rebuild count, ``gmres_inner`` and ``gmres_cycles``
+    the GMRES inner iterations and restart cycles over the run and
+    ``history`` one record per step (Newton iterations, GMRES inner
+    iterations and cycles, rebuilds, the ladder tiers taken after the
+    first Newton call)."""
 
     def __init__(self, system, bc_set, options: StepOptions,
                  recompute_tstep=20):
@@ -136,12 +166,16 @@ class IterativeStepper:
         self._pinv = None
         self._dr = self._dc = None
         self._last_rel = 0.0
+        # set by the reactive escalation: every later rebuild runs K11
+        self._banded_f64 = False
+        self._jac_carry = None  # (element Jacobians, iteration age)
         self._pred_prev = None
         self._pred_tstep = None
         self.timings = defaultdict(float)
         self.setup = {}
         self.rebuilds = 0
         self.gmres_inner = 0
+        self.gmres_cycles = 0
         self.history = []
 
         block_dofs = [b.dofs.cpu().numpy() for b in self.asm.blocks]
@@ -162,13 +196,15 @@ class IterativeStepper:
 
     def _check_memory(self):
         """The full-f32 layout holds C/D/B and Sinv/H/G at once (the probe
-        reads all six), beside two sets of f32 element matrices and a few
-        c x c temporaries of the scan. Raise where the card cannot."""
+        reads all six), beside two sets of f32 element matrices, a few
+        c x c f32 temporaries of the scan and the four c x c f64 ones of
+        the escalation tier's scan (K11). Raise where the card cannot."""
         if self.device.type != "cuda":
             return
         pat = self._bpat
         jac = sum(4 * 64 * 64 * b.dofs.shape[0] for b in self.asm.blocks)
-        need = 6 * pat.factor_bytes + 2 * jac + 8 * 4 * pat.c * pat.c
+        need = (6 * pat.factor_bytes + 2 * jac + 8 * 4 * pat.c * pat.c
+                + 4 * 8 * pat.c * pat.c)
         free, _ = torch.cuda.mem_get_info(self.device)
         if need > free:
             not_ported(
@@ -187,8 +223,10 @@ class IterativeStepper:
 
     # -------------- preconditioner --------------
     def _rebuild(self, U, U0, tstep):
-        # free the previous factors before assembling new ones
+        # free the previous factors before assembling new ones; a carried
+        # Jacobian goes too (vasp_tpu drops it at every rebuild)
         self._pinv = None
+        self._jac_carry = None
         asm, mask = self.asm, self.mask
         with self._timed("rebuild_jacobians"):
             jacs = asm.element_jacobians(U, U0, dtype=torch.float32)
@@ -202,20 +240,24 @@ class IterativeStepper:
                 jf, self._plans, self._bpat, self._diag_flat)
             del jf
         with self._timed("factorize"):
-            Sinv = banded_mod.schur_scan(Cm, Dm, Bm)
+            scan = (banded_mod.schur_scan_f64 if self._banded_f64
+                    else banded_mod.schur_scan)
+            Sinv = scan(Cm, Dm, Bm)
         with self._timed("hg"):
             H, G = banded_mod.hg_factors(Sinv, Cm, Bm)
-        with self._timed("probe"):
-            self._last_rel = banded_mod.probe_rel(Cm, Dm, Bm, Sinv, H, G)
+        if not self._banded_f64:
+            # vasp_tpu probes only the float32 recursion's factors
+            with self._timed("probe"):
+                self._last_rel = banded_mod.probe_rel(Cm, Dm, Bm, Sinv, H, G)
         self._dr, self._dc = dr.to(torch.float64), dc.to(torch.float64)
         self._pinv = (Sinv, H, G)
         self._last_rebuild = tstep
         self.rebuilds += 1
 
     # -------------- Newton --------------
-    def _residual(self, U, U0, load):
+    def _residual(self, U, U0, load, dtype=None):
         with self._timed("residual"):
-            R = self.asm.residual(U, U0) + load
+            R = self.asm.residual(U, U0, dtype) + load
             R = torch.where(self.mask, 0.0, R)
             return R, float(torch.linalg.norm(R))
 
@@ -253,37 +295,63 @@ class IterativeStepper:
             y, info = gmres(matvec, Rs, M=precond, restart=opt.gmres_restart,
                             cycles=gcyc, tol=gtol)
         self.gmres_inner += info[2]
+        self.gmres_cycles += info[1]
         return dc * y.to(torch.float64)
 
-    def _newton(self, U0, Ustart, bcv, load, it_cap, exact=False):
+    def _newton(self, U0, Ustart, bcv, load, it_cap, fine_start=False,
+                exact=False):
         """Damped Newton from Ustart (bc values imposed) on the residual of
         the step from U0. Returns (U, stats) for the best state seen,
-        stats = iterations, residual (best), r0, stalled. exact=True:
-        float64 Jacobians and float64 GMRES with the exact tier's
-        tolerance and cycles."""
+        stats = iterations, residual (best), r0, stalled, fine (the last
+        iteration's residual was fine-grade), rfine (the best state's was).
+
+        Hybrid residual precisions: coarse (float32 element work) residuals
+        until the norm is within endgame_factor * atol, fine ones from then
+        on (float32 under f32f, mixed under mixed, float64 under f32);
+        fine_start=True takes fine ones from the first evaluation.
+        exact=True: float64 Jacobians and float64 GMRES with the exact
+        tier's tolerance and cycles, its fine residuals raw float64."""
         opt = self.opt
         jdt = torch.float64 if exact else self._jdtype
         rec = max(1, int(opt.recompute))
-        U = torch.where(self.mask, bcv, Ustart)
-        R, rnorm = self._residual(U, U0, load)
+        hybrid = opt.residual_dtype in ("f32", "mixed", "f32f")
+        fine_dt = None if exact else {"mixed": "mixed", "f32f": torch.float32
+                                      }.get(opt.residual_dtype)
+        endgame = opt.endgame_factor * opt.atol
+
+        def residual(U, fine):
+            if not hybrid:
+                return self._residual(U, U0, load)
+            return self._residual(U, U0, load,
+                                  fine_dt if fine else torch.float32)
+
+        U = U1 = torch.where(self.mask, bcv, Ustart)
+        R, rnorm = residual(U, fine_start)
+        if hybrid and not fine_start and rnorm < endgame:
+            # the ENDGAME refine of R0
+            R, rnorm = residual(U, True)
+        fine = not hybrid or fine_start or rnorm < endgame
         r0 = rnorm
         r0_safe = r0 if r0 > 0 else 1.0
-        Ub, rb = U, rnorm
+        Ub, rb, rbfine = U, rnorm, fine
         stall, it, eta = 0, 0, opt.gmres_tol
         # a stall is a residual not decreasing; the exact variant counts
         # only near-zero progress as one
         sthr = 0.98 if exact else 0.9
-        jacs = self._jacobians(U, U0, jdt) if rec > 1 else None
+        use_carry = opt.jac_carry and rec > 1 and not exact
+        jacs, age = (self._jac_carry if use_carry and self._jac_carry
+                     is not None else (None, 0))
         while (it < it_cap and rnorm > opt.atol
                and rnorm / r0_safe > opt.rtol and stall < 2):
-            if rec == 1 or (it > 0 and it % rec == 0):
+            if rec == 1 or jacs is None or (it > 0 and (it + age) % rec == 0):
                 jacs = self._jacobians(U, U0, jdt)
             dx = self._direction(R, jacs, eta, exact)
+            fine = fine or rnorm < endgame
             # full step first; the halving search only when it fails
             cands = []
             for k in range(4):
                 Ut = U - opt.lmbda * (0.5 ** k) * dx
-                cands.append((Ut, *self._residual(Ut, U0, load)))
+                cands.append((Ut, *residual(Ut, fine)))
                 if k == 0 and np.isfinite(cands[0][2]) \
                         and cands[0][2] < rnorm:
                     break
@@ -292,7 +360,7 @@ class IterativeStepper:
             rn = min(rs)
             stall = stall + 1 if rn > sthr * rnorm else 0
             if rn < rb:
-                Ub, rb = U, rn
+                Ub, rb, rbfine = U, rn, fine
             # Eisenstat-Walker forcing term of the next direction
             eta = float(np.clip(
                 max(opt.ew_gamma * (rn / max(rnorm, 1e-300)) ** 2,
@@ -300,47 +368,122 @@ class IterativeStepper:
                 opt.gmres_tol, opt.ew_max))
             rnorm = rn
             it += 1
+        if use_carry:
+            self._jac_carry = self._carry(jacs, age, it, rb, r0, U1, U0)
         return Ub, dict(iterations=it, residual=rb, r0=r0,
-                        stalled=stall >= 2)
+                        stalled=stall >= 2, fine=fine,
+                        rfine=rbfine or exact)
+
+    def _carry(self, jacs, age, it, res, r0, U1, U0):
+        """The Jacobian carry a Newton call of `it` iterations leaves: its
+        last Jacobians and their age in iterations, counted unwrapped
+        (vasp_tpu's rule: age since the last in-loop refresh, else the
+        carried age plus it), or None where the call did not converge or
+        the age reached `recompute`. A call of no iteration carries fresh
+        Jacobians of its start state, as vasp_tpu's dispatch does."""
+        opt = self.opt
+        rec = max(1, int(opt.recompute))
+        if not (res <= opt.atol or res <= opt.rtol * max(r0, 1e-300)):
+            return None
+        it_last = (it - 1 + age) // rec * rec - age
+        age = it - it_last if 1 <= it_last <= it - 1 else age + it
+        if age >= rec:
+            return None
+        if jacs is None:
+            jacs = self._jacobians(U1, U0, self._jdtype)
+        return jacs, age
 
     # -------------- public --------------
     def step(self, U0, bc_values, load, tstep):
         """One timestep from U0; returns (U, stats)."""
-        inner0, rebuilds0 = self.gmres_inner, self.rebuilds
+        inner0, cycles0 = self.gmres_inner, self.gmres_cycles
+        rebuilds0 = self.rebuilds
+        tiers = []
+        U, stats = self._step_ladder(U0, bc_values, load, tstep, tiers)
+        self.history.append(dict(
+            tstep=tstep, iterations=stats["iterations"],
+            gmres_inner=self.gmres_inner - inner0,
+            gmres_cycles=self.gmres_cycles - cycles0,
+            rebuilds=self.rebuilds - rebuilds0, tiers=tiers))
+        return U, stats
+
+    def _step_ladder(self, U0, bc_values, load, tstep, tiers):
+        opt = self.opt
         fresh = False
         if (self._pinv is None
                 or tstep - self._last_rebuild >= self.recompute_tstep):
             self._rebuild(torch.where(self.mask, bc_values, U0), U0, tstep)
             fresh = True
         Ustart = U0
-        if (self.opt.predictor == "extrapolate"
+        if (opt.predictor == "extrapolate"
                 and self._pred_prev is not None
                 and tstep == self._pred_tstep + 1):
             Ustart = U0 + (U0 - self._pred_prev)
         self._pred_prev, self._pred_tstep = U0, tstep
-        U, stats = self._newton(U0, Ustart, bc_values, load,
-                                self.opt.max_it)
-        converged = (stats["residual"] <= self.opt.atol
-                     or stats["residual"] <= self.opt.rtol
-                     * max(stats["r0"], 1e-300))
-        if not converged and self._last_rel > REL_MAX:
-            not_ported(
-                f"the f64 factor escalation (Newton stalled at timestep "
-                f"{tstep} under banded factors with probe rel "
-                f"{self._last_rel:.1e})", 9)
-        if not converged and not fresh:
+        U, stats = self._newton(U0, Ustart, bc_values, load, opt.max_it)
+        r0 = stats["r0"]
+
+        def converged():
+            return (stats["residual"] <= opt.atol
+                    or stats["residual"] <= opt.rtol * max(r0, 1e-300))
+
+        def again(tier, fine_start, exact=False):
+            """Newton from the best state so far, its iterations added."""
+            nonlocal r0
+            tiers.append(tier)
+            it0 = stats["iterations"]
+            U1, st = self._newton(U0, U, bc_values, load, opt.max_it,
+                                  fine_start, exact)
+            st["iterations"] += it0
+            r0 = max(r0, st["r0"])
+            return U1, st
+
+        coarse32 = opt.residual_dtype in ("f32", "mixed")
+        if converged() and coarse32 and not stats["fine"]:
+            # a coarse exit claims convergence: certify it with fine
+            # residuals (exits at once when the claim holds)
+            U, stats = again("certify", True)
+        if (not converged() and not self._banded_f64
+                and self._last_rel > REL_MAX):
+            # reactive factor escalation: Newton stalled under factors the
+            # probe had flagged; every later rebuild runs K11
+            print("Newton: stall under probe-flagged banded factors "
+                  f"(solve quality {self._last_rel:.1e}) - escalating to "
+                  "f64 factorization", flush=True)
+            self._banded_f64 = True
+            self._rebuild(U, U0, tstep)
+            fresh = True
+            U, stats = again("f64_factors", stats["fine"])
+        if (not converged()
+                and ((coarse32 and not stats["fine"])
+                     or opt.residual_dtype == "f32f")):
+            # coarse-phase stall at the float32 residual floor: retry with
+            # fine residuals from the first evaluation (f32f: its fine
+            # tier is float32-grade too, so any unconverged exit)
+            print("Newton: coarse-phase stall at the f32 residual floor "
+                  f"({stats['residual']:.3e}) - retrying with exact "
+                  "residuals", flush=True)
+            res_pre = stats["residual"]
+            U, stats = again("fine_retry", True)
+            if not converged() and stats["residual"] > 0.9 * res_pre:
+                # the float32 direction is the floor: float64 Jacobians
+                # and GMRES, then a fresh preconditioner at this state
+                print("Newton: stall persists with exact residuals "
+                      f"({stats['residual']:.3e}) - escalating to f64 "
+                      "Jacobians", flush=True)
+                U, stats = again("exact", True, exact=True)
+                if not converged():
+                    print("Newton: rebuilding preconditioner at the current "
+                          "state for the exact retry", flush=True)
+                    self._rebuild(U, U0, tstep)
+                    U, stats = again("exact_rebuild", True, exact=True)
+                return U, stats
+        if not converged() and not fresh:
             # stall-triggered rebuild: a preconditioner frozen since an
             # earlier step degrades GMRES on load-jump steps; rebuild at the
             # best mid-Newton state and continue from it
             self._rebuild(U, U0, tstep)
-            it0 = stats["iterations"]
-            U, stats = self._newton(U0, U, bc_values, load,
-                                    self.opt.max_it)
-            stats["iterations"] += it0
-        self.history.append(dict(
-            tstep=tstep, iterations=stats["iterations"],
-            gmres_inner=self.gmres_inner - inner0,
-            rebuilds=self.rebuilds - rebuilds0))
+            U, stats = again("stall_rebuild", stats["fine"])
         return U, stats
 
 

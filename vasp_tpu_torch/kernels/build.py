@@ -30,10 +30,11 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # one count per kernel, bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
-    ("fluid_residual", "solid_residual", "fluid_jacobian", "solid_jacobian",
+    ("fluid_residual", "solid_residual", "fluid_residual_f32",
+     "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
      "fluid_jacobian_f32", "solid_jacobian_f32", "dg0_project_speed",
      "integrate_p2_dot_n", "elem_matvec", "ruiz_sweep", "ruiz_scale",
-     "banded_assemble", "banded_apply"), 0)
+     "banded_assemble", "banded_apply", "banded_factorize_f64"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -99,10 +100,11 @@ def _bind(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     sigs = {
         "vt_element_nq_max": [],
+        "vt_element_nq_max_f32": [],
         "vt_set_element_tables": [P, P, P, P, I],
-        "vt_fluid_residual": [P] * 8 + [I, I, D, D, D, D, D, I, P],
+        "vt_fluid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
         "vt_fluid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
-        "vt_solid_residual": [P] * 8 + [I, I, D, D, D, D, D, P],
+        "vt_solid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, P],
         "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],

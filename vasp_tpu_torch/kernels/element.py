@@ -13,6 +13,11 @@ scatter of Assembler.residual (K1 fluid, K2 solid) and
 CellBlock.jacobian_local (K3). Costs and design: see the head of
 csrc/element_kernels.cu.
 
+The residual's element work runs in float64 (``dtype=None``) or in
+float32 (``dtype=torch.float32``), as vasp_tpu's CellBlock.residual_local
+with dtype=float32: U, U0, Jinv, detJ and vol rounded to float32, the
+tables too, float32 arithmetic, and the result scattered into a float64 R.
+
 Jacobians come in float64 or float32 (``dtype``). vasp_tpu computes its
 float32 Jacobians by jax.jacfwd in float32 arithmetic on float32 inputs;
 the port computes them in float64 and rounds once on the write (the
@@ -32,14 +37,26 @@ _LIFT_SUB = {"constant": 0, "small_constant": 0, "volume": 1,
 _uploaded_tables = {}
 
 
+def _residual_f32(dtype):
+    """True for float32 element work, False for float64 (dtype None)."""
+    if dtype is not None and dtype != torch.float32:
+        raise ValueError(f"the element residual works in float64 (dtype "
+                         f"None) or float32, not {dtype}")
+    return dtype is not None
+
+
 # ------------------------------------------------------------ plain ----
-def residual_plain(block, U, U0, R):
-    """R += scatter of the block's masked element residuals (in place)."""
+def residual_plain(block, U, U0, R, dtype=None):
+    """R += scatter of the block's masked element residuals (in place),
+    their element work in float64 (dtype None) or float32."""
     dofs = block.dofs
-    r = block.kernel(U[dofs], U0[dofs], block.Jinv, block.detJ, block.vol)
+    args = (U[dofs], U0[dofs], block.Jinv, block.detJ, block.vol)
+    if _residual_f32(dtype):
+        args = [a.to(dtype) for a in args]
+    r = block.kernel(*args)
     if block.rowmask is not None:
-        r = r * block.rowmask
-    R.index_add_(0, dofs.reshape(-1), r.reshape(-1))
+        r = r * block.rowmask.to(r.dtype)
+    R.index_add_(0, dofs.reshape(-1), r.reshape(-1).to(R.dtype))
     return R
 
 
@@ -118,17 +135,25 @@ def _prepare(block, U, U0):
     return lib, nq, build.stream_handle(dev)
 
 
-def residual_cuda(block, U, U0, R):
-    """R += the block's masked element residuals, by the K1/K2 kernel."""
+def residual_cuda(block, U, U0, R, dtype=None):
+    """R += the block's masked element residuals, by the K1/K2 kernel: its
+    float64 instance, or its float32 one for dtype=torch.float32."""
+    f32 = _residual_f32(dtype)
     lib, nq, stream = _prepare(block, U, U0)
+    if f32 and nq > lib.vt_element_nq_max_f32():
+        raise NotImplementedError(
+            f"quadrature_degree={block.kernel.quad_degree} has {nq} points; "
+            f"the float32 element residual holds at most "
+            f"{lib.vt_element_nq_max_f32()} (degree 7)")
     build.require(R, "R", torch.float64, U.shape, U.device)
     kind = block.kernel.kind
     fn = lib.vt_fluid_residual if kind == "fluid" else lib.vt_solid_residual
     args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
                                    block.vol, block.rowmask, R)]
-    build.check(fn(*args, block.dofs.shape[0], nq,
-                   *cuda_params(block.kernel), stream), f"{kind}_residual")
-    build.LAUNCHES[f"{kind}_residual"] += 1
+    name = f"{kind}_residual" + ("_f32" if f32 else "")
+    build.check(fn(*args, int(f32), block.dofs.shape[0], nq,
+                   *cuda_params(block.kernel), stream), name)
+    build.LAUNCHES[name] += 1
     return R
 
 
@@ -153,12 +178,13 @@ def jacobian_cuda(block, U, U0, dtype=torch.float64):
 
 
 # --------------------------------------------------------- dispatch ----
-def block_residual(block, U, U0, R):
-    """R += the block's masked element residuals: plain on CPU tensors,
-    the CUDA kernel on CUDA tensors."""
+def block_residual(block, U, U0, R, dtype=None):
+    """R += the block's masked element residuals, their element work in
+    float64 (dtype None) or float32: plain on CPU tensors, the CUDA kernel
+    on CUDA tensors."""
     if build.on_cuda(U, "element"):
-        return residual_cuda(block, U, U0, R)
-    return residual_plain(block, U, U0, R)
+        return residual_cuda(block, U, U0, R, dtype)
+    return residual_plain(block, U, U0, R, dtype)
 
 
 def block_jacobian(block, U, U0, dtype=torch.float64):

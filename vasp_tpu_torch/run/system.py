@@ -238,7 +238,7 @@ class FSISystem:
 
     def _make_iterative_solver(self, bc_set, **opts):
         cfg = self.cfg
-        sopts = StepOptions(
+        kw = dict(
             atol=float(cfg.get("atol", 1e-7)),
             rtol=float(cfg.get("rtol", 1e-7)),
             max_it=int(cfg.get("max_it", 50)),
@@ -250,16 +250,22 @@ class FSISystem:
             gmres_restart=int(cfg.get("gmres_restart", 60)),
             gmres_maxiter=int(cfg.get("gmres_maxiter", 300)),
             jac_chunk=int(cfg.get("jac_chunk", 8192)),
+            overlap=int(cfg.get("ras_overlap", 2)),
             jac_dtype=str(cfg.get("jac_dtype", "f32")),
             krylov_dtype=cfg.get("krylov_dtype"),
             residual_dtype=cfg.get("residual_dtype"),
             precond=str(cfg.get("precond", "banded")),
             predictor=str(cfg.get("predictor", "none")),
+            endgame_factor=float(cfg.get("endgame_factor", 30.0)),
             chain_anchor=bool(cfg.get("chain_anchor", False)),
+            chain_reanchor=int(cfg.get("chain_reanchor", 1)),
         )
-        known = {f.name for f in dataclasses.fields(sopts)}
-        sopts = dataclasses.replace(
-            sopts, **{k: v for k, v in opts.items() if k in known})
+        # the caller's options override the config's before StepOptions
+        # validates them (residual_dtype="f32" is refused unless
+        # delta_endgame=False comes with it)
+        known = {f.name for f in dataclasses.fields(StepOptions)}
+        kw.update({k: v for k, v in opts.items() if k in known})
+        sopts = StepOptions(**kw)
         return IterativeNewtonSolver(
             self, bc_set, sopts,
             recompute_tstep=int(cfg.get("recompute_tstep", 20)),
