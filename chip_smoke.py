@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. Device: needs torch.cuda; prints the card's name and power limit and
    builds the CUDA kernels from csrc/ (one nvcc per source, in parallel;
    build seconds, ptxas register and spill report); the SASS of the
-   float32 residual instances must hold no float64 arithmetic.
+   float32 residual instances (fluid, solid and the Robin facet term)
+   must hold no float64 arithmetic.
 2. Kernel vs plain on the card at the 20,832-cell tube (184,845 dofs):
    every kernel against its plain torch version on the same inputs, each
    timed with CUDA events beside its plain version, its bound (bytes over
@@ -41,6 +42,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    no worse than K9's; its first two blocks against the same recursion on
    the host, 1e-5 relative (float32 roundings of float64 inverses from
    cuSOLVER and LAPACK).
+   Then, at the 20,832-cell aneurysm tube (1,984 Robin facets on marker
+   33): the Robin facet residual (K14, f64 1e-12, f32 by the K1/K2 f32
+   rule) and its Jacobians (f64 1e-12, f32 2e-7 per block), K4 at the
+   facet blocks' 36 local dofs in its four dtype instances (the K4
+   tolerances; cuSPARSE's SpMV of the facet matrix as a yardstick), K7 at
+   36 (exact), and the DG0 projection of det(I + grad d) (K19c, 1e-12) on
+   a displacement with strains ~1e-2.
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
    (plain versions) and on the card (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
@@ -59,7 +67,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the CPU and the card, U within 1e-5 relative (the escalation run ends
    on float32 GMRES directions at a residual near 5e-10; measured 6e-7).
    The launch counters are reset before the card's forced runs and read
-   after them: the ladder's own path.
+   after them: the ladder's own path. Then the tiny aneurysm of
+   tests/test_torch_driver_aneurysm.py (Robin facet blocks) on the LU
+   path (U within 1e-8 relative; counters reset just before the card's
+   run and read just after: the f64 Robin kernels' path) and on the bench
+   configuration (U within 3e-2), the same Newton counts.
 4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
    cylinder of 10 layers; its host splu takes under a minute on a
    CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
@@ -91,7 +103,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ramp steps and 3 more; counters reset just before and read just after;
    every step must converge; the same lines as phase 5.
 
-Phases 3-6 run with HDF5 output off (save_step=0, checkpoint_step=0),
+8. The models: driver.main on -p offset_stenosis (its FSI sphere over the
+   throat, fsi_region=[0, 0, 0.012, 0.01]) and -p aneurysm at 20,832
+   cells (generated_mesh_params n_theta=16, n_r_fluid=3, n_r_solid=1,
+   n_z=62) on the bench configuration, 5 steps of dt=1e-3; the checks and
+   lines of phase 5, every step's minimum Jacobian positive, and the last
+   step's probe and minimum-Jacobian lines.
+
+Phases 3-8 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -143,6 +162,13 @@ BENCH_STEP = dict(atol=1e-6, rtol=1e-6, max_it=12, recompute=2,
                   gmres_tol=1e-3, gmres_restart=60, gmres_maxiter=120,
                   jac_chunk=8192, overlap=2, jac_dtype="f32",
                   krylov_dtype="f32", residual_dtype="f32f")
+# the generated meshes of the models at the 20,832-cell tube's topology
+MODEL_MESH = dict(n_theta=16, n_r_fluid=3, n_r_solid=1, n_z=62)
+# the tiny aneurysm of tests/test_torch_driver_aneurysm.py
+TINY_ANEURYSM = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=2,
+                     atol=1e-6, rtol=1e-6, recompute=5, recompute_tstep=1,
+                     generated_mesh_params=dict(n_theta=8, n_z=8),
+                     verbose=True, **NO_FILES)
 # a small tube (bench.py's physics) for the forced ladder runs
 LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
                    n_r_fluid=2, n_r_solid=1, n_z=5)
@@ -184,6 +210,25 @@ REPLACES = {
                      "gmres"),
     "banded_factorize_f64": ("vasp_tpu_torch/fem/banded.py",
                              "vasp_tpu/fem/banded.py:576", "ladder"),
+    "robin_residual": (CSRC + "facet_kernels.cu",
+                       "vasp_tpu/fem/forms.py:252 via "
+                       "vasp_tpu/fem/assembly.py:116", "aneurysm_lu"),
+    "robin_residual_f32": (CSRC + "facet_kernels.cu",
+                           "vasp_tpu/fem/forms.py:252 via "
+                           "vasp_tpu/fem/assembly.py:116 (dtype=float32)",
+                           "aneurysm"),
+    "robin_jacobian": (CSRC + "facet_kernels.cu",
+                       "vasp_tpu/fem/assembly.py:122", "aneurysm_lu"),
+    "robin_jacobian_f32": (CSRC + "facet_kernels.cu",
+                           "vasp_tpu/fem/assembly.py:122", "aneurysm"),
+    "elem_matvec_36": (CSRC + "matvec.cu", "vasp_tpu/fem/assembly.py:354",
+                       "aneurysm"),
+    "ruiz_sweep_36": (CSRC + "ruiz.cu", "vasp_tpu/fem/scaling.py:31",
+                      "aneurysm"),
+    "ruiz_scale_36": (CSRC + "ruiz.cu", "vasp_tpu/fem/scaling.py:71",
+                      "aneurysm"),
+    "dg0_project_jacobian": (CSRC + "measures.cu",
+                             "vasp_tpu/fem/measures.py:116", "aneurysm"),
 }
 # the kernels each path's run must launch
 _KRYLOV = {"fluid_jacobian_f32", "solid_jacobian_f32", "elem_matvec",
@@ -197,6 +242,15 @@ PATHS = {
     | _MEASURES,
     "bench": {"fluid_residual_f32", "solid_residual_f32"} | _KRYLOV,
     "ladder": {"banded_factorize_f64"},
+    "aneurysm_lu": {"fluid_residual", "solid_residual", "fluid_jacobian",
+                    "solid_jacobian", "robin_residual", "robin_jacobian",
+                    "dg0_project_jacobian"} | _MEASURES,
+    "stenosis": {"fluid_residual_f32", "solid_residual_f32",
+                 "dg0_project_jacobian"} | _KRYLOV | _MEASURES,
+    "aneurysm": {"fluid_residual_f32", "solid_residual_f32",
+                 "robin_residual_f32", "robin_jacobian_f32",
+                 "elem_matvec_36", "ruiz_sweep_36", "ruiz_scale_36",
+                 "dg0_project_jacobian"} | _KRYLOV | _MEASURES,
 }
 
 
@@ -318,10 +372,11 @@ def phase_device():
 
 
 def check_f32_residual_sass(build):
-    """The float32 residual instances must do no float64 arithmetic (a
-    stray double literal or parameter would promote their math): count
-    the f64 arithmetic instructions in their SASS. Only the input
-    roundings (F2F) and the float64 scatter (RED.ADD.F64) may touch f64."""
+    """The float32 residual instances (the fluid and solid cells' K1/K2
+    and the Robin facets' K14) must do no float64 arithmetic (a stray
+    double literal or parameter would promote their math): count the f64
+    arithmetic instructions in their SASS. Only the input roundings (F2F)
+    and the float64 scatter (RED.ADD.F64) may touch f64."""
     import re
 
     tool = Path("/usr/local/cuda/bin/cuobjdump")
@@ -330,8 +385,8 @@ def check_f32_residual_sass(build):
                           text=True, check=True, timeout=300).stdout
     funcs = [f for f in sass.split("Function : ")[1:]
              if "residual_kernelIf" in f.split("\n", 1)[0]]
-    require(len(funcs) == 2, f"found {len(funcs)} float32 residual "
-                             f"instances in the SASS, expected 2")
+    require(len(funcs) == 3, f"found {len(funcs)} float32 residual "
+                             f"instances in the SASS, expected 3")
     for f in funcs:
         n = len(re.findall(r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b", f))
         print(f"    SASS of {f.split(chr(10), 1)[0].strip()[:90]}: {n} "
@@ -339,23 +394,33 @@ def check_f32_residual_sass(build):
         require(n == 0, "the float32 residual does float64 arithmetic")
 
 
-def build_system(mesh_params, device, seed):
-    """The cylinder system at the given size, its BCs, and a seeded state."""
+def model_system(problem, mesh_params, device, **extra):
+    """A model's system on its generated mesh and its Dirichlet set at
+    t = 0, built through the model's own hooks."""
+    from vasp_tpu_torch.run.config import default_variables
+    from vasp_tpu_torch.run.driver import load_problem_module
+    from vasp_tpu_torch.run.system import FSISystem
+
+    mod = load_problem_module(problem)
+    cfg = mod.set_problem_parameters(default_variables())
+    cfg.update(device=device, mesh_path=None,
+               generated_mesh_params=mesh_params, **extra)
+    mesh = mod.get_mesh_domain_and_boundaries(**cfg)
+    system = FSISystem(mesh, cfg)
+    with redirect_stdout(io.StringIO()):
+        bcs = mod.create_bcs(**dict(cfg, t=0.0, mesh=mesh, system=system,
+                                    space=system.space))["bcs"]
+    return system, system.make_bcset(bcs)
+
+
+def build_system(mesh_params, device, seed, problem="cylinder"):
+    """A model's system at the given size, its BCs, and two seeded
+    states."""
     import numpy as np
     import torch
 
-    from vasp_tpu_torch.models import cylinder
-    from vasp_tpu_torch.run.config import default_variables
-    from vasp_tpu_torch.run.system import FSISystem
-
-    cfg = cylinder.set_problem_parameters(default_variables())
-    cfg.update(device=device, mesh_path=None,
-               generated_mesh_params=mesh_params)
-    mesh = cylinder.get_mesh_domain_and_boundaries(**cfg)
-    system = FSISystem(mesh, cfg)
-    bc = system.make_bcset(cylinder.create_bcs(
-        space=system.space, system=system, **cfg)["bcs"])
-    # random states at the cylinder's scales: wall displacement ~1 um,
+    system, bc = model_system(problem, mesh_params, device)
+    # random states at the models' scales: wall displacement ~1 um,
     # velocity ~1 cm/s, pressure ~100 Pa
     rng = np.random.default_rng(seed)
     space = system.space
@@ -754,6 +819,155 @@ def phase_k11(records, Ck, Dk, Bk, probe32, pat):
                 probe64_rel=probe)
 
 
+def phase_facet_kernels(records):
+    """K14, K4 and K7 at the facet blocks' 36 local dofs, and K19c, against
+    their plain versions at the 20,832-cell aneurysm tube."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.fem.assembly import FacetBlock
+    from vasp_tpu_torch.fem.measures import cell_tables
+    from vasp_tpu_torch.kernels import facet
+    from vasp_tpu_torch.kernels import matvec as km4
+    from vasp_tpu_torch.kernels import measures as km
+    from vasp_tpu_torch.kernels import scaling as ks
+
+    f32, f64 = torch.float32, torch.float64
+    system, bc, U, _ = build_system(MODEL_MESH, "cuda", 1, "aneurysm")
+    space = system.space
+    ndof = space.ndof
+    (fb,) = [b for b in system.assembler.blocks if isinstance(b, FacetBlock)]
+    K = fb.dofs.shape[0]
+    print(f"[2] aneurysm tube: {system.mesh.num_cells} cells, {ndof} dofs, "
+          f"blocks " + ", ".join(f"{b.name}={b.dofs.shape[0]}"
+                                 for b in system.assembler.blocks))
+    rng = np.random.default_rng(2)
+    R = torch.zeros_like(U)
+
+    # ---- K14 residual: U read and R written whole, as K1/K2 count them
+    io_bytes = nbytes(fb.dofs, fb.area2) + 2 * 8 * ndof
+    Rk = facet.residual_cuda(fb, U, torch.zeros_like(U))
+    Rp = facet.residual_plain(fb, U, torch.zeros_like(U))
+    records.add("robin_residual", rel_err(Rk, Rp),
+                cuda_ms(lambda: facet.residual_cuda(fb, U, R), 50),
+                cuda_ms(lambda: facet.residual_plain(fb, U, R), 10),
+                (io_bytes, count_ops(lambda: facet.residual_plain(
+                    fb, U, torch.zeros_like(U))), "f64"), TOL_F64,
+                f"K={K} -> ({ndof},)")
+    Rk32 = facet.residual_cuda(fb, U, torch.zeros_like(U), f32)
+    Rp32 = facet.residual_plain(fb, U, torch.zeros_like(U), f32)
+    floor = float((Rp32 - Rp).norm())
+    records.add("robin_residual_f32", rel_err(Rk32, Rp32),
+                cuda_ms(lambda: facet.residual_cuda(fb, U, R, f32), 50),
+                cuda_ms(lambda: facet.residual_plain(fb, U, R, f32), 10),
+                (io_bytes, count_ops(lambda: facet.residual_plain(
+                    fb, U, torch.zeros_like(U), f32)), "f32"),
+                (2 * floor + 1e-14 * float(Rp.norm())) / float(Rp32.norm()),
+                f"K={K} f32 -> ({ndof},)",
+                plain_rel_to_f64=floor / float(Rp.norm()),
+                kernel_rel_to_f64=float((Rk32 - Rp).norm() / Rp.norm()))
+    del Rk, Rp, Rk32, Rp32
+
+    # ---- K14 Jacobians: the closed form's operations (M from the rule,
+    # then the 216 nonzero products of each block); the output written
+    Ap = facet.jacobian_plain(fb, U)
+    nq = len(fb.kernel.tables_np[0])
+    jac_ops = K * (36 * 3 * nq + 216)
+    for dt, suffix, tol in ((f64, "", TOL_F64), (f32, "_f32", TOL_JAC_F32)):
+        Ak = facet.jacobian_cuda(fb, U.device, dt)
+        records.add(
+            f"robin_jacobian{suffix}", _per_block_rel(Ak, Ap.to(dt)),
+            cuda_ms(lambda: facet.jacobian_cuda(fb, U.device, dt), 50),
+            cuda_ms(lambda: facet.jacobian_plain(fb, U).to(dt), 5),
+            (nbytes(fb.area2, Ak), jac_ops, "f64"), tol,
+            f"K={K} -> ({K},36,36) {dt}".replace("torch.", ""))
+    del Ap
+
+    # ---- K4 at 36: the four dtype instances; the main record is the
+    # aneurysm's f32f path's (f32 A, f32 x)
+    A32 = facet.jacobian_cuda(fb, U.device, f32)
+    A64 = facet.jacobian_cuda(fb, U.device, f64)
+    x64 = torch.as_tensor(rng.normal(size=ndof), device="cuda")
+    variants = {}
+    for label, A, x, tol in (("f32_f64", A32, x64, TOL_MATVEC_F32),
+                             ("f32_f32", A32, x64.float(), TOL_MATVEC_F32),
+                             ("f64_f64", A64, x64, TOL_F64),
+                             ("f64_f32", A64, x64.float(), TOL_MATVEC_F32)):
+        def run(fn, A=A, x=x):
+            y = torch.zeros_like(x)
+            fn(A, fb.dofs, x, y)
+            return y
+        rel, mx = rel_err(run(km4.elem_matvec_cuda),
+                          run(km4.elem_matvec_plain))
+        require(rel <= tol, f"elem_matvec_36 {label}: rel {rel:.3e}")
+        variants[label] = dict(
+            rel_err=rel, max_abs_err=mx,
+            ms=cuda_ms(lambda: run(km4.elem_matvec_cuda), 100),
+            plain_ms=cuda_ms(lambda: run(km4.elem_matvec_plain), 20))
+        print(f"    elem_matvec_36 {label}: rel {rel:.3e} max_abs {mx:.3e} "
+              f"kernel {variants[label]['ms']:.4f} ms plain "
+              f"{variants[label]['plain_ms']:.4f} ms")
+    del A64
+    csr = torch.sparse_coo_tensor(
+        torch.stack([fb.dofs[:, :, None].expand(-1, 36, 36).reshape(-1),
+                     fb.dofs[:, None, :].expand(-1, 36, 36).reshape(-1)]),
+        A32.reshape(-1), (ndof, ndof)).coalesce().to_sparse_csr()
+    x32 = x64.float()[:, None]
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, x32), 100)
+    print(f"    cuSPARSE SpMV of the assembled f32 facet matrix "
+          f"({csr._nnz()} nonzeros): {lib_ms:.4f} ms")
+    del csr
+    main = variants["f32_f32"]
+    records.add("elem_matvec_36", (main["rel_err"], main["max_abs_err"]),
+                main["ms"], main["plain_ms"],
+                (nbytes(A32, fb.dofs) + 2 * 4 * ndof, 2 * 1296 * K, "f32"),
+                TOL_MATVEC_F32, f"K={K} f32 A, f32 x", library_ms=lib_ms,
+                variants=variants)
+
+    # ---- K7 at 36: one sweep and the rescale, at seeded scales
+    mask = bc.mask_on("cuda")
+    dr, dc = (torch.as_tensor(rng.uniform(0.5, 2.0, ndof), dtype=f32,
+                              device="cuda") for _ in range(2))
+    outs = [torch.zeros(ndof, dtype=f32, device="cuda") for _ in range(4)]
+    ks.ruiz_sweep_cuda(A32, fb.dofs, dr, dc, mask, outs[0], outs[1])
+    ks.ruiz_sweep_plain(A32, fb.dofs, dr, dc, mask, outs[2], outs[3])
+    records.add("ruiz_sweep_36", max(rel_err(outs[0], outs[2]),
+                                     rel_err(outs[1], outs[3])),
+                cuda_ms(lambda: ks.ruiz_sweep_cuda(A32, fb.dofs, dr, dc, mask,
+                                                   outs[0], outs[1]), 100),
+                cuda_ms(lambda: ks.ruiz_sweep_plain(A32, fb.dofs, dr, dc,
+                                                    mask, outs[2], outs[3]),
+                        20),
+                (nbytes(A32, fb.dofs, dr, dc, mask) + 8 * ndof,
+                 5 * 1296 * K, "f32"), 0.0, f"K={K}, one sweep")
+    records.add("ruiz_scale_36",
+                rel_err(ks.ruiz_scale_cuda(A32, fb.dofs, dr, dc),
+                        ks.ruiz_scale_plain(A32, fb.dofs, dr, dc)),
+                cuda_ms(lambda: ks.ruiz_scale_cuda(A32, fb.dofs, dr, dc), 100),
+                cuda_ms(lambda: ks.ruiz_scale_plain(A32, fb.dofs, dr, dc), 20),
+                (2 * nbytes(A32) + nbytes(fb.dofs, dr, dc), 2 * 1296 * K,
+                 "f32"), 0.0, f"K={K}")
+    del A32
+
+    # ---- K19c on a displacement with strains ~1e-2
+    d = torch.as_tensor(1e-2 * system.mesh.hmin * rng.normal(
+        size=(space.n_p2, 3)), device="cuda")
+    tabs = cell_tables(space, d.device, 2)
+    cell_dofs, Jinv, _, dN2, wq = tabs
+    jk = km.dg0_project_jacobian_cuda(d, cell_dofs, Jinv, dN2, wq)
+    jp = km.dg0_project_jacobian_plain(d, cell_dofs, Jinv, dN2, wq)
+    print(f"    K19c input: max |J - 1| {float((jp - 1.0).abs().max()):.3e}")
+    records.add("dg0_project_jacobian", rel_err(jk, jp),
+                cuda_ms(lambda: km.dg0_project_jacobian_cuda(
+                    d, cell_dofs, Jinv, dN2, wq), 50),
+                cuda_ms(lambda: km.dg0_project_jacobian_plain(
+                    d, cell_dofs, Jinv, dN2, wq), 20),
+                (nbytes(d, cell_dofs, Jinv, dN2, wq, jk),
+                 count_ops(lambda: km.dg0_project_jacobian_plain(
+                     d, cell_dofs, Jinv, dN2, wq)), "f64"), TOL_F64,
+                f"Nc={cell_dofs.shape[0]}")
+
+
 def phase_kernels():
     import torch
 
@@ -766,52 +980,76 @@ def phase_kernels():
     extra = phase_iterative_kernels(records, system, bc)
     del system, U, U0
     torch.cuda.empty_cache()
+    phase_facet_kernels(records)
+    torch.cuda.empty_cache()
     return records, extra
 
 
-def _run_quiet(overrides):
+def _run_quiet(overrides, problem="cylinder"):
     from vasp_tpu_torch.run.driver import run_simulation
 
     buf = io.StringIO()
     with redirect_stdout(buf):
-        ns = run_simulation("cylinder", overrides=overrides)
+        ns = run_simulation(problem, overrides=overrides)
     iters = [json.loads(line)["newton_iterations"] for line in
              (Path(overrides["folder"]) / "metrics.jsonl").read_text()
              .splitlines()]
     return ns, iters, buf.getvalue()
 
 
+# the path parity runs of phase 3: (problem, its tiny run, label, config
+# keys, tolerance on U)
+PARITY = (
+    ("cylinder", TINY, "LU", {}, TOL_PATH_LU),
+    ("cylinder", TINY, "gmres", dict(linear_solver="gmres"), TOL_PATH_GMRES),
+    ("cylinder", TINY, "f32f", BENCH_CFG, TOL_PATH_F32F),
+    ("aneurysm", TINY_ANEURYSM, "LU", {}, TOL_PATH_LU),
+    ("aneurysm", TINY_ANEURYSM, "f32f", BENCH_CFG, TOL_PATH_F32F),
+)
+
+
 def phase_parity(tmp):
-    for label, extra, tol in (("LU", {}, TOL_PATH_LU),
-                              ("gmres", dict(linear_solver="gmres"),
-                               TOL_PATH_GMRES),
-                              ("f32f", BENCH_CFG, TOL_PATH_F32F)):
+    """The path parity runs, then the forced ladder runs; returns the
+    launches of the forced ladder runs on the card and of the tiny
+    aneurysm's LU run on the card (counters reset just before it)."""
+    from vasp_tpu_torch.kernels import build
+
+    launches = {}
+    for problem, tiny, label, extra, tol in PARITY:
+        name = f"tiny {problem}, {label} path"
         tic = time.perf_counter()
-        ns_c, it_c, _ = _run_quiet(dict(TINY, device="cpu", **extra,
-                                        folder=str(tmp / f"tiny_cpu_{label}")))
+        ns_c, it_c, _ = _run_quiet(dict(
+            tiny, device="cpu", **extra,
+            folder=str(tmp / f"tiny_cpu_{problem}_{label}")), problem)
         t_cpu = time.perf_counter() - tic
+        build.reset_launch_counts()
         tic = time.perf_counter()
-        ns_g, it_g, log = _run_quiet(dict(TINY, device="cuda", **extra,
-                                          folder=str(tmp / f"tiny_{label}")))
+        ns_g, it_g, log = _run_quiet(dict(
+            tiny, device="cuda", **extra,
+            folder=str(tmp / f"tiny_{problem}_{label}")), problem)
         t_gpu = time.perf_counter() - tic
+        if (problem, label) == ("aneurysm", "LU"):
+            launches["aneurysm_lu"] = dict(build.LAUNCHES)
+            check_launches("aneurysm_lu", launches["aneurysm_lu"])
         Uc = ns_c["dvp_"]["n"]
         Ug = ns_g["dvp_"]["n"].cpu()
         rel = float((Ug - Uc).norm() / Uc.norm())
         tiers = [[h["tiers"] for h in ns["solver"].stepper.history]
                  if label != "LU" else [] for ns in (ns_c, ns_g)]
-        print(f"[3] tiny cylinder, {label} path ({ns_c['mesh'].num_cells} "
-              f"cells, 3 steps): Newton iterations cpu {it_c} cuda {it_g}; "
-              f"ladder tiers cpu {tiers[0]} cuda {tiers[1]}; U rel diff "
-              f"{rel:.3e}; wall cpu {t_cpu:.1f} s, cuda {t_gpu:.1f} s")
-        require(it_c == it_g, f"{label}: Newton iteration counts differ "
+        print(f"[3] {name} ({ns_c['mesh'].num_cells} cells, 3 steps): "
+              f"Newton iterations cpu {it_c} cuda {it_g}; ladder tiers cpu "
+              f"{tiers[0]} cuda {tiers[1]}; U rel diff {rel:.3e}; wall cpu "
+              f"{t_cpu:.1f} s, cuda {t_gpu:.1f} s")
+        require(it_c == it_g, f"{name}: Newton iteration counts differ "
                               f"between the CPU plain path and the CUDA "
                               f"kernel path")
-        require(tiers[0] == tiers[1], f"{label}: ladder tiers differ")
-        require(rel <= tol, f"{label}: U differs by {rel:.3e} relative "
+        require(tiers[0] == tiers[1], f"{name}: ladder tiers differ")
+        require(rel <= tol, f"{name}: U differs by {rel:.3e} relative "
                             f"(> {tol:.0e})")
         require(log.count("Solved for timestep") == 3,
-                f"{label}: tiny run missed steps")
-    return phase_forced_ladder()
+                f"{name}: tiny run missed steps")
+    launches["ladder"] = phase_forced_ladder()
+    return launches
 
 
 # the forced ladder runs of phase 3: (label, StepOptions, probe flagged,
@@ -885,8 +1123,8 @@ def phase_forced_ladder():
     return launches
 
 
-def run_main_path(tmp, label, mesh_params, **cfg):
-    """driver.main on -p cylinder for 5 steps of dt=1e-3, the launch
+def run_main_path(tmp, label, mesh_params, problem="cylinder", **cfg):
+    """driver.main on -p `problem` for 5 steps of dt=1e-3, the launch
     counters reset just before and read just after."""
     import torch
 
@@ -897,11 +1135,11 @@ def run_main_path(tmp, label, mesh_params, **cfg):
     cfg_path.write_text(json.dumps(dict(
         mesh_path=None, generated_mesh_params=mesh_params, **NO_FILES,
         **cfg)))
-    folder = tmp / f"cylinder_{label}"
+    folder = tmp / f"{problem}_{label}"
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     tic = time.perf_counter()
-    ns = driver.main(["-p", "cylinder", "-T", "0.005", "-dt", "0.001",
+    ns = driver.main(["-p", problem, "-T", "0.005", "-dt", "0.001",
                       "--folder", str(folder), "--config", str(cfg_path)],
                      return_namespace=True)
     torch.cuda.synchronize()
@@ -1042,6 +1280,40 @@ def phase_bench(records):
     return launches, k5
 
 
+def phase_models(tmp, records):
+    """Phase 8: driver.main on -p offset_stenosis and -p aneurysm at the
+    20,832-cell tubes on the bench configuration; per model its launches
+    and GMRES's bound per direction."""
+    import gc
+    import re
+
+    import torch
+
+    out = {}
+    for label, problem, extra in (
+            ("stenosis", "offset_stenosis",
+             dict(fsi_region=[0.0, 0.0, 0.012, 0.01])),
+            ("aneurysm", "aneurysm", {})):
+        print(f"[8] {problem}, bench configuration, 20,832 cells:")
+        ns, launches = run_main_path(tmp, label, MODEL_MESH, problem=problem,
+                                     **BENCH_CFG, **extra)
+        k5 = report_stepper(ns["solver"].stepper, records)
+        log = (Path(ns["folder"]) / "run.log").read_text()
+        jmins = [float(x) for x in re.findall(r"Minimum Jacobian: (.*)", log)]
+        require(len(jmins) == 5 and min(jmins) > 0.0,
+                f"{problem}: minimum Jacobians {jmins}")
+        last = log[log.rindex("Newton iteration"):].splitlines()
+        for line in last:
+            if line.startswith(("Probe Point", "Minimum Jacobian")):
+                print(f"    last step: {line}")
+        profile_one_step(ns)
+        out[label] = (launches, k5)
+        del ns
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_one_step(ns):
     """A sixth step under torch.profiler (after the measured run, so its
     overhead touches none of the numbers above)."""
@@ -1094,7 +1366,8 @@ def main():
     records, extra = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
-        launches = {"ladder": phase_parity(tmp), "lu": phase_lu(tmp)}
+        launches = phase_parity(tmp)
+        launches["lu"] = phase_lu(tmp)
         launches["gmres"], extra["k5_bound_ms_gmres"] = phase_krylov(
             tmp, records, "gmres", "[5] cylinder, Newton-Krylov path "
             "(linear_solver=gmres):", linear_solver="gmres")
@@ -1104,6 +1377,11 @@ def main():
             tmp, records, "f32f", "[6] cylinder, bench configuration "
             "(residual_dtype=f32f, krylov_dtype=f32, gmres_tol=1e-3, "
             "jac_recompute=2, atol=1e-6):", **BENCH_CFG)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for label, (lnc, k5) in phase_models(tmp, records).items():
+            launches[label] = lnc
+            extra[f"k5_bound_ms_{label}"] = k5
     gc.collect()
     torch.cuda.empty_cache()
     launches["bench"], extra["k5_bound_ms_bench"] = phase_bench(records)

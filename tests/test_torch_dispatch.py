@@ -66,7 +66,7 @@ def test_dispatch_refuses_other_devices(tiny_tube):
 
 @pytest.mark.parametrize("extra,item", [
     (dict(extrapolation="biharmonic"), 10),
-    (dict(robin_bc=True), 10),
+    (dict(material_model="MooneyRivlin"), 10),
     (dict(n_devices=4), 13),
 ])
 def test_unported_options_raise(tiny_tube, extra, item):
@@ -145,9 +145,11 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "fluid_residual", "solid_residual", "fluid_residual_f32",
         "solid_residual_f32", "fluid_jacobian",
         "solid_jacobian", "fluid_jacobian_f32", "solid_jacobian_f32",
-        "dg0_project_speed", "integrate_p2_dot_n", "elem_matvec",
-        "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply",
-        "banded_factorize_f64"}
+        "dg0_project_speed", "integrate_p2_dot_n", "dg0_project_jacobian",
+        "elem_matvec", "ruiz_sweep", "ruiz_scale", "banded_assemble",
+        "banded_apply", "banded_factorize_f64", "robin_residual",
+        "robin_residual_f32", "robin_jacobian", "robin_jacobian_f32",
+        "elem_matvec_36", "ruiz_sweep_36", "ruiz_scale_36"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

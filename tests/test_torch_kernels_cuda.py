@@ -12,7 +12,11 @@ each with its reason:
 - float32 element products (K4): 1e-5 relative (64-term float32 row sums
   in another order than torch's);
 - K7 and K8: exact (max is exact, the products are the same two float32
-  multiplies, and the banded sums run in plan order on both sides);
+  multiplies, and the banded sums run in plan order on both sides), at
+  both local sizes (the cells' 64, the Robin facets' 36);
+- K14 (Robin facet term): float64 residual and Jacobian 1e-12, the float32
+  residual by the K1/K2 rule, the float32 Jacobian 2e-7 per block (both
+  round the same float64 value once); K19c 1e-12;
 - K6: no fixed bound. Its float32 c-term dot products run in another
   order than torch's, and the scans carry the difference through 2 nb - 1
   steps, amplified by the factors' norms. The kernel must be as accurate
@@ -34,7 +38,8 @@ from vasp_tpu_torch.fem.scaling import ruiz_scales
 from vasp_tpu_torch.fem.quadrature import tet_quadrature
 from vasp_tpu_torch.fem.shape import p2_tet
 from vasp_tpu_torch.kernels import banded as kb
-from vasp_tpu_torch.kernels import build, element
+from vasp_tpu_torch.fem.measures import cell_tables, dg0_project_jacobian
+from vasp_tpu_torch.kernels import build, element, facet
 from vasp_tpu_torch.kernels import matvec as km4
 from vasp_tpu_torch.kernels import scaling as ks
 from vasp_tpu_torch.kernels import measures as km
@@ -218,3 +223,91 @@ def test_banded_kernels(banded_inputs):
         xp = kb.apply_plain(Sinv, H, G, perm, r.to(dt))
         assert xk.dtype == dt
         assert _rel(xk.double(), ref) <= 2 * _rel(xp.double(), ref) + 1e-6
+
+
+@pytest.fixture(scope="module")
+def robin_system(system):
+    """The tiny tube with the aneurysm's Robin term on marker 33, and a
+    seeded state."""
+    sysm, U, U0 = system
+    cfg = dict(sysm.cfg, robin_bc=True, k_s=[1e5], c_s=[10], ds_s_id=[33])
+    rsys = FSISystem(sysm.mesh, cfg)
+    (fb_,) = [b for b in rsys.assembler.blocks if b.kernel.kind == "robin"]
+    return rsys, fb_, U, U0
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["f64", "f32"])
+def test_robin_residual_kernel(robin_system, f32):
+    _, b, U, _ = robin_system
+    dt = torch.float32 if f32 else None
+    name = "robin_residual" + ("_f32" if f32 else "")
+    n0 = build.LAUNCHES[name]
+    Rk = facet.block_residual(b, U, None, torch.zeros_like(U), dt)
+    Rp = facet.residual_plain(b, U, torch.zeros_like(U), dt)
+    R64 = facet.residual_plain(b, U, torch.zeros_like(U))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 1
+    if f32:
+        assert float((Rk - Rp).norm()) <= 2 * float((Rp - R64).norm()) \
+            + 1e-14 * float(R64.norm())
+    else:
+        assert _rel(Rk, Rp) <= RTOL
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float64, RTOL),
+                                    (torch.float32, 2e-7)],
+                         ids=["f64", "f32"])
+def test_robin_jacobian_kernel(robin_system, dt, tol):
+    _, b, U, _ = robin_system
+    Ak = facet.block_jacobian(b, U, None, dt)
+    Ap = facet.jacobian_plain(b, U).to(dt)
+    assert Ak.dtype == dt and Ak.shape == Ap.shape
+    K = Ak.shape[0]
+    per_block = (Ak - Ap).double().reshape(K, -1).norm(dim=1) / \
+        Ap.double().reshape(K, -1).norm(dim=1)
+    assert float(per_block.max()) <= tol
+
+
+@pytest.mark.parametrize("a_dt,x_dt,tol", [
+    (torch.float32, torch.float64, 1e-5), (torch.float32, torch.float32, 1e-5),
+    (torch.float64, torch.float64, 1e-12), (torch.float64, torch.float32, 1e-5),
+], ids=["f32_f64", "f32_f32", "f64_f64", "f64_f32"])
+def test_matvec_kernel_facet(robin_system, a_dt, x_dt, tol):
+    _, b, U, _ = robin_system
+    x = torch.as_tensor(np.random.default_rng(5).normal(size=U.shape[0]),
+                        device="cuda").to(x_dt)
+    A = facet.jacobian_plain(b, U).to(a_dt)
+    yk = km4.elem_matvec(A, b.dofs, x, torch.zeros_like(x))
+    yp = km4.elem_matvec_plain(A, b.dofs, x, torch.zeros_like(x))
+    assert _rel(yk.double(), yp.double()) <= tol
+
+
+def test_ruiz_kernels_facet(robin_system):
+    rsys, b, U, _ = robin_system
+    n = rsys.assembler.ndof
+    A = facet.jacobian_plain(b, U).float()
+    rng = np.random.default_rng(6)
+    dr, dc = (torch.as_tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float32,
+                              device="cuda") for _ in range(2))
+    mask = torch.as_tensor(rng.random(n) < 0.1, device="cuda")
+    out = [torch.zeros(n, dtype=torch.float32, device="cuda")
+           for _ in range(4)]
+    ks.ruiz_sweep_cuda(A, b.dofs, dr, dc, mask, out[0], out[1])
+    ks.ruiz_sweep_plain(A, b.dofs, dr, dc, mask, out[2], out[3])
+    assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+    assert torch.equal(ks.ruiz_scale_cuda(A, b.dofs, dr, dc),
+                       ks.ruiz_scale_plain(A, b.dofs, dr, dc))
+
+
+def test_dg0_project_jacobian_kernel(system):
+    sysm, _, _ = system
+    sp = sysm.space
+    d = torch.as_tensor(1e-2 * sp.mesh.hmin * np.random.default_rng(7).normal(
+        size=(sp.n_p2, 3)), device="cuda")
+    n0 = build.LAUNCHES["dg0_project_jacobian"]
+    jk = dg0_project_jacobian(sp, d)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dg0_project_jacobian"] == n0 + 1
+    dofs, Jinv, _, dN2, wq = cell_tables(sp, d.device, 2)
+    jp = km.dg0_project_jacobian_plain(d, dofs, Jinv, dN2, wq)
+    assert _rel(jk, jp) <= RTOL

@@ -1,6 +1,6 @@
-"""Parity of the port's boundary measures and DG0 projections with
-vasp_tpu's, on the tiny tube with a random P2 velocity (plain versions on
-the CPU)."""
+"""Parity of the port's boundary measures, DG0 projections and point
+probes with vasp_tpu's, on the tiny tube with a random P2 velocity (plain
+versions on the CPU)."""
 import numpy as np
 import pytest
 import torch
@@ -9,10 +9,12 @@ import jax.numpy as jnp
 
 from vasp_tpu.fem.functionspace import DVPSpace as JSpace
 from vasp_tpu.fem.measures import BoundaryMeasure as JMeasure
+from vasp_tpu.fem.measures import PointProbes as JProbes
 from vasp_tpu.fem.measures import dg0_project_jacobian as j_jac
 from vasp_tpu.fem.measures import dg0_project_speed as j_speed
 from vasp_tpu_torch.fem.functionspace import DVPSpace as TSpace
 from vasp_tpu_torch.fem.measures import BoundaryMeasure as TMeasure
+from vasp_tpu_torch.fem.measures import PointProbes as TProbes
 from vasp_tpu_torch.fem.measures import dg0_project_jacobian as t_jac
 from vasp_tpu_torch.fem.measures import dg0_project_speed as t_speed
 from vasp_tpu_torch.mesh.tetmesh import TetMesh
@@ -50,6 +52,35 @@ def test_dg0_project_jacobian(spaces):
     d = v * 1e-2
     ref = np.asarray(j_jac(js, jnp.asarray(d)))
     assert _rel(t_jac(ts, torch.as_tensor(d)).numpy(), ref) <= RTOL
+
+
+def test_dg0_project_jacobian_at_large_strain(spaces):
+    """K19c's plain version at strains ~1e-2 (a displacement of 1e-2 of
+    the cell size's scale per unit length), as chip_smoke.py holds the
+    kernel against it; the tables cached on the space serve a second
+    call."""
+    js, ts, _ = spaces
+    rng = np.random.default_rng(21)
+    d = 1e-2 * ts.mesh.hmin * rng.normal(size=(ts.n_p2, 3))
+    ref = np.asarray(j_jac(js, jnp.asarray(d)))
+    assert 1e-3 < np.abs(ref - 1.0).max() < 0.5
+    for _ in range(2):
+        assert _rel(t_jac(ts, torch.as_tensor(d)).numpy(), ref) <= RTOL
+
+
+def test_point_probes(spaces):
+    """PointProbes (host numpy): the same cells and values as vasp_tpu's,
+    for points inside cells and one outside the mesh (the nearest-cell
+    fallback)."""
+    js, ts, v = spaces
+    L = ts.mesh.coords[:, 2].max()
+    pts = np.array([[0.0, 0.0, L / 2], [2e-4, -1e-4, L / 3],
+                    [0.0, 0.0, 2 * L]])
+    jp, tp = JProbes(js, pts), TProbes(ts, pts)
+    np.testing.assert_array_equal(tp.cells, jp.cells)
+    p = np.random.default_rng(22).normal(size=ts.n_p1)
+    assert _rel(tp.eval_p2(v), np.asarray(jp.eval_p2(v))) <= RTOL
+    assert _rel(tp.eval_p1(p), np.asarray(jp.eval_p1(p))) <= RTOL
 
 
 @pytest.mark.parametrize("marker", [2, 3, 33])

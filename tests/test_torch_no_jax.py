@@ -27,6 +27,9 @@ SLICE = [
     "vasp_tpu_torch.run.checkpoint", "vasp_tpu_torch.run.output",
     "vasp_tpu_torch.run.metrics", "vasp_tpu_torch.run.system",
     "vasp_tpu_torch.run.driver", "vasp_tpu_torch.models.cylinder",
+    "vasp_tpu_torch.mesh.markers", "vasp_tpu_torch.kernels.facet",
+    "vasp_tpu_torch.models.waveform_data",
+    "vasp_tpu_torch.models.offset_stenosis", "vasp_tpu_torch.models.aneurysm",
 ]
 
 

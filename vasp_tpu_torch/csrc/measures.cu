@@ -1,14 +1,21 @@
-// K19 on Hopper: the per-step flow measures of the cylinder's post_solve.
+// K19 on Hopper: the per-step flow measures and the minimum-Jacobian guard
+// of the models' post_solve.
 //
 // Replaces vasp_tpu/fem/measures.py: dg0_project_speed (cell average of
-// |v| for a P2 field) and BoundaryMeasure.integrate_p2_dot_n (the inlet
-// flow rate, int v.n ds). Plain torch twins: vasp_tpu_torch/fem/measures.py
-// dg0_project_speed_plain / integrate_p2_dot_n_plain.
+// |v| for a P2 field), BoundaryMeasure.integrate_p2_dot_n (the inlet flow
+// rate, int v.n ds) and dg0_project_jacobian (cell average of
+// det(I + grad d) for a P2 displacement). Plain torch twins:
+// vasp_tpu_torch/kernels/measures.py dg0_project_speed_plain /
+// integrate_p2_dot_n_plain / dg0_project_jacobian_plain.
 //
-// Both are bound by their gathers (10x3 or 6x3 doubles per item against a
-// few dozen FLOPs) and, for the flux, by the reduction to one number. One
-// thread per cell or facet; the flux sums each block in registers and
-// shared memory and issues one f64 atomicAdd per block.
+// All three are bound by their gathers (10x3 or 6x3 doubles per item, plus
+// the cell's 3x3 Jinv for the Jacobian, against a few hundred FLOPs) and,
+// for the flux, by the reduction to one number. One thread per cell or
+// facet; the flux sums each block in registers and shared memory and issues
+// one f64 atomicAdd per block. The Jacobian projection reads its rule's
+// reference gradients and weights from __constant__ memory (every thread of
+// a warp reads the same entry, a broadcast), copied there from the caller's
+// device tables on the launch stream, so consecutive launches stay ordered.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -88,9 +95,80 @@ p2_flux_kernel(const double* __restrict__ field, const int64_t* __restrict__ dof
   }
 }
 
+constexpr int kDg0NqMax = 64;  // the tet rule of degree 6
+__constant__ double c_dg0_dN2[kDg0NqMax * 30];
+__constant__ double c_dg0_wq[kDg0NqMax];
+
+__global__ void dg0_jacobian_kernel(const double* __restrict__ d,
+                                    const int64_t* __restrict__ cell_dofs,
+                                    const double* __restrict__ Jinv, int nq,
+                                    double* __restrict__ out, int Nc) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= Nc) return;
+  double de[10][3], J[9];
+#pragma unroll
+  for (int a = 0; a < 10; ++a) {
+    const int64_t g = cell_dofs[(int64_t)k * 10 + a];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) de[a][i] = d[g * 3 + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) J[i] = Jinv[(int64_t)k * 9 + i];
+  double s = 0.0, wsum = 0.0;
+  for (int q = 0; q < nq; ++q) {
+    // F = I + grad d, grad d[i][l] = sum_a d_a,i G2[a][l] with
+    // G2[a][l] = sum_j dN2[q][a][j] Jinv[j][l]
+    double F[3][3] = {};
+#pragma unroll
+    for (int a = 0; a < 10; ++a) {
+      const double* dn = c_dg0_dN2 + (q * 10 + a) * 3;
+#pragma unroll
+      for (int l = 0; l < 3; ++l) {
+        const double g = dn[0] * J[l] + dn[1] * J[3 + l] + dn[2] * J[6 + l];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) F[i][l] += de[a][i] * g;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) F[i][i] += 1.0;
+    const double det = F[0][0] * (F[1][1] * F[2][2] - F[1][2] * F[2][1]) -
+                       F[0][1] * (F[1][0] * F[2][2] - F[1][2] * F[2][0]) +
+                       F[0][2] * (F[1][0] * F[2][1] - F[1][1] * F[2][0]);
+    s += c_dg0_wq[q] * det;
+    wsum += c_dg0_wq[q];
+  }
+  out[k] = s / wsum;
+}
+
 }  // namespace
 
 extern "C" {
+
+int vt_dg0_nq_max() { return kDg0NqMax; }
+
+// d (n2,3), cell_dofs (Nc,10) int64, Jinv (Nc,3,3), and the rule's dN2
+// (nq,10,3) and wq (nq,) as device tensors -> out (Nc,); all float64.
+int vt_dg0_project_jacobian(const double* d, const int64_t* cell_dofs,
+                            const double* Jinv, const double* dN2,
+                            const double* wq, int nq, double* out, int Nc,
+                            void* stream) {
+  if (nq < 1 || nq > kDg0NqMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if ((e = cudaMemcpyToSymbolAsync(c_dg0_dN2, dN2, sizeof(double) * nq * 30, 0,
+                                   cudaMemcpyDeviceToDevice, s)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaMemcpyToSymbolAsync(c_dg0_wq, wq, sizeof(double) * nq, 0,
+                                   cudaMemcpyDeviceToDevice, s)) != cudaSuccess)
+    return (int)e;
+  if (Nc > 0) {
+    const int threads = 128;
+    dg0_jacobian_kernel<<<(Nc + threads - 1) / threads, threads, 0, s>>>(
+        d, cell_dofs, Jinv, nq, out, Nc);
+  }
+  return (int)cudaGetLastError();
+}
+
 
 // v (n2,3), cell_dofs (Nc,10) int64, N2 (nq,10), wq (nq,) -> out (Nc,)
 int vt_dg0_project_speed(const double* v, const int64_t* cell_dofs,

@@ -3,12 +3,13 @@ tensors.
 
 Counterpart of vasp_tpu.fem.assembly (the plain scatter-add path): gather
 -> element kernel -> masked scatter-add, with the element Jacobians kept
-as a batched (K, 64, 64) float64 or float32 tensor per block, and the
-matrix-free matvec over them. The residual's element work runs in float64,
-float32 or "mixed" (float32 on the fluid only), always accumulated in
-float64. On CUDA tensors the residual, Jacobians and
-matvec are the hand-written kernels of kernels/element.py and
-kernels/matvec.py; on CPU tensors their plain torch versions.
+as a batched (K, n, n) float64 or float32 tensor per block (n = 64 for the
+cell blocks, 36 for the Robin facet blocks), and the matrix-free matvec
+over them. The residual's element work runs in float64, float32 or
+"mixed" (float32 on the fluid only), always accumulated in float64. On
+CUDA tensors the residual, Jacobians and matvec are the hand-written
+kernels of kernels/element.py, kernels/facet.py and kernels/matvec.py; on
+CPU tensors their plain torch versions.
 """
 from dataclasses import dataclass
 from typing import Optional
@@ -16,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vasp_tpu_torch.kernels import element
+from vasp_tpu_torch.kernels import element, facet
 from vasp_tpu_torch.kernels.matvec import elem_matvec
 
 
@@ -56,6 +57,24 @@ class CellBlock:
     rowmask: Optional[torch.Tensor] = None  # (K,64) 0/1 residual-row mask
 
 
+@dataclass
+class FacetBlock:
+    """A group of boundary triangles sharing one facet kernel (the Robin
+    term): dofs (K,36) int64 = [d 6x3, v 6x3], area2 (K,) float64 twice
+    the triangle areas, on the run's device."""
+
+    name: str
+    kernel: object  # fem.forms RobinKernel
+    dofs: torch.Tensor  # (K,36) global indices into U
+    area2: torch.Tensor  # (K,)
+
+
+def _ops(block):
+    """The kernel module of a block: kernels/facet.py for a FacetBlock,
+    kernels/element.py for a CellBlock."""
+    return facet if isinstance(block, FacetBlock) else element
+
+
 class Assembler:
     """Residual / element Jacobians / host CSR over a list of blocks."""
 
@@ -71,7 +90,7 @@ class Assembler:
         float64, torch.float32 for float32 on every block, "mixed" for
         float32 on the blocks whose name starts with "fluid" and float64
         on the others (the stiff solid, where the float32 cancellation
-        noise lives)."""
+        noise lives, and the facet terms)."""
         if isinstance(dtype, str):
             if dtype != "mixed":
                 raise ValueError(f"residual dtype {dtype!r}: expected None, "
@@ -82,14 +101,14 @@ class Assembler:
             per_block = [dtype] * len(self.blocks)
         R = torch.zeros(self.ndof, dtype=torch.float64, device=U.device)
         for b, dt in zip(self.blocks, per_block):
-            element.block_residual(b, U, U0, R, dt)
+            _ops(b).block_residual(b, U, U0, R, dt)
         return R
 
     def element_jacobians(self, U, U0, dtype=torch.float64):
-        """Per block, the (K,64,64) element Jacobians in `dtype` (float64
-        or float32, see kernels/element.py on how float32 is rounded),
-        rows masked."""
-        return [element.block_jacobian(b, U, U0, dtype) for b in self.blocks]
+        """Per block, the (K,n,n) element Jacobians in `dtype` (float64 or
+        float32, see kernels/element.py on how float32 is rounded), rows
+        masked."""
+        return [_ops(b).block_jacobian(b, U, U0, dtype) for b in self.blocks]
 
     def matvec(self, jacs, x):
         """y = J x from element Jacobians, in x's dtype: each element

@@ -29,6 +29,10 @@ Solid form:
   rho_s/dt (v - v0)·psi + th P(d):grad psi + (1-th) P(d0):grad psi
   - rho_s g·psi
   rho_s [ (d - d0)/dt - (th v + (1-th) v0) ]·phi              (kinematic)
+
+Robin facet form on the solid's outer wall (aneurysm):
+
+  (k_s d + c_s v)·psi ds
 """
 import numpy as np
 import torch
@@ -231,9 +235,44 @@ class SolidKernel(_ElementKernel):
         return torch.cat([rd.reshape(-1), rv.reshape(-1), rp])
 
 
+class RobinKernel(_ElementKernel):
+    """Robin BC facet kernel on P2 triangles: (k_s d + c_s v)·psi ds
+    (reference: src/vasp/simulations/aneurysm.py:73-76; external tissue
+    support k*d + c*d_dot, reference: docs/aneurysm.md:154-170).
+
+    ``facet(u (36,) = [d(6x3), v(6x3)], area2 ()) -> (36,)`` with area2 =
+    |(x1-x0)x(x2-x0)| (twice the triangle area); the d rows are zero, the
+    v rows (the momentum equation) take the traction. Calling the object
+    runs ``torch.func.vmap`` of it over a batch of facets. The tables are
+    tri_quadrature / p2_tri at the run's degree, in the input's dtype."""
+
+    kind = "robin"
+
+    def __init__(self, k_s, c_s, quad_degree=6):
+        self.k_s, self.c_s = float(k_s), float(c_s)
+        self.quad_degree = int(quad_degree)
+        pts, wq = tri_quadrature(self.quad_degree)
+        self.tables_np = (wq, p2_tri(pts)[0])
+        self._tables = {}
+
+    def facet(self, u, area2):
+        wq, N2t = self.tables(u)
+        d = u[:18].reshape(6, 3)
+        v = u[18:36].reshape(6, 3)
+        val = self.k_s * (N2t @ d) + self.c_s * (N2t @ v)
+        r = torch.einsum("q,qa,qi->ai", wq * area2, N2t, val)
+        return torch.cat([torch.zeros(18, dtype=u.dtype, device=u.device),
+                          r.reshape(-1)])
+
+    def __call__(self, u, area2):
+        """Batched over facets: (K,36), (K,) -> (K,36)."""
+        return torch.func.vmap(self.facet)(u, area2)
+
+
 # the reference package's factory names
 make_fluid_kernel = FluidKernel
 make_solid_kernel = SolidKernel
+make_robin_kernel = RobinKernel
 
 
 def interface_pressure_vector(space, facet_verts, cells_plus, p2_tri_dofs,

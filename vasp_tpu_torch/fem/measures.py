@@ -1,12 +1,15 @@
-"""Boundary measures and DG0 projections on torch tensors.
+"""Boundary measures, DG0 projections and point probes on torch tensors.
 
 Counterpart of vasp_tpu.fem.measures: inlet area / barycenter / normal
 via facet integrals (reference: src/vasp/simulations/cylinder.py:99-104,
-172-177), flow rate |int v.n ds| (reference: simulation_common.py:278-280)
-and the DG0 local projections (reference: simulation_common.py:225-346).
-The per-step ones, dg0_project_speed and integrate_p2_dot_n, run as CUDA
-kernels on CUDA tensors (kernels/measures.py). PointProbes is not ported
-yet (ROADMAP.md queue 1, item 11).
+172-177), flow rate |int v.n ds| (reference: simulation_common.py:278-280),
+the DG0 local projections (reference: simulation_common.py:225-346) and
+the probe evaluation (reference: simulation_common.py:157-222). The
+per-step ones, dg0_project_speed, integrate_p2_dot_n and
+dg0_project_jacobian, run as CUDA kernels on CUDA tensors
+(kernels/measures.py), on tables built once per space and device.
+PointProbes is host numpy, as in vasp_tpu: its cell search runs once, and
+each evaluation is a gather of a few dofs from a host copy of the state.
 """
 from dataclasses import dataclass
 from functools import cached_property
@@ -14,8 +17,9 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from vasp_tpu_torch.fem.assembly import cell_geometry
 from vasp_tpu_torch.fem.quadrature import tet_quadrature, tri_quadrature
-from vasp_tpu_torch.fem.shape import p1_tri, p2_tet, p2_tri
+from vasp_tpu_torch.fem.shape import p1_tet, p1_tri, p2_tet, p2_tri
 from vasp_tpu_torch.kernels import measures as kmeasures
 
 
@@ -116,33 +120,81 @@ class BoundaryMeasure:
 
 
 # ---------------- DG0 projections ----------------
+def cell_tables(space, device, quad_degree):
+    """(cell_dofs (Nc,10) int64, Jinv (Nc,3,3), N2 (nq,10), dN2 (nq,10,3),
+    wq (nq,)) on `device` for the tet rule of `quad_degree`: built on the
+    first call and kept on the space, as BoundaryMeasure keeps its facet
+    tables."""
+    device = torch.device(device)
+    cache = vars(space).setdefault("_measure_tables", {})
+    key = (device, int(quad_degree))
+    if key not in cache:
+        pts, wq = tet_quadrature(quad_degree)
+        N2, dN2 = p2_tet(pts)
+        mesh = space.mesh
+        Jinv = cell_geometry(mesh.coords, mesh.cells)[0]
+        cache[key] = (
+            torch.as_tensor(space.cell_dofs_p2.astype(np.int64), device=device),
+            _f64(Jinv, device), _f64(N2, device), _f64(dN2, device),
+            _f64(wq, device))
+    return cache[key]
+
+
 def dg0_project_speed(space, v, quad_degree=2):
     """DG0 (cellwise) L2-projection of |v| for a P2 field (n2,3) tensor:
     the cell average (reference local_project of sqrt(inner(v,v)) onto DG0,
     reference: simulation_common.py:253-317). (Nc,) on v's device."""
-    pts, wq = tet_quadrature(quad_degree)
-    N2, _ = p2_tet(pts)
-    dofs = torch.as_tensor(space.cell_dofs_p2.astype(np.int64),
-                           device=v.device)
-    return kmeasures.dg0_project_speed(v.contiguous(), dofs,
-                                       _f64(N2, v.device), _f64(wq, v.device))
+    dofs, _, N2, _, wq = cell_tables(space, v.device, quad_degree)
+    return kmeasures.dg0_project_speed(v.contiguous(), dofs, N2, wq)
 
 
 def dg0_project_jacobian(space, d, quad_degree=2):
-    """DG0 projection of J(d) = det(I + grad d) per cell
-    (reference compute_minimum_jacobian, simulation_common.py:320-348).
-    Plain torch on d's device; its kernel is still to be ported."""
-    from vasp_tpu_torch.fem.assembly import cell_geometry
-    from vasp_tpu_torch.fem.smallmat import det3
+    """DG0 projection of J(d) = det(I + grad d) per cell for a P2 field
+    (n2,3) tensor (reference compute_minimum_jacobian,
+    simulation_common.py:320-348). (Nc,) on d's device."""
+    dofs, Jinv, _, dN2, wq = cell_tables(space, d.device, quad_degree)
+    return kmeasures.dg0_project_jacobian(d.contiguous(), dofs, Jinv, dN2, wq)
 
-    pts, wq = tet_quadrature(quad_degree)
-    _, dN2 = p2_tet(pts)
-    Jinv, detJ, vol = cell_geometry(space.mesh.coords, space.mesh.cells)
-    de = d[torch.as_tensor(space.cell_dofs_p2.astype(np.int64),
-                           device=d.device)]  # (Nc,10,3)
-    G2 = torch.einsum("qaj,kjl->kqal", _f64(dN2, d.device),
-                      _f64(Jinv, d.device))
-    gd = torch.einsum("kai,kqaj->kqij", de, G2)  # (Nc,nq,3,3)
-    F = torch.eye(3, dtype=torch.float64, device=d.device) + gd
-    wq = _f64(wq, d.device)
-    return torch.einsum("q,kq->k", wq, det3(F)) / wq.sum()
+
+# ---------------- point evaluation (probes) ----------------
+class PointProbes:
+    """Evaluate (d, v, p) at fixed physical points (the reference's peval /
+    print_probe_points, simulation_common.py:157-222). Cell search is done
+    once on the host; evaluation is a tiny gather of host numpy arrays."""
+
+    def __init__(self, space, points):
+        self.space = space
+        points = np.atleast_2d(np.asarray(points, np.float64))
+        mesh = space.mesh
+        Jinv, _, _ = cell_geometry(mesh.coords, mesh.cells)
+        x0 = mesh.coords[mesh.cells[:, 0]]  # (Nc,3)
+        cells = []
+        bary = []
+        for pt in points:
+            # xi = A^{-1} (x - x0); Jinv rows are d(xi_j)/d(x_i) as stored
+            xi = np.einsum("kji,ki->kj", Jinv, pt[None, :] - x0)
+            lam0 = 1.0 - xi.sum(axis=1)
+            lam = np.concatenate([lam0[:, None], xi], axis=1)
+            ok = np.all(lam >= -1e-10, axis=1)
+            idx = np.nonzero(ok)[0]
+            if len(idx) == 0:
+                # nearest fallback
+                idx = [int(np.argmax(lam.min(axis=1)))]
+            cells.append(int(idx[0]))
+            bary.append(lam[idx[0]])
+        self.cells = np.asarray(cells)
+        self.points = points
+        ref = np.stack([b[1:] for b in bary], axis=0)  # reference coords
+        self.N2, _ = p2_tet(ref)  # (P,10) basis values at each point
+        self.N1, _ = p1_tet(ref)
+        self.dofs_p2 = space.cell_dofs_p2[self.cells]  # (P,10)
+        self.dofs_p1 = space.cell_dofs_p1[self.cells]
+
+    def eval_p2(self, field):
+        """field (n2, m) or (n2,) host array -> (P, m)."""
+        fe = np.asarray(field)[self.dofs_p2]  # (P,10,...)
+        return np.einsum("pa,pa...->p...", self.N2, fe)
+
+    def eval_p1(self, field):
+        fe = np.asarray(field)[self.dofs_p1]
+        return np.einsum("pa,pa...->p...", self.N1, fe)

@@ -202,7 +202,9 @@ class IterativeStepper:
         if self.device.type != "cuda":
             return
         pat = self._bpat
-        jac = sum(4 * 64 * 64 * b.dofs.shape[0] for b in self.asm.blocks)
+        # each block's (K, n, n) f32 matrices at its own local size n
+        jac = sum(4 * b.dofs.shape[1] ** 2 * b.dofs.shape[0]
+                  for b in self.asm.blocks)
         need = (6 * pat.factor_bytes + 2 * jac + 8 * 4 * pat.c * pat.c
                 + 4 * 8 * pat.c * pat.c)
         free, _ = torch.cuda.mem_get_info(self.device)

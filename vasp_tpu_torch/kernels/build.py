@@ -22,19 +22,24 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
-           "banded.cu")
+           "banded.cu", "facet_kernels.cu")
 HEADERS = ("element_forms.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# one count per kernel, bumped by its wrapper right where it launches
+# one count per kernel (per local size for K4 and K7: the _36 instances
+# serve the Robin facet blocks), bumped by its wrapper right where it
+# launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
      "fluid_jacobian_f32", "solid_jacobian_f32", "dg0_project_speed",
-     "integrate_p2_dot_n", "elem_matvec", "ruiz_sweep", "ruiz_scale",
-     "banded_assemble", "banded_apply", "banded_factorize_f64"), 0)
+     "integrate_p2_dot_n", "dg0_project_jacobian", "elem_matvec",
+     "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply",
+     "banded_factorize_f64", "robin_residual", "robin_residual_f32",
+     "robin_jacobian", "robin_jacobian_f32", "elem_matvec_36",
+     "ruiz_sweep_36", "ruiz_scale_36"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -108,9 +113,14 @@ def _bind(lib):
         "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
-        "vt_elem_matvec": [P, I, P, P, P, I, I, P],
-        "vt_ruiz_sweep": [P] * 7 + [I, P],
-        "vt_ruiz_scale": [P] * 5 + [I, P],
+        "vt_dg0_nq_max": [],
+        "vt_dg0_project_jacobian": [P] * 5 + [I, P, I, P],
+        "vt_elem_matvec": [P, I, P, P, P, I, I, I, P],
+        "vt_ruiz_sweep": [P] * 7 + [I, I, P],
+        "vt_ruiz_scale": [P] * 5 + [I, I, P],
+        "vt_facet_nq_max": [],
+        "vt_robin_residual": [P] * 5 + [I, P, I, I, D, D, P],
+        "vt_robin_jacobian": [P] * 3 + [I, P, I, I, D, D, P],
         "vt_banded_segsum": [P, P, P, P, I, I, P, P],
         "vt_banded_solve": [P] * 5 + [I, I, P],
         "vt_banded_permute": [P, I, P, I, I, P, P],

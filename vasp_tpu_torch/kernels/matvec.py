@@ -1,4 +1,5 @@
-"""K4: the element matvec y[dofs_e] += A_e x[dofs_e].
+"""K4: the element matvec y[dofs_e] += A_e x[dofs_e], for the cell blocks
+(64 local dofs) and the Robin facet blocks (36).
 
 The plain torch version (``elem_matvec_plain``), the CUDA launch
 (``elem_matvec_cuda``, csrc/matvec.cu) and the dispatch fem/assembly.py
@@ -15,6 +16,14 @@ import torch
 from vasp_tpu_torch.kernels import build
 
 _FLOATS = (torch.float32, torch.float64)
+# the local sizes the kernel is instantiated for
+NLOCS = (64, 36)
+
+
+def launch_name(kernel, n):
+    """The launch counter of a kernel's instance at local size n: the
+    kernel's name at 64, suffixed with n at the facet blocks' 36."""
+    return kernel if n == 64 else f"{kernel}_{n}"
 
 
 def elem_matvec_plain(A, dofs, x, y):
@@ -29,19 +38,21 @@ def elem_matvec_cuda(A, dofs, x, y):
     """y += scatter of A_e x_e, by the K4 kernel."""
     lib = build.library()
     dev = x.device
-    K = dofs.shape[0]
+    K, n = dofs.shape
     if A.dtype not in _FLOATS or x.dtype not in _FLOATS:
         raise ValueError(f"K4 takes float32/float64 A and x, got {A.dtype} "
                          f"and {x.dtype}")
-    build.require(A, "A", A.dtype, (K, 64, 64), dev)
-    build.require(dofs, "dofs", torch.int64, (K, 64), dev)
+    if n not in NLOCS:
+        raise ValueError(f"K4 takes {NLOCS} local dofs, got {n}")
+    build.require(A, "A", A.dtype, (K, n, n), dev)
+    build.require(dofs, "dofs", torch.int64, (K, n), dev)
     build.require(x, "x", x.dtype, x.shape[:1], dev)
     build.require(y, "y", x.dtype, x.shape, dev)
     build.check(lib.vt_elem_matvec(
         build.ptr(A), int(A.dtype == torch.float64), build.ptr(dofs),
-        build.ptr(x), build.ptr(y), int(x.dtype == torch.float64), K,
+        build.ptr(x), build.ptr(y), int(x.dtype == torch.float64), K, n,
         build.stream_handle(dev)), "elem_matvec")
-    build.LAUNCHES["elem_matvec"] += 1
+    build.LAUNCHES[launch_name("elem_matvec", n)] += 1
     return y
 
 

@@ -1,15 +1,17 @@
-"""K19 (on-path part): DG0 speed projection and the P2 boundary flux.
+"""K19 (on-path part): DG0 speed projection, the P2 boundary flux and the
+DG0 projection of det(I + grad d).
 
 Plain torch versions, CUDA launches (csrc/measures.cu) and the dispatch
 fem/measures.py calls: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises.
 
-Replaces vasp_tpu/fem/measures.py dg0_project_speed and
-BoundaryMeasure.integrate_p2_dot_n. Costs and design: see the head of
-csrc/measures.cu.
+Replaces vasp_tpu/fem/measures.py dg0_project_speed,
+BoundaryMeasure.integrate_p2_dot_n and dg0_project_jacobian. Costs and
+design: see the head of csrc/measures.cu.
 """
 import torch
 
+from vasp_tpu_torch.fem.smallmat import det3
 from vasp_tpu_torch.kernels import build
 
 
@@ -27,6 +29,15 @@ def integrate_p2_dot_n_plain(field, dofs, normals, area2, N2t, wq):
     uq = torch.einsum("qa,kai->kqi", N2t, field[dofs])
     un = torch.einsum("kqi,ki->kq", uq, normals)
     return torch.einsum("q,kq,k->", wq, un, area2)
+
+
+def dg0_project_jacobian_plain(d, cell_dofs, Jinv, dN2, wq):
+    """d (n2,3), cell_dofs (Nc,10), Jinv (Nc,3,3), dN2 (nq,10,3), wq (nq,)
+    -> (Nc,): the weighted cell average of det(I + grad d)."""
+    G2 = torch.einsum("qaj,kjl->kqal", dN2, Jinv)
+    gd = torch.einsum("kai,kqaj->kqij", d[cell_dofs], G2)  # (Nc,nq,3,3)
+    F = torch.eye(3, dtype=d.dtype, device=d.device) + gd
+    return torch.einsum("q,kq->k", wq, det3(F)) / wq.sum()
 
 
 # ------------------------------------------------------------- cuda ----
@@ -68,6 +79,27 @@ def integrate_p2_dot_n_cuda(field, dofs, normals, area2, N2t, wq):
     return out[0]
 
 
+def dg0_project_jacobian_cuda(d, cell_dofs, Jinv, dN2, wq):
+    lib = build.library()
+    dev, f64 = d.device, torch.float64
+    Nc, nq = cell_dofs.shape[0], wq.shape[0]
+    if nq > lib.vt_dg0_nq_max():
+        raise NotImplementedError(
+            f"a {nq}-point rule; the DG0 Jacobian kernel holds at most "
+            f"{lib.vt_dg0_nq_max()} points")
+    _check_all(dev, d=(d, f64, (d.shape[0], 3)),
+               cell_dofs=(cell_dofs, torch.int64, (Nc, 10)),
+               Jinv=(Jinv, f64, (Nc, 3, 3)), dN2=(dN2, f64, (nq, 10, 3)),
+               wq=(wq, f64, (nq,)))
+    out = torch.empty(Nc, dtype=f64, device=dev)
+    build.check(lib.vt_dg0_project_jacobian(
+        build.ptr(d), build.ptr(cell_dofs), build.ptr(Jinv), build.ptr(dN2),
+        build.ptr(wq), nq, build.ptr(out), Nc, build.stream_handle(dev)),
+        "dg0_project_jacobian")
+    build.LAUNCHES["dg0_project_jacobian"] += 1
+    return out
+
+
 # --------------------------------------------------------- dispatch ----
 def dg0_project_speed(v, cell_dofs, N2, wq):
     if build.on_cuda(v, "measure"):
@@ -79,3 +111,9 @@ def integrate_p2_dot_n(field, dofs, normals, area2, N2t, wq):
     if build.on_cuda(field, "measure"):
         return integrate_p2_dot_n_cuda(field, dofs, normals, area2, N2t, wq)
     return integrate_p2_dot_n_plain(field, dofs, normals, area2, N2t, wq)
+
+
+def dg0_project_jacobian(d, cell_dofs, Jinv, dN2, wq):
+    if build.on_cuda(d, "measure"):
+        return dg0_project_jacobian_cuda(d, cell_dofs, Jinv, dN2, wq)
+    return dg0_project_jacobian_plain(d, cell_dofs, Jinv, dN2, wq)

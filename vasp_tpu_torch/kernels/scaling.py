@@ -4,7 +4,8 @@ Plain torch versions (``ruiz_sweep_plain``, ``ruiz_scale_plain``), CUDA
 launches (csrc/ruiz.cu) and the dispatch fem/scaling.py calls: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises. The
 kernels take float32 element matrices, the only ones the iterative path
-equilibrates.
+equilibrates, of the cell blocks (64 local dofs) and the Robin facet
+blocks (36).
 
 Replaces the sweep body of vasp_tpu/fem/scaling.py ruiz_scales and
 scale_element_jacobians. Costs and design: see the head of csrc/ruiz.cu.
@@ -12,6 +13,7 @@ scale_element_jacobians. Costs and design: see the head of csrc/ruiz.cu.
 import torch
 
 from vasp_tpu_torch.kernels import build
+from vasp_tpu_torch.kernels.matvec import NLOCS, launch_name
 
 
 # ------------------------------------------------------------ plain ----
@@ -34,31 +36,34 @@ def ruiz_scale_plain(A, dofs, dr, dc):
 # ------------------------------------------------------------- cuda ----
 def _check(A, dofs, dr, dc):
     dev, f32 = A.device, torch.float32
-    K = dofs.shape[0]
-    build.require(A, "A", f32, (K, 64, 64), dev)
-    build.require(dofs, "dofs", torch.int64, (K, 64), dev)
+    K, n = dofs.shape
+    if n not in NLOCS:
+        raise ValueError(f"K7 takes {NLOCS} local dofs, got {n}")
+    build.require(A, "A", f32, (K, n, n), dev)
+    build.require(dofs, "dofs", torch.int64, (K, n), dev)
     build.require(dr, "dr", f32, dr.shape[:1], dev)
     build.require(dc, "dc", f32, dr.shape, dev)
-    return build.library(), K, build.stream_handle(dev)
+    return build.library(), K, n, build.stream_handle(dev)
 
 
 def ruiz_sweep_cuda(A, dofs, dr, dc, mask, rmax, cmax):
-    lib, K, stream = _check(A, dofs, dr, dc)
+    lib, K, n, stream = _check(A, dofs, dr, dc)
     build.require(mask, "mask", torch.bool, dr.shape, A.device)
     build.require(rmax, "rmax", torch.float32, dr.shape, A.device)
     build.require(cmax, "cmax", torch.float32, dr.shape, A.device)
     build.check(lib.vt_ruiz_sweep(*map(build.ptr, (A, dofs, dr, dc, mask,
-                                                   rmax, cmax)), K, stream),
+                                                   rmax, cmax)), K, n,
+                                  stream),
                 "ruiz_sweep")
-    build.LAUNCHES["ruiz_sweep"] += 1
+    build.LAUNCHES[launch_name("ruiz_sweep", n)] += 1
 
 
 def ruiz_scale_cuda(A, dofs, dr, dc):
-    lib, K, stream = _check(A, dofs, dr, dc)
+    lib, K, n, stream = _check(A, dofs, dr, dc)
     out = torch.empty_like(A)
     build.check(lib.vt_ruiz_scale(*map(build.ptr, (A, dofs, dr, dc, out)), K,
-                                  stream), "ruiz_scale")
-    build.LAUNCHES["ruiz_scale"] += 1
+                                  n, stream), "ruiz_scale")
+    build.LAUNCHES[launch_name("ruiz_scale", n)] += 1
     return out
 
 

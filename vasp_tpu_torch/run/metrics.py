@@ -12,9 +12,32 @@ import numpy as np
 
 from vasp_tpu_torch.fem.measures import (
     BoundaryMeasure,
+    PointProbes,
     dg0_project_jacobian,
     dg0_project_speed,
 )
+
+
+def print_probe_points(probes: PointProbes, v, p):
+    """reference: simulation_common.py:157-182 format. v (n2,3), p (n1,):
+    host numpy arrays."""
+    uvals = probes.eval_p2(v)
+    pvals = probes.eval_p1(p)
+    for i in range(len(probes.points)):
+        u = uvals[i]
+        print(
+            f"Probe Point {i}: Velocity: ({u[0]}, {u[1]}, {u[2]}) | "
+            f"Pressure: {pvals[i]}"
+        )
+
+
+def print_solid_probe_points(probes: PointProbes, d):
+    """reference: simulation_common.py:185-199 format. d (n2,3): a host
+    numpy array."""
+    dvals = probes.eval_p2(d)
+    for i in range(len(probes.points)):
+        x = dvals[i]
+        print(f"Probe Point {i}: Displacement: ({x[0]}, {x[1]}, {x[2]})")
 
 
 def calculate_and_print_flow_properties(dt, space, v, inlet_area, mu_f, rho_f,
@@ -51,7 +74,9 @@ def calculate_and_print_flow_properties(dt, space, v, inlet_area, mu_f, rho_f,
 
 
 def compute_minimum_jacobian(space, d, verbose=True):
-    """reference: simulation_common.py:320-348 (DG0 projection of J(d))."""
+    """reference: simulation_common.py:320-348 (DG0 projection of J(d)).
+    d: (n2,3) tensor; the projection runs on its device and the host reads
+    back the minimum alone."""
     jmin = float(dg0_project_jacobian(space, d).min())
     if verbose:
         print(f"Minimum Jacobian: {jmin}")

@@ -137,6 +137,100 @@ class VizWriter:
         self.xdmf_path.write_text("".join(parts))
 
 
+class CheckpointSeriesWriter:
+    """Time-series writer in the reference's write_checkpoint h5 layout
+    (vasp_tpu.run.output.CheckpointSeriesWriter, the same files).
+
+    The reference's FEniCS postprocessing stages write their fields with
+    XDMFFile.write_checkpoint, and its h5py stack reads them back as
+    ``<name>/<name>_{i}/vector`` plus dof metadata (cell_dofs, cells,
+    x_cell_dofs, mesh/geometry, mesh/topology) from group ``<name>_0``
+    (reference: postprocessing_h5py/postprocessing_h5py_common.py:231-259,
+    380-399). This writer reproduces that contract:
+
+    - `vector`: flat (n_dofs,) column per timestep,
+    - dof metadata in the _0 group (DG layout: dof = cell*ndpc + local, so
+      cell_dofs is simply arange; CG layouts pass cell_dofs explicitly),
+    - XDMF with ItemType="FiniteElementFunction" entries that
+      output_file_lists parses as checkpoint data.
+
+    ncomp: values per point (1 scalar, 3 vector, 9 tensor)."""
+
+    def __init__(self, folder, name, coords, cells, ncomp=1,
+                 cell_dofs=None, family="DG", degree=1):
+        self.folder = Path(folder)
+        self.folder.mkdir(parents=True, exist_ok=True)
+        self.name = name
+        self.ncomp = int(ncomp)
+        self.family = family
+        self.degree = int(degree)
+        self.h5_path = self.folder / f"{name}.h5"
+        self.xdmf_path = self.folder / f"{name}.xdmf"
+        self.count = 0
+        self.entries = []
+        # a fresh writer REPLACES any previous series (append-mode h5 would
+        # trip on existing groups)
+        if self.h5_path.exists():
+            self.h5_path.unlink()
+        cells = np.asarray(cells, np.int64)
+        coords = np.asarray(coords, np.float64)
+        self.n_cells = len(cells)
+        self.n_nodes = len(coords)
+        if cell_dofs is None:
+            # DG layout: per-cell contiguous dofs, 4 points/cell
+            cell_dofs = np.arange(self.n_cells * 4 * self.ncomp,
+                                  dtype=np.int64).reshape(self.n_cells, -1)
+        self.cell_dofs = np.asarray(cell_dofs, np.int64)
+        self._meta = dict(coords=coords, cells=cells)
+
+    def write(self, values, t):
+        """values: flat (n_dofs,) or (n_points, ncomp) — stored flat."""
+        import h5py
+
+        vec = np.asarray(values, np.float64).reshape(-1, 1)
+        with h5py.File(self.h5_path, "a") as f:
+            g = f.create_group(f"{self.name}/{self.name}_{self.count}")
+            g.create_dataset("vector", data=vec)
+            if self.count == 0:
+                g.create_dataset("cell_dofs",
+                                 data=self.cell_dofs.reshape(-1))
+                g.create_dataset(
+                    "x_cell_dofs",
+                    data=np.arange(self.n_cells + 1, dtype=np.int64)
+                    * self.cell_dofs.shape[1])
+                g.create_dataset("cells",
+                                 data=np.arange(self.n_cells, dtype=np.int64))
+                m = g.create_group("mesh")
+                m.create_dataset("geometry", data=self._meta["coords"])
+                m.create_dataset("topology", data=self._meta["cells"])
+        self.entries.append((float(t), self.count))
+        self.count += 1
+        self._write_xdmf()
+
+    def _write_xdmf(self):
+        h5 = self.h5_path.name
+        nc = self.n_cells
+        parts = [_XDMF_HEADER.format(name=self.name)]
+        for t, i in self.entries:
+            parts.append(
+                f"""      <Grid Name="{self.name}_{i}" GridType="Uniform">
+        <Topology NumberOfElements="{nc}" TopologyType="Tetrahedron" NodesPerElement="4">
+          <DataItem Dimensions="{nc} 4" NumberType="UInt" Format="HDF">{h5}:/{self.name}/{self.name}_0/mesh/topology</DataItem>
+        </Topology>
+        <Geometry GeometryType="XYZ">
+          <DataItem Dimensions="{self.n_nodes} 3" Format="HDF">{h5}:/{self.name}/{self.name}_0/mesh/geometry</DataItem>
+        </Geometry>
+        <Time Value="{t}" />
+        <Attribute Name="{self.name}" ItemType="FiniteElementFunction" ElementFamily="{self.family}" ElementDegree="{self.degree}" ElementCell="tetrahedron" Center="Other">
+          <DataItem Dimensions="{nc} {self.cell_dofs.shape[1]}" NumberType="UInt" Format="HDF">{h5}:/{self.name}/{self.name}_0/cell_dofs</DataItem>
+          <DataItem Dimensions="{self.cell_dofs.size} 1" Format="HDF">{h5}:/{self.name}/{self.name}_{i}/vector</DataItem>
+        </Attribute>
+      </Grid>
+""")
+        parts.append(_XDMF_FOOTER)
+        self.xdmf_path.write_text("".join(parts))
+
+
 class VisualizationOutput:
     """Writes d/v/p each save_step in the reference folder layout:
     <folder>/Visualization/{velocity,displacement,pressure}.{h5,xdmf}."""

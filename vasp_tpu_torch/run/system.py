@@ -1,10 +1,13 @@
 """FSISystem: build the monolithic FSI operator from a config dict.
 
 Counterpart of vasp_tpu.run.system (turtleFSI's internal setup: mixed
-space, fluid / solid / extrapolation forms), driven by the same
+space, fluid / solid / extrapolation forms, Robin BC), driven by the same
 configuration vocabulary the reference's problem files use
-(SURVEY.md §2.3). Blocks are built on the device named by the config key
-``device`` (default "cuda").
+(SURVEY.md §2.3): dx_f_id / mu_f lists for multi-viscosity zones
+(reference: src/vasp/simulations/offset_stenosis.py:59-61) and
+robin_bc/k_s/c_s/ds_s_id (reference: src/vasp/simulations/aneurysm.py:73-76).
+Blocks are built on the device named by the config key ``device``
+(default "cuda").
 
 linear_solver "gmres", "iterative" and "ras" select the Newton-Krylov
 solver with the banded preconditioner (fem/timestepper.py), configured
@@ -12,9 +15,9 @@ from the same keys and defaults as vasp_tpu's make_solver; any other value
 ("mumps", "lu") the host-LU Newton solver (fem/solver.py).
 
 Not ported yet, and refused with the ROADMAP item that will port them:
-biharmonic lifting and robin_bc (queue 1, item 10) and n_devices > 1
-(item 13); fem/timestepper.py refuses the iterative options it does not
-cover.
+biharmonic lifting and the Mooney-Rivlin solid (queue 1, item 10) and
+n_devices > 1 (item 13); fem/timestepper.py refuses the iterative options
+it does not cover.
 """
 import dataclasses
 
@@ -22,11 +25,17 @@ import numpy as np
 import torch
 
 from vasp_tpu_torch.device import resolve_device
-from vasp_tpu_torch.fem.assembly import Assembler, CellBlock, cell_geometry
+from vasp_tpu_torch.fem.assembly import (
+    Assembler,
+    CellBlock,
+    FacetBlock,
+    cell_geometry,
+)
 from vasp_tpu_torch.fem.dirichlet import BCSet, DirichletBC
 from vasp_tpu_torch.fem.forms import (
     interface_pressure_vector,
     make_fluid_kernel,
+    make_robin_kernel,
     make_solid_kernel,
 )
 from vasp_tpu_torch.fem.functionspace import DVPSpace
@@ -38,6 +47,7 @@ from vasp_tpu_torch.fem.timestepper import (
 )
 
 _SINGLE_DEVICE = (None, "None", "", 0, 1, "1")
+_SOLID_MODELS = ("StVenantKirchoff", "LinearElastic")
 
 
 def normalize_fluid_properties(cfg):
@@ -92,8 +102,6 @@ class FSISystem:
         self.device = resolve_device(cfg.get("device", "cuda"))
         if cfg.get("n_devices") not in _SINGLE_DEVICE:
             _not_ported(f"n_devices={cfg['n_devices']!r}", 13)
-        if cfg.get("robin_bc"):
-            _not_ported("robin_bc", 10)
         self.space = DVPSpace(mesh)
         space = self.space
         dev = self.device
@@ -121,6 +129,10 @@ class FSISystem:
         blocks = []
         self.fluid_props = normalize_fluid_properties(cfg)
         self.solid_props = normalize_solid_properties(cfg)
+        for sp in self.solid_props:
+            model = sp.get("material_model", "StVenantKirchoff")
+            if model not in _SOLID_MODELS:
+                _not_ported(f"material_model={model!r}", 10)
 
         dofs_mixed = space.cell_dofs_mixed
         # d-dofs that carry the solid KINEMATIC equation (d-dot = v): every
@@ -177,7 +189,40 @@ class FSISystem:
                 dofs=i64(dofs_mixed[sel]), Jinv=f64(Jinv[sel]),
                 detJ=f64(detJ[sel]), vol=f64(vol[sel])))
 
+        if cfg.get("robin_bc"):
+            blocks += self._robin_blocks(cfg, qd, f64, i64)
         self.assembler = Assembler(space.ndof, blocks)
+
+    def _robin_blocks(self, cfg, qd, f64, i64):
+        """The Robin facet blocks of the solid's outer wall (tissue
+        support k_s d + c_s v): one per marker of ds_s_id, with k_s and c_s
+        given per marker or as one scalar for all; local dofs [d 18, v 18]
+        of each P2 triangle, its vertices sorted."""
+        mesh, space = self.mesh, self.space
+        ds_ids = np.atleast_1d(cfg["ds_s_id"]).tolist()
+        k_list, c_list = cfg["k_s"], cfg["c_s"]
+        if not isinstance(k_list, (list, tuple)):
+            k_list = [k_list] * len(ds_ids)
+        if not isinstance(c_list, (list, tuple)):
+            c_list = [c_list] * len(ds_ids)
+        blocks = []
+        for ds_id, k_s, c_s in zip(ds_ids, k_list, c_list):
+            fv = mesh.exterior_facets(ds_id)[0]
+            if len(fv) == 0:
+                continue
+            fv_sorted = np.sort(fv.astype(np.int64), axis=1)
+            x = mesh.coords[fv_sorted]
+            area2 = np.linalg.norm(
+                np.cross(x[:, 1] - x[:, 0], x[:, 2] - x[:, 0]), axis=1)
+            p2d = space.facet_dofs_p2(fv_sorted).reshape(-1)  # (K*6,)
+            d_idx = space.field_dofs("d", p2d).reshape(-1, 18)
+            v_idx = space.field_dofs("v", p2d).reshape(-1, 18)
+            blocks.append(FacetBlock(
+                name=f"robin_{ds_id}",
+                kernel=make_robin_kernel(float(k_s), float(c_s), qd),
+                dofs=i64(np.concatenate([d_idx, v_idx], axis=1)),
+                area2=f64(area2)))
+        return blocks
 
     # -------------- interface pressure load --------------
     def interface_pressure_load(self, fsi_id=None):
