@@ -48,7 +48,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    facet blocks' 36 local dofs in its four dtype instances (the K4
    tolerances; cuSPARSE's SpMV of the facet matrix as a yardstick), K7 at
    36 (exact), and the DG0 projection of det(I + grad d) (K19c, 1e-12) on
-   a displacement with strains ~1e-2.
+   a displacement with strains ~1e-2. The facet kernels' bounds count the
+   bytes of the entries the facet blocks touch, not whole vectors.
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
    (plain versions) and on the card (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
@@ -70,8 +71,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    after them: the ladder's own path. Then the tiny aneurysm of
    tests/test_torch_driver_aneurysm.py (Robin facet blocks) on the LU
    path (U within 1e-8 relative; counters reset just before the card's
-   run and read just after: the f64 Robin kernels' path) and on the bench
-   configuration (U within 3e-2), the same Newton counts.
+   run and read just after: the f64 Robin kernels' path; then those two
+   kernels against their plain versions on that run's facet block, rule
+   and final state, 1e-12) and on the bench configuration (U within
+   3e-2), the same Newton counts.
 4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
    cylinder of 10 layers; its host splu takes under a minute on a
    CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
@@ -102,7 +105,6 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    steps) through the port's IterativeStepper with the same options, 6
    ramp steps and 3 more; counters reset just before and read just after;
    every step must converge; the same lines as phase 5.
-
 8. The models: driver.main on -p offset_stenosis (its FSI sphere over the
    throat, fsi_region=[0, 0, 0.012, 0.01]) and -p aneurysm at 20,832
    cells (generated_mesh_params n_theta=16, n_r_fluid=3, n_r_solid=1,
@@ -843,9 +845,14 @@ def phase_facet_kernels(records):
                                  for b in system.assembler.blocks))
     rng = np.random.default_rng(2)
     R = torch.zeros_like(U)
+    # the facet blocks touch a few thousand of the ndof entries: the bounds
+    # count each entry they read once and each they write once
+    n_all = int(torch.unique(fb.dofs).numel())
+    n_v = int(torch.unique(fb.dofs[:, 18:]).numel())
+    print(f"    facet blocks touch {n_all} entries ({n_v} velocity rows)")
 
-    # ---- K14 residual: U read and R written whole, as K1/K2 count them
-    io_bytes = nbytes(fb.dofs, fb.area2) + 2 * 8 * ndof
+    # ---- K14 residual: the facets' U entries read, their v rows written
+    io_bytes = nbytes(fb.dofs, fb.area2) + 8 * (n_all + n_v)
     Rk = facet.residual_cuda(fb, U, torch.zeros_like(U))
     Rp = facet.residual_plain(fb, U, torch.zeros_like(U))
     records.add("robin_residual", rel_err(Rk, Rp),
@@ -884,7 +891,8 @@ def phase_facet_kernels(records):
     del Ap
 
     # ---- K4 at 36: the four dtype instances; the main record is the
-    # aneurysm's f32f path's (f32 A, f32 x)
+    # aneurysm's f32f path's (f32 A, f32 x; x read and y written on the
+    # touched entries)
     A32 = facet.jacobian_cuda(fb, U.device, f32)
     A64 = facet.jacobian_cuda(fb, U.device, f64)
     x64 = torch.as_tensor(rng.normal(size=ndof), device="cuda")
@@ -920,7 +928,7 @@ def phase_facet_kernels(records):
     main = variants["f32_f32"]
     records.add("elem_matvec_36", (main["rel_err"], main["max_abs_err"]),
                 main["ms"], main["plain_ms"],
-                (nbytes(A32, fb.dofs) + 2 * 4 * ndof, 2 * 1296 * K, "f32"),
+                (nbytes(A32, fb.dofs) + 2 * 4 * n_all, 2 * 1296 * K, "f32"),
                 TOL_MATVEC_F32, f"K={K} f32 A, f32 x", library_ms=lib_ms,
                 variants=variants)
 
@@ -929,6 +937,10 @@ def phase_facet_kernels(records):
     dr, dc = (torch.as_tensor(rng.uniform(0.5, 2.0, ndof), dtype=f32,
                               device="cuda") for _ in range(2))
     outs = [torch.zeros(ndof, dtype=f32, device="cuda") for _ in range(4)]
+    # on the touched entries: dr, dc and the mask read, the row and column
+    # maxima written
+    sweep_bytes = nbytes(A32, fb.dofs) + n_all * (4 + 4 + 4 + 4
+                                                  + mask.element_size())
     ks.ruiz_sweep_cuda(A32, fb.dofs, dr, dc, mask, outs[0], outs[1])
     ks.ruiz_sweep_plain(A32, fb.dofs, dr, dc, mask, outs[2], outs[3])
     records.add("ruiz_sweep_36", max(rel_err(outs[0], outs[2]),
@@ -938,14 +950,13 @@ def phase_facet_kernels(records):
                 cuda_ms(lambda: ks.ruiz_sweep_plain(A32, fb.dofs, dr, dc,
                                                     mask, outs[2], outs[3]),
                         20),
-                (nbytes(A32, fb.dofs, dr, dc, mask) + 8 * ndof,
-                 5 * 1296 * K, "f32"), 0.0, f"K={K}, one sweep")
+                (sweep_bytes, 5 * 1296 * K, "f32"), 0.0, f"K={K}, one sweep")
     records.add("ruiz_scale_36",
                 rel_err(ks.ruiz_scale_cuda(A32, fb.dofs, dr, dc),
                         ks.ruiz_scale_plain(A32, fb.dofs, dr, dc)),
                 cuda_ms(lambda: ks.ruiz_scale_cuda(A32, fb.dofs, dr, dc), 100),
                 cuda_ms(lambda: ks.ruiz_scale_plain(A32, fb.dofs, dr, dc), 20),
-                (2 * nbytes(A32) + nbytes(fb.dofs, dr, dc), 2 * 1296 * K,
+                (2 * nbytes(A32) + nbytes(fb.dofs) + 8 * n_all, 2 * 1296 * K,
                  "f32"), 0.0, f"K={K}")
     del A32
 
@@ -1031,6 +1042,7 @@ def phase_parity(tmp):
         if (problem, label) == ("aneurysm", "LU"):
             launches["aneurysm_lu"] = dict(build.LAUNCHES)
             check_launches("aneurysm_lu", launches["aneurysm_lu"])
+            check_robin_f64_at_path(ns_g)
         Uc = ns_c["dvp_"]["n"]
         Ug = ns_g["dvp_"]["n"].cpu()
         rel = float((Ug - Uc).norm() / Uc.norm())
@@ -1050,6 +1062,34 @@ def phase_parity(tmp):
                 f"{name}: tiny run missed steps")
     launches["ladder"] = phase_forced_ladder()
     return launches
+
+
+def check_robin_f64_at_path(ns):
+    """The f64 Robin kernels launch only on the LU path, which is the tiny
+    aneurysm's (its own rule, degree 2): hold them against their plain
+    versions on that run's facet block and final state, after its launch
+    counts were read."""
+    import torch
+
+    from vasp_tpu_torch.fem.assembly import FacetBlock
+    from vasp_tpu_torch.kernels import facet
+
+    U = ns["dvp_"]["n"]
+    for fb in (b for b in ns["assembler"].blocks
+               if isinstance(b, FacetBlock)):
+        Rp = facet.residual_plain(fb, U, torch.zeros_like(U))
+        require(float(Rp.norm()) > 0, "tiny aneurysm: zero Robin residual")
+        rel_r, mx_r = rel_err(facet.residual_cuda(fb, U, torch.zeros_like(U)),
+                              Rp)
+        rel_j, mx_j = _per_block_rel(facet.jacobian_cuda(fb, U.device),
+                                     facet.jacobian_plain(fb, U))
+        print(f"[3] tiny aneurysm's Robin block (K={fb.dofs.shape[0]}, "
+              f"{len(fb.kernel.tables_np[0])}-point rule) at its final "
+              f"state: residual rel {rel_r:.3e} max_abs {mx_r:.3e}; "
+              f"Jacobian per-block rel {rel_j:.3e} max_abs {mx_j:.3e}")
+        require(rel_r <= TOL_F64 and rel_j <= TOL_F64,
+                "tiny aneurysm: the f64 Robin kernels disagree with their "
+                "plain versions at the path's shapes")
 
 
 # the forced ladder runs of phase 3: (label, StepOptions, probe flagged,

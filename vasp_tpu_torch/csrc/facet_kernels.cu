@@ -25,35 +25,24 @@
 // scatter. The Jacobian is written from its closed form: one block per
 // facet forms M in float64 in shared memory, then its threads write the
 // block's entries row-major (coalesced), in float64 or rounded once to
-// float32 (as K3 rounds its Jacobians). The rule's tables sit in
-// __constant__ memory (each warp reads one entry at a time, a broadcast),
-// copied there from the caller's device tables on the launch stream.
+// float32 (as K3 rounds its Jacobians). The rule's few-hundred-byte tables
+// come as device pointers in the work's type; every thread of a warp reads
+// the same entry, a cached broadcast, so there is no upload and no state
+// between calls.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kFacetNqMax = 64;
-__constant__ double c_fw[kFacetNqMax];
-__constant__ double c_fN2[kFacetNqMax * 6];
-__constant__ float c_fw_f[kFacetNqMax];
-__constant__ float c_fN2_f[kFacetNqMax * 6];
-
-template <class S> __device__ inline S tab_w(int q);
-template <> __device__ inline double tab_w<double>(int q) { return c_fw[q]; }
-template <> __device__ inline float tab_w<float>(int q) { return c_fw_f[q]; }
-template <class S> __device__ inline S tab_N(int i);
-template <> __device__ inline double tab_N<double>(int i) { return c_fN2[i]; }
-template <> __device__ inline float tab_N<float>(int i) { return c_fN2_f[i]; }
-
 constexpr int kResidualThreads = 128;
 
 template <class S>
 __global__ void __launch_bounds__(kResidualThreads)
 robin_residual_kernel(const double* __restrict__ U, const int64_t* __restrict__ dofs,
-                      const double* __restrict__ area2, double* __restrict__ R, int K,
-                      int nq, S ks, S cs) {
+                      const double* __restrict__ area2, const S* __restrict__ wq,
+                      const S* __restrict__ N2t, double* __restrict__ R, int K, int nq,
+                      S ks, S cs) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
   const int64_t* dk = dofs + (int64_t)k * 36;
@@ -69,19 +58,19 @@ robin_residual_kernel(const double* __restrict__ U, const int64_t* __restrict__ 
     S dq[3] = {S(0), S(0), S(0)}, vq[3] = {S(0), S(0), S(0)};
 #pragma unroll
     for (int b = 0; b < 6; ++b) {
-      const S n = tab_N<S>(q * 6 + b);
+      const S n = N2t[q * 6 + b];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         dq[i] += n * d[b * 3 + i];
         vq[i] += n * v[b * 3 + i];
       }
     }
-    const S wa = tab_w<S>(q) * a2;
+    const S wa = wq[q] * a2;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const S val = ks * dq[i] + cs * vq[i];
 #pragma unroll
-      for (int a = 0; a < 6; ++a) r[a * 3 + i] += wa * tab_N<S>(q * 6 + a) * val;
+      for (int a = 0; a < 6; ++a) r[a * 3 + i] += wa * N2t[q * 6 + a] * val;
     }
   }
   // the d rows are zero: only the v rows are scattered
@@ -93,7 +82,8 @@ constexpr int kJacobianThreads = 128;
 
 template <class TOut>
 __global__ void __launch_bounds__(kJacobianThreads)
-robin_jacobian_kernel(const double* __restrict__ area2, TOut* __restrict__ A, int nq,
+robin_jacobian_kernel(const double* __restrict__ area2, const double* __restrict__ wq,
+                      const double* __restrict__ N2t, TOut* __restrict__ A, int nq,
                       double ks, double cs) {
   const int k = blockIdx.x;
   const int t = threadIdx.x;
@@ -101,7 +91,7 @@ robin_jacobian_kernel(const double* __restrict__ area2, TOut* __restrict__ A, in
   if (t < 36) {
     const int a = t / 6, b = t % 6;
     double m = 0.0;
-    for (int q = 0; q < nq; ++q) m += c_fw[q] * c_fN2[q * 6 + a] * c_fN2[q * 6 + b];
+    for (int q = 0; q < nq; ++q) m += wq[q] * N2t[q * 6 + a] * N2t[q * 6 + b];
     s_M[t] = area2[k] * m;
   }
   __syncthreads();
@@ -118,31 +108,9 @@ robin_jacobian_kernel(const double* __restrict__ area2, TOut* __restrict__ A, in
   }
 }
 
-// Copy the rule's tables (device pointers, nq points) into the constant
-// bank of type T, ordered on the launch stream.
-template <class T>
-cudaError_t upload_tables(const void* wq, const void* N2t, int nq, cudaStream_t s) {
-  const void* w_sym = nullptr;
-  const void* n_sym = nullptr;
-  if (sizeof(T) == sizeof(double)) {
-    w_sym = (const void*)&c_fw;
-    n_sym = (const void*)&c_fN2;
-  } else {
-    w_sym = (const void*)&c_fw_f;
-    n_sym = (const void*)&c_fN2_f;
-  }
-  cudaError_t e = cudaMemcpyToSymbolAsync(w_sym, wq, sizeof(T) * nq, 0,
-                                          cudaMemcpyDeviceToDevice, s);
-  if (e != cudaSuccess) return e;
-  return cudaMemcpyToSymbolAsync(n_sym, N2t, sizeof(T) * nq * 6, 0,
-                                 cudaMemcpyDeviceToDevice, s);
-}
-
 }  // namespace
 
 extern "C" {
-
-int vt_facet_nq_max() { return kFacetNqMax; }
 
 // U (ndof,) f64, dofs (K,36) int64, area2 (K,) f64, and the rule's wq
 // (nq,) and N2t (nq,6) as device tensors of the work's type (float32 when
@@ -150,19 +118,16 @@ int vt_facet_nq_max() { return kFacetNqMax; }
 int vt_robin_residual(const double* U, const int64_t* dofs, const double* area2,
                       const void* wq, const void* N2t, int nq, double* R, int f32,
                       int K, double ks, double cs, void* stream) {
-  if (nq < 1 || nq > kFacetNqMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = f32 ? upload_tables<float>(wq, N2t, nq, s)
-                      : upload_tables<double>(wq, N2t, nq, s);
-  if (e != cudaSuccess) return (int)e;
   if (K > 0) {
     const int blocks = (K + kResidualThreads - 1) / kResidualThreads;
     if (f32) {
       robin_residual_kernel<float><<<blocks, kResidualThreads, 0, s>>>(
-          U, dofs, area2, R, K, nq, (float)ks, (float)cs);
+          U, dofs, area2, (const float*)wq, (const float*)N2t, R, K, nq, (float)ks,
+          (float)cs);
     } else {
       robin_residual_kernel<double><<<blocks, kResidualThreads, 0, s>>>(
-          U, dofs, area2, R, K, nq, ks, cs);
+          U, dofs, area2, (const double*)wq, (const double*)N2t, R, K, nq, ks, cs);
     }
   }
   return (int)cudaGetLastError();
@@ -173,16 +138,13 @@ int vt_robin_residual(const double* U, const int64_t* dofs, const double* area2,
 int vt_robin_jacobian(const double* area2, const double* wq, const double* N2t,
                       int nq, void* A, int out_f32, int K, double ks, double cs,
                       void* stream) {
-  if (nq < 1 || nq > kFacetNqMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = upload_tables<double>(wq, N2t, nq, s);
-  if (e != cudaSuccess) return (int)e;
   if (K > 0 && out_f32) {
-    robin_jacobian_kernel<float><<<K, kJacobianThreads, 0, s>>>(area2, (float*)A, nq,
-                                                                 ks, cs);
+    robin_jacobian_kernel<float><<<K, kJacobianThreads, 0, s>>>(
+        area2, wq, N2t, (float*)A, nq, ks, cs);
   } else if (K > 0) {
-    robin_jacobian_kernel<double><<<K, kJacobianThreads, 0, s>>>(area2, (double*)A,
-                                                                  nq, ks, cs);
+    robin_jacobian_kernel<double><<<K, kJacobianThreads, 0, s>>>(
+        area2, wq, N2t, (double*)A, nq, ks, cs);
   }
   return (int)cudaGetLastError();
 }

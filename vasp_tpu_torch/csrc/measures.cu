@@ -12,10 +12,8 @@
 // the cell's 3x3 Jinv for the Jacobian, against a few hundred FLOPs) and,
 // for the flux, by the reduction to one number. One thread per cell or
 // facet; the flux sums each block in registers and shared memory and issues
-// one f64 atomicAdd per block. The Jacobian projection reads its rule's
-// reference gradients and weights from __constant__ memory (every thread of
-// a warp reads the same entry, a broadcast), copied there from the caller's
-// device tables on the launch stream, so consecutive launches stay ordered.
+// one f64 atomicAdd per block. The rules' tables come as device pointers;
+// every thread of a warp reads the same entry, a cached broadcast.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -95,13 +93,11 @@ p2_flux_kernel(const double* __restrict__ field, const int64_t* __restrict__ dof
   }
 }
 
-constexpr int kDg0NqMax = 64;  // the tet rule of degree 6
-__constant__ double c_dg0_dN2[kDg0NqMax * 30];
-__constant__ double c_dg0_wq[kDg0NqMax];
-
 __global__ void dg0_jacobian_kernel(const double* __restrict__ d,
                                     const int64_t* __restrict__ cell_dofs,
-                                    const double* __restrict__ Jinv, int nq,
+                                    const double* __restrict__ Jinv,
+                                    const double* __restrict__ dN2,
+                                    const double* __restrict__ wq, int nq,
                                     double* __restrict__ out, int Nc) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= Nc) return;
@@ -121,7 +117,7 @@ __global__ void dg0_jacobian_kernel(const double* __restrict__ d,
     double F[3][3] = {};
 #pragma unroll
     for (int a = 0; a < 10; ++a) {
-      const double* dn = c_dg0_dN2 + (q * 10 + a) * 3;
+      const double* dn = dN2 + (q * 10 + a) * 3;
 #pragma unroll
       for (int l = 0; l < 3; ++l) {
         const double g = dn[0] * J[l] + dn[1] * J[3 + l] + dn[2] * J[6 + l];
@@ -134,8 +130,8 @@ __global__ void dg0_jacobian_kernel(const double* __restrict__ d,
     const double det = F[0][0] * (F[1][1] * F[2][2] - F[1][2] * F[2][1]) -
                        F[0][1] * (F[1][0] * F[2][2] - F[1][2] * F[2][0]) +
                        F[0][2] * (F[1][0] * F[2][1] - F[1][1] * F[2][0]);
-    s += c_dg0_wq[q] * det;
-    wsum += c_dg0_wq[q];
+    s += wq[q] * det;
+    wsum += wq[q];
   }
   out[k] = s / wsum;
 }
@@ -144,27 +140,16 @@ __global__ void dg0_jacobian_kernel(const double* __restrict__ d,
 
 extern "C" {
 
-int vt_dg0_nq_max() { return kDg0NqMax; }
-
 // d (n2,3), cell_dofs (Nc,10) int64, Jinv (Nc,3,3), and the rule's dN2
 // (nq,10,3) and wq (nq,) as device tensors -> out (Nc,); all float64.
 int vt_dg0_project_jacobian(const double* d, const int64_t* cell_dofs,
                             const double* Jinv, const double* dN2,
                             const double* wq, int nq, double* out, int Nc,
                             void* stream) {
-  if (nq < 1 || nq > kDg0NqMax) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if ((e = cudaMemcpyToSymbolAsync(c_dg0_dN2, dN2, sizeof(double) * nq * 30, 0,
-                                   cudaMemcpyDeviceToDevice, s)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaMemcpyToSymbolAsync(c_dg0_wq, wq, sizeof(double) * nq, 0,
-                                   cudaMemcpyDeviceToDevice, s)) != cudaSuccess)
-    return (int)e;
   if (Nc > 0) {
     const int threads = 128;
-    dg0_jacobian_kernel<<<(Nc + threads - 1) / threads, threads, 0, s>>>(
-        d, cell_dofs, Jinv, nq, out, Nc);
+    dg0_jacobian_kernel<<<(Nc + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        d, cell_dofs, Jinv, dN2, wq, nq, out, Nc);
   }
   return (int)cudaGetLastError();
 }

@@ -113,12 +113,10 @@ def _bind(lib):
         "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
-        "vt_dg0_nq_max": [],
         "vt_dg0_project_jacobian": [P] * 5 + [I, P, I, P],
         "vt_elem_matvec": [P, I, P, P, P, I, I, I, P],
         "vt_ruiz_sweep": [P] * 7 + [I, I, P],
         "vt_ruiz_scale": [P] * 5 + [I, I, P],
-        "vt_facet_nq_max": [],
         "vt_robin_residual": [P] * 5 + [I, P, I, I, D, D, P],
         "vt_robin_jacobian": [P] * 3 + [I, P, I, I, D, D, P],
         "vt_banded_segsum": [P, P, P, P, I, I, P, P],

@@ -54,10 +54,6 @@ def _prepare(block, dev):
     build.require(block.dofs, "dofs", torch.int64, (K, NLOC), dev)
     build.require(block.area2, "area2", torch.float64, (K,), dev)
     nq = len(block.kernel.tables_np[0])
-    if nq > lib.vt_facet_nq_max():
-        raise NotImplementedError(
-            f"quadrature_degree={block.kernel.quad_degree} has {nq} triangle "
-            f"points; the Robin kernels hold at most {lib.vt_facet_nq_max()}")
     return lib, K, nq, build.stream_handle(dev)
 
 

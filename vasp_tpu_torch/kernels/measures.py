@@ -83,10 +83,6 @@ def dg0_project_jacobian_cuda(d, cell_dofs, Jinv, dN2, wq):
     lib = build.library()
     dev, f64 = d.device, torch.float64
     Nc, nq = cell_dofs.shape[0], wq.shape[0]
-    if nq > lib.vt_dg0_nq_max():
-        raise NotImplementedError(
-            f"a {nq}-point rule; the DG0 Jacobian kernel holds at most "
-            f"{lib.vt_dg0_nq_max()} points")
     _check_all(dev, d=(d, f64, (d.shape[0], 3)),
                cell_dofs=(cell_dofs, torch.int64, (Nc, 10)),
                Jinv=(Jinv, f64, (Nc, 3, 3)), dN2=(dN2, f64, (nq, 10, 3)),
