@@ -8,14 +8,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. Device: needs torch.cuda; prints the card's name and power limit and
    builds the CUDA kernels from csrc/ (one nvcc per source, in parallel;
    build seconds, ptxas register and spill report); the SASS of the
-   float32 residual instances (fluid, solid and the Robin facet term)
-   must hold no float64 arithmetic.
+   float32 residual instances (fluid, solid in St.Venant-Kirchhoff and in
+   Mooney-Rivlin, and the Robin facet term) must hold no float64
+   arithmetic.
 2. Kernel vs plain on the card at the 20,832-cell tube (184,845 dofs):
    every kernel against its plain torch version on the same inputs, each
    timed with CUDA events beside its plain version, its bound (bytes over
-   3.35 TB/s or operations over the peak of their type, the larger) and,
-   for the element matvec, cuSPARSE's SpMV of the same matrix as a
-   yardstick. Tolerances, each with its reason:
+   3.35 TB/s or operations over the peak of their type, the larger; the
+   element kernels' bytes count the entries their block touches) and a
+   one-call torch yardstick where one exists (cuSPARSE's SpMV of the same
+   matrix for the element matvec, scatter_reduce_ "amax" of the gathered
+   |dr A dc| for K7's sweep, index_add_ of the gathered in-band entries
+   for K8). Tolerances, each with its reason:
    - float64 outputs (K1, K2, K3, K4 f64, K19): 1e-12 relative; the f64
      atomics' order varies, nothing else;
    - float32 element residuals (K1/K2 f32): as accurate as the plain
@@ -50,6 +54,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    36 (exact), and the DG0 projection of det(I + grad d) (K19c, 1e-12) on
    a displacement with strains ~1e-2. The facet kernels' bounds count the
    bytes of the entries the facet blocks touch, not whole vectors.
+   Then, at the 20,832-cell predeform tube (-p predeform's generated
+   tube at n_theta=16, n_z=62), the Mooney-Rivlin solid's K2 (f64 1e-12,
+   f32 by the K1/K2 f32 rule: the float32 instance held to the plain
+   float32 version's distance from float64, no looser) and K3 (f64
+   1e-12, f32 2e-7 per block), on a displacement with strains ~1e-2 so
+   that the log1p and cofactor terms count; once with the predeform
+   wall's constants and once with the AVF vein's (the "vein" variant).
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
    (plain versions) and on the card (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
@@ -74,7 +85,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    run and read just after: the f64 Robin kernels' path; then those two
    kernels against their plain versions on that run's facet block, rule
    and final state, 1e-12) and on the bench configuration (U within
-   3e-2), the same Newton counts.
+   3e-2), the same Newton counts. Then, on the LU path (U within 1e-8,
+   the same Newton counts; counters reset just before the card's run and
+   read just after: the f64 Mooney-Rivlin kernels' path), the tiny
+   predeform of tests/test_driver_predeform.py (theta=1, lmbda=0.5, its
+   raise_on_fail=False) and the tiny AVF of tests/test_torch_driver_avf.py
+   (tests/test_driver_avf.py's cut to 2 steps and 1,536 cells, whose host
+   splu takes minutes at its own size).
 4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
    cylinder of 10 layers; its host splu takes under a minute on a
    CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
@@ -111,8 +128,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    n_z=62) on the bench configuration, 5 steps of dt=1e-3; the checks and
    lines of phase 5, every step's minimum Jacobian positive, and the last
    step's probe and minimum-Jacobian lines.
+9. The Mooney-Rivlin models, counters reset just before each run and read
+   just after, the checks and lines of phase 5:
+   - -p predeform at 20,832 cells on the bench configuration with the
+     config's max_it=50 (lmbda=0.5 halves the residual per iteration) and
+     its ramps shifted so that pressure is on within the run (t_end_v =
+     t_start_p = 0.02, t_end_p = 0.72: production's 0.7 s ramp at its
+     dt = 0.01), 5 steps, raise_on_fail=False: vasp_tpu on the CPU does
+     not converge on these options either (a 1,440-cell tube: step 2
+     climbs every ladder tier and ends at 1.194e-6 > atol 1e-6,
+     tests/diag_predeform_bench_options.py), so a step may end
+     unconverged, and must then end below 5e-5, the atol
+     tests/test_driver_predeform.py holds this theta=1 MR inflation to;
+     the ladder tiers printed; the final minimum Jacobian positive and
+     the wall moved outward;
+   - the prestress chain in memory: the vertex coordinates minus the
+     final displacement (postprocessing/mesh_stages.predeform_mesh's
+     arithmetic; the card's machine has no h5py), 5 re-inflation steps on
+     that mesh through the driver (a problem file); the minimum Jacobian
+     positive, the wall outward, |d'|/|d| in 0.3-3
+     (tests/test_driver_predeform.py's bar);
+   - -p avf on its generated Y mesh at 22,656 cells (17,664 if the card's
+     memory check refuses the banded preconditioner, with the reason
+     printed), 5 steps of dt=1e-4 with its ramps shortened so that flow
+     and pressure are on within them (inflow over 1e-3 s, pressure over
+     2e-4-1.2e-3 s; its own 0.2 s ramps leave 5 steps at rest); every
+     step's minimum Jacobian positive, the last step's probe and
+     minimum-Jacobian lines.
 
-Phases 3-8 run with HDF5 output off (save_step=0, checkpoint_step=0),
+Phases 3-9 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -171,6 +215,53 @@ TINY_ANEURYSM = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=2,
                      atol=1e-6, rtol=1e-6, recompute=5, recompute_tstep=1,
                      generated_mesh_params=dict(n_theta=8, n_z=8),
                      verbose=True, **NO_FILES)
+# the tiny predeform of tests/test_driver_predeform.py:21-56 (its
+# raise_on_fail=False and atol 5e-5 included: the theta=1 MR inflation's
+# slow tail at its squeezed increments)
+TINY_PREDEFORM = dict(
+    T=0.03, dt=0.01, mesh_path=None, quadrature_degree=2, atol=5e-5,
+    rtol=1e-4, raise_on_fail=False, recompute=1, recompute_tstep=1,
+    t_start_v=0.0, t_end_v=0.01, t_start_p=0.01, t_end_p=0.05,
+    v_max_final=0.05, P_final=400.0, verbose=True,
+    generated_mesh_params=dict(n_theta=8, n_z=4), **NO_FILES)
+# the tiny AVF of tests/test_torch_driver_avf.py: tests/test_driver_avf.py's
+# cut to 2 steps and n_z=4 (1,536 cells), whose host splu takes minutes
+# at n_z=8
+TINY_AVF = dict(T=0.0002, dt=0.0001, mesh_path=None, patient_data_path=None,
+                quadrature_degree=2, atol=1e-6, rtol=1e-6, recompute=5,
+                recompute_tstep=1, vel_t_ramp=0.0002, p_t_ramp_start=0.0001,
+                p_t_ramp_end=0.0003,
+                generated_mesh_params=dict(n_theta=8, n_z=4), verbose=True,
+                **NO_FILES)
+# phase 9: predeform on the bench configuration with the config's max_it
+# (lmbda=0.5 halves the residual per iteration, so 12 cannot reach 1e-6)
+# and its ramps shifted so that pressure is on within the run:
+# production's 0.7 s pressure ramp at production's dt = 0.01. On these
+# options vasp_tpu on the CPU does not converge either (a 1,440-cell tube:
+# step 2 climbs every ladder tier and ends at 1.194e-6 > atol,
+# tests/diag_predeform_bench_options.py), so a step may end unconverged
+# here: it must end below PREDEFORM_FLOOR, the atol
+# tests/test_driver_predeform.py holds this theta=1 MR inflation's slow
+# tail to
+PREDEFORM_CFG = dict(BENCH_CFG, max_it=50, t_end_v=0.02, t_start_p=0.02,
+                     t_end_p=0.72, raise_on_fail=False)
+PREDEFORM_FLOOR = 5e-5
+# phase 9: avf on the bench configuration with its ramps shortened so that
+# flow and pressure are on within 5 steps of dt = 1e-4 (its own 0.2 s
+# ramps leave those steps at rest: no Newton iteration, no solve):
+# inflow over 10 steps, pressure from step 2 over 10 steps
+AVF_CFG = dict(BENCH_CFG, vel_t_ramp=1e-3, p_t_ramp_start=2e-4,
+               p_t_ramp_end=1.2e-3)
+# the AVF's generated Y mesh: 22,656 cells (13,824 fluid, 5,755 artery,
+# 3,077 vein); 17,664 cells if the card's memory check refuses the first
+AVF_MESH = dict(m=8, n_parent=16, n_daughter=20)
+AVF_MESH_SMALL = dict(m=8, n_parent=12, n_daughter=16)
+# the AVF vein's wall (vasp_tpu/models/avf.py:70-72): the second MR
+# parameter set phase 2 launches
+_MU_VEIN = 3e6 / (2 * (1 + 0.45))
+VEIN = {"material_model": "MooneyRivlin", "rho_s": 1.0e3, "mu_s": _MU_VEIN,
+        "lambda_s": 0.45 * 2.0 * _MU_VEIN / (1.0 - 2.0 * 0.45),
+        "C01": 0.003e6, "C10": 0.0, "C11": 0.538e6}
 # a small tube (bench.py's physics) for the forced ladder runs
 LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
                    n_r_fluid=2, n_r_solid=1, n_z=5)
@@ -231,11 +322,33 @@ REPLACES = {
                       "aneurysm"),
     "dg0_project_jacobian": (CSRC + "measures.cu",
                              "vasp_tpu/fem/measures.py:116", "aneurysm"),
+    "solid_residual_mr": (CSRC + "element_kernels.cu",
+                          "vasp_tpu/fem/forms.py:205 with "
+                          "vasp_tpu/fem/kinematics.py:80 (MooneyRivlin)",
+                          "predeform_lu"),
+    "solid_residual_mr_f32": (CSRC + "element_kernels.cu",
+                              "vasp_tpu/fem/forms.py:205 with "
+                              "vasp_tpu/fem/kinematics.py:80 via "
+                              "vasp_tpu/fem/assembly.py:83 (dtype=float32)",
+                              "predeform"),
+    "solid_jacobian_mr": (CSRC + "element_kernels.cu",
+                          "vasp_tpu/fem/assembly.py:92 (MooneyRivlin)",
+                          "predeform_lu"),
+    "solid_jacobian_mr_f32": (CSRC + "element_kernels.cu",
+                              "vasp_tpu/fem/assembly.py:92 (MooneyRivlin)",
+                              "predeform"),
 }
 # the kernels each path's run must launch
-_KRYLOV = {"fluid_jacobian_f32", "solid_jacobian_f32", "elem_matvec",
-           "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply"}
+_KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
+                 "ruiz_scale", "banded_assemble", "banded_apply"}
+_KRYLOV = _KRYLOV_FLUID | {"solid_jacobian_f32"}
 _MEASURES = {"dg0_project_speed", "integrate_p2_dot_n"}
+_ROBIN_F32 = {"robin_residual_f32", "robin_jacobian_f32", "elem_matvec_36",
+              "ruiz_sweep_36", "ruiz_scale_36"}
+_MR_LU = {"fluid_residual", "solid_residual_mr", "fluid_jacobian",
+          "solid_jacobian_mr", "robin_residual", "robin_jacobian"} | _MEASURES
+_MR_F32F = {"fluid_residual_f32", "solid_residual_mr_f32",
+            "solid_jacobian_mr_f32"} | _KRYLOV_FLUID | _ROBIN_F32 | _MEASURES
 PATHS = {
     "lu": {"fluid_residual", "solid_residual", "fluid_jacobian",
            "solid_jacobian"} | _MEASURES,
@@ -250,9 +363,12 @@ PATHS = {
     "stenosis": {"fluid_residual_f32", "solid_residual_f32",
                  "dg0_project_jacobian"} | _KRYLOV | _MEASURES,
     "aneurysm": {"fluid_residual_f32", "solid_residual_f32",
-                 "robin_residual_f32", "robin_jacobian_f32",
-                 "elem_matvec_36", "ruiz_sweep_36", "ruiz_scale_36",
-                 "dg0_project_jacobian"} | _KRYLOV | _MEASURES,
+                 "dg0_project_jacobian"} | _ROBIN_F32 | _KRYLOV | _MEASURES,
+    "predeform_lu": _MR_LU,
+    "avf_lu": _MR_LU | {"dg0_project_jacobian"},
+    "predeform": _MR_F32F,
+    "chain": _MR_F32F,
+    "avf": _MR_F32F | {"dg0_project_jacobian"},
 }
 
 
@@ -374,9 +490,10 @@ def phase_device():
 
 
 def check_f32_residual_sass(build):
-    """The float32 residual instances (the fluid and solid cells' K1/K2
-    and the Robin facets' K14) must do no float64 arithmetic (a stray
-    double literal or parameter would promote their math): count the f64
+    """The float32 residual instances (the fluid cells' K1, the solid
+    cells' K2 in St.Venant-Kirchhoff and in Mooney-Rivlin, and the Robin
+    facets' K14) must do no float64 arithmetic (a stray double literal,
+    parameter or math call would promote their math): count the f64
     arithmetic instructions in their SASS. Only the input roundings (F2F)
     and the float64 scatter (RED.ADD.F64) may touch f64."""
     import re
@@ -387,8 +504,8 @@ def check_f32_residual_sass(build):
                           text=True, check=True, timeout=300).stdout
     funcs = [f for f in sass.split("Function : ")[1:]
              if "residual_kernelIf" in f.split("\n", 1)[0]]
-    require(len(funcs) == 3, f"found {len(funcs)} float32 residual "
-                             f"instances in the SASS, expected 3")
+    require(len(funcs) == 4, f"found {len(funcs)} float32 residual "
+                             f"instances in the SASS, expected 4")
     for f in funcs:
         n = len(re.findall(r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b", f))
         print(f"    SASS of {f.split(chr(10), 1)[0].strip()[:90]}: {n} "
@@ -498,6 +615,72 @@ def _sub_block(b, n):
                    rowmask=None if b.rowmask is None else b.rowmask[:n])
 
 
+def element_block_records(records, b, U, U0, shape_tag=""):
+    """K1/K2 (f64 and f32) and K3 (f64 and f32) of one cell block against
+    their plain versions, recorded under the block's launch counters
+    (fluid_/solid_, the solid's material tag, _f32). The bounds count the
+    U, U0 and R entries the block touches, its tables, and the operations
+    of the plain version counted on 32 of its cells."""
+    import torch
+
+    from vasp_tpu_torch.kernels import element
+
+    def name(op, f32):
+        return element.counter_name(b, op, f32)
+
+    ndof = U.shape[0]
+    K = b.dofs.shape[0]
+    f32 = torch.float32
+    sub = _sub_block(b, 32)
+    res_ops = count_ops(lambda: element.residual_plain(
+        sub, U, U0, torch.zeros_like(U))) * K / 32
+    res32_ops = count_ops(lambda: element.residual_plain(
+        sub, U, U0, torch.zeros_like(U), f32)) * K / 32
+    jac_ops = count_ops(lambda: element.jacobian_plain(sub, U, U0)) * K / 32
+    touched = int(torch.unique(b.dofs).numel())
+    inputs = nbytes(b.dofs, b.Jinv, b.detJ, b.vol, b.rowmask) + 2 * 8 * touched
+    shape = f"K={K}{shape_tag}"
+
+    Rk = element.residual_cuda(b, U, U0, torch.zeros_like(U))
+    Rp = element.residual_plain(b, U, U0, torch.zeros_like(U))
+    R = torch.zeros_like(U)
+    records.add(name("residual", False), rel_err(Rk, Rp),
+                cuda_ms(lambda: element.residual_cuda(b, U, U0, R), 20),
+                cuda_ms(lambda: element.residual_plain(b, U, U0, R), 3),
+                (inputs + 8 * touched, res_ops, "f64"), TOL_F64,
+                f"{shape} -> ({ndof},)")
+
+    # float32 element work: as accurate as the plain version, whose
+    # distance to the float64 residual sets the bound
+    Rk32 = element.residual_cuda(b, U, U0, torch.zeros_like(U), f32)
+    Rp32 = element.residual_plain(b, U, U0, torch.zeros_like(U), f32)
+    floor = float((Rp32 - Rp).norm())
+    tol32 = (2 * floor + 1e-14 * float(Rp.norm())) / float(Rp32.norm())
+    records.add(name("residual", True), rel_err(Rk32, Rp32),
+                cuda_ms(lambda: element.residual_cuda(b, U, U0, R, f32), 20),
+                cuda_ms(lambda: element.residual_plain(b, U, U0, R, f32), 3),
+                (inputs + 8 * touched, res32_ops, "f32"), tol32,
+                f"{shape} f32 -> ({ndof},)",
+                plain_rel_to_f64=floor / float(Rp.norm()),
+                kernel_rel_to_f64=float((Rk32 - Rp).norm() / Rp.norm()))
+    del Rk, Rp, Rk32, Rp32
+
+    Ap = element.jacobian_plain(b, U, U0, chunk=128)
+    for dt, f32_out, tol in ((torch.float64, False, TOL_F64),
+                             (torch.float32, True, TOL_JAC_F32)):
+        Ak = element.jacobian_cuda(b, U, U0, dt)
+        err = _per_block_rel(Ak, Ap.to(dt))
+        del Ak
+        records.add(
+            name("jacobian", f32_out), err,
+            cuda_ms(lambda: element.jacobian_cuda(b, U, U0, dt), 5),
+            cuda_ms(lambda: element.jacobian_plain(
+                b, U, U0, chunk=128).to(dt), 1),
+            (inputs + K * 4096 * (4 if f32_out else 8), jac_ops, "f64"), tol,
+            f"{shape} -> ({K},64,64) {dt}".replace("torch.", ""))
+    del Ap
+
+
 def phase_element_kernels(records, system, U, U0):
     """K1, K2, K3 (f64 and f32) and K19 against their plain versions."""
     import torch
@@ -505,66 +688,10 @@ def phase_element_kernels(records, system, U, U0):
     from vasp_tpu_torch.fem.measures import BoundaryMeasure
     from vasp_tpu_torch.fem.quadrature import tet_quadrature
     from vasp_tpu_torch.fem.shape import p2_tet
-    from vasp_tpu_torch.kernels import element
     from vasp_tpu_torch.kernels import measures as km
 
-    ndof = system.space.ndof
     for b in system.assembler.blocks:
-        kind = b.kernel.kind
-        K = b.dofs.shape[0]
-        # operations per cell, counted on 32 cells of the plain versions
-        sub = _sub_block(b, 32)
-        res_ops = count_ops(lambda: element.residual_plain(
-            sub, U, U0, torch.zeros_like(U))) * K / 32
-        jac_ops = count_ops(lambda: element.jacobian_plain(sub, U, U0)) \
-            * K / 32
-        inputs = nbytes(b.dofs, b.Jinv, b.detJ, b.vol, b.rowmask) + 2 * 8 * ndof
-
-        Rk = element.residual_cuda(b, U, U0, torch.zeros_like(U))
-        Rp = element.residual_plain(b, U, U0, torch.zeros_like(U))
-        R = torch.zeros_like(U)
-        records.add(f"{kind}_residual", rel_err(Rk, Rp),
-                    cuda_ms(lambda: element.residual_cuda(b, U, U0, R), 20),
-                    cuda_ms(lambda: element.residual_plain(b, U, U0, R), 3),
-                    (inputs + 8 * ndof, res_ops, "f64"), TOL_F64,
-                    f"K={K} -> ({ndof},)")
-
-        # float32 element work: as accurate as the plain version, whose
-        # distance to the float64 residual sets the bound
-        f32 = torch.float32
-        Rk32 = element.residual_cuda(b, U, U0, torch.zeros_like(U), f32)
-        Rp32 = element.residual_plain(b, U, U0, torch.zeros_like(U), f32)
-        floor = float((Rp32 - Rp).norm())
-        tol32 = (2 * floor + 1e-14 * float(Rp.norm())) / float(Rp32.norm())
-        res32_ops = count_ops(lambda: element.residual_plain(
-            sub, U, U0, torch.zeros_like(U), f32)) * K / 32
-        records.add(f"{kind}_residual_f32", rel_err(Rk32, Rp32),
-                    cuda_ms(lambda: element.residual_cuda(b, U, U0, R, f32),
-                            20),
-                    cuda_ms(lambda: element.residual_plain(b, U, U0, R, f32),
-                            3),
-                    (inputs + 8 * ndof, res32_ops, "f32"), tol32,
-                    f"K={K} f32 -> ({ndof},)",
-                    plain_rel_to_f64=floor / float(Rp.norm()),
-                    kernel_rel_to_f64=float((Rk32 - Rp).norm()
-                                            / Rp.norm()))
-        del Rk, Rp, Rk32, Rp32
-
-        Ap = element.jacobian_plain(b, U, U0, chunk=128)
-        for dt, suffix, tol in ((torch.float64, "", TOL_F64),
-                                (torch.float32, "_f32", TOL_JAC_F32)):
-            Ak = element.jacobian_cuda(b, U, U0, dt)
-            err = _per_block_rel(Ak, Ap.to(dt))
-            del Ak
-            records.add(
-                f"{kind}_jacobian{suffix}", err,
-                cuda_ms(lambda: element.jacobian_cuda(b, U, U0, dt), 5),
-                cuda_ms(lambda: element.jacobian_plain(
-                    b, U, U0, chunk=128).to(dt), 1),
-                (inputs + K * 4096 * (8 if suffix == "" else 4), jac_ops,
-                 "f64"), tol, f"K={K} -> ({K},64,64) {dt}".replace(
-                    "torch.", ""))
-        del Ap
+        element_block_records(records, b, U, U0)
 
     space = system.space
     v = space.split(U)[1].contiguous()
@@ -676,12 +803,32 @@ def phase_iterative_kernels(records, system, bc):
         for b, A in zip(blocks, jacs32):
             fn(A, b.dofs, dr, dc, mask, outs[0], outs[1])
 
+    # yardstick: torch's scatter_reduce_ ("amax") of the row and column
+    # maxima of the gathered, masked |dr A_e dc| (the gather and products
+    # made beforehand, not timed)
+    rows_idx = torch.cat([b.dofs.reshape(-1) for b in blocks])
+    row_vals, col_vals = [], []
+    for b, A in zip(blocks, jacs32):
+        As = torch.abs(dr[b.dofs][:, :, None] * A * dc[b.dofs][:, None, :])
+        bcm = mask[b.dofs]
+        As = torch.where(bcm[:, :, None] | bcm[:, None, :], 0.0, As)
+        row_vals.append(As.amax(dim=2).reshape(-1))
+        col_vals.append(As.amax(dim=1).reshape(-1))
+        del As
+    row_vals, col_vals = torch.cat(row_vals), torch.cat(col_vals)
+
+    def lib_sweep():
+        outs[2].scatter_reduce_(0, rows_idx, row_vals, "amax")
+        outs[3].scatter_reduce_(0, rows_idx, col_vals, "amax")
+
+    lib_ms = cuda_ms(lib_sweep, 20)
+    del row_vals, col_vals, rows_idx
     records.add("ruiz_sweep", err, cuda_ms(lambda: sweep(ks.ruiz_sweep_cuda),
                                            20),
                 cuda_ms(lambda: sweep(ks.ruiz_sweep_plain), 5),
                 (nbytes(*jacs32, dr, dc, mask) + dof_bytes + 8 * ndof,
                  5 * 4096 * K_all, "f32"), 0.0,
-                f"K={K_all}, one sweep")
+                f"K={K_all}, one sweep", library_ms=lib_ms)
     jf = [ks.ruiz_scale_cuda(A, b.dofs, dr, dc) for b, A in zip(blocks, jacs32)]
     jfp = [ks.ruiz_scale_plain(A, b.dofs, dr, dc)
            for b, A in zip(blocks, jacs32)]
@@ -724,6 +871,17 @@ def phase_iterative_kernels(records, system, bc):
     del host
     plan_bytes = sum(nbytes(p["src"], p["udst"], p["starts"])
                      for per_t in plans for p in per_t)
+    # yardstick: torch's index_add_ of the gathered in-band entries into
+    # C/D/B in one call (the gather made beforehand, not timed)
+    cdb = torch.zeros(3 * pat.factor_bytes // 4, dtype=torch.float32,
+                      device="cuda")
+    n_slot = pat.nb * pat.c * pat.c
+    dst = torch.cat([p["dst"].long() + t * n_slot for per_t in plans
+                     for t, p in enumerate(per_t)])
+    vals = torch.cat([A.reshape(-1)[p["src"].long()]
+                      for A, per_t in zip(jf, plans) for p in per_t])
+    lib_ms = cuda_ms(lambda: cdb.index_add_(0, dst, vals), 3)
+    del cdb, dst, vals
     records.add("banded_assemble", err,
                 cuda_ms(lambda: kb.assemble_cuda(jf, plans, pat.nb, pat.c,
                                                  diag), 3),
@@ -731,7 +889,8 @@ def phase_iterative_kernels(records, system, bc):
                                                   diag), 1),
                 (nbytes(*jf) + plan_bytes + 3 * pat.factor_bytes
                  + nbytes(diag), nsrc, "f32"), 0.0,
-                f"{nsrc} entries -> 3x({pat.nb},{pat.c},{pat.c})")
+                f"{nsrc} entries -> 3x({pat.nb},{pat.c},{pat.c})",
+                library_ms=lib_ms)
     del jf
 
     # ---- K9, K10 (torch), then K6 against its plain version
@@ -979,6 +1138,50 @@ def phase_facet_kernels(records):
                 f"Nc={cell_dofs.shape[0]}")
 
 
+def phase_mr_kernels(records):
+    """K2 and K3 in Mooney-Rivlin (f64 and f32) against their plain
+    versions at the 20,832-cell predeform tube, on a displacement with
+    strains ~1e-2 (so that the log1p and cofactor terms count); then once
+    more with the AVF vein's constants, kept as the records' "vein"
+    variant, so that both MR parameter sets launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.fem.forms import make_solid_kernel
+    from vasp_tpu_torch.fem.kinematics import E_
+
+    system, _ = model_system("predeform", MODEL_MESH, "cuda")
+    space = system.space
+    (b,) = [b for b in system.assembler.blocks
+            if b.kernel.kind == "solid"]
+    rng = np.random.default_rng(4)
+    scale = np.concatenate([np.full(3 * space.n_p2, 1e-2 * system.mesh.hmin),
+                            np.full(3 * space.n_p2, 1e-2),
+                            np.full(space.n_p1, 1e2)])
+    U, U0 = (torch.as_tensor(rng.normal(size=space.ndof) * scale,
+                             device="cuda") for _ in range(2))
+    _, _, _, dN2 = (torch.as_tensor(a, device="cuda")
+                    for a in b.kernel.tables_np)
+    G = torch.einsum("qaj,kjl->kqal", dN2, b.Jinv)
+    de = U[b.dofs[:, :30]].reshape(-1, 10, 3)
+    E = E_(torch.einsum("kai,kqaj->kqij", de, G)).abs().amax(dim=(2, 3))
+    print(f"[2] predeform tube: {system.mesh.num_cells} cells, {space.ndof} "
+          f"dofs, blocks " + ", ".join(f"{x.name}={x.dofs.shape[0]}"
+                                       for x in system.assembler.blocks)
+          + f"; MR wall strains max |E| median {float(E.median()):.2e}, "
+          f"max {float(E.max()):.2e}")
+    element_block_records(records, b, U, U0, " MR")
+    kern = b.kernel
+    vein = dataclasses.replace(b, kernel=make_solid_kernel(
+        VEIN, kern.dt, kern.theta, quad_degree=kern.quad_degree))
+    sub = Records()
+    element_block_records(sub, vein, U, U0, " MR vein")
+    for name, r in sub.items():
+        records[name]["variants"] = {"vein": r}
+
+
 def phase_kernels():
     import torch
 
@@ -992,6 +1195,8 @@ def phase_kernels():
     del system, U, U0
     torch.cuda.empty_cache()
     phase_facet_kernels(records)
+    torch.cuda.empty_cache()
+    phase_mr_kernels(records)
     torch.cuda.empty_cache()
     return records, extra
 
@@ -1016,13 +1221,19 @@ PARITY = (
     ("cylinder", TINY, "f32f", BENCH_CFG, TOL_PATH_F32F),
     ("aneurysm", TINY_ANEURYSM, "LU", {}, TOL_PATH_LU),
     ("aneurysm", TINY_ANEURYSM, "f32f", BENCH_CFG, TOL_PATH_F32F),
+    ("predeform", TINY_PREDEFORM, "LU", {}, TOL_PATH_LU),
+    ("avf", TINY_AVF, "LU", {}, TOL_PATH_LU),
 )
+# the LU runs on the card whose launches a path of PATHS reads: the f64
+# Robin kernels and the f64 MR kernels launch on no other path
+LU_PATHS = ("aneurysm", "predeform", "avf")
 
 
 def phase_parity(tmp):
     """The path parity runs, then the forced ladder runs; returns the
     launches of the forced ladder runs on the card and of the tiny
-    aneurysm's LU run on the card (counters reset just before it)."""
+    aneurysm's, predeform's and AVF's LU runs on the card (counters reset
+    just before each)."""
     from vasp_tpu_torch.kernels import build
 
     launches = {}
@@ -1039,16 +1250,20 @@ def phase_parity(tmp):
             tiny, device="cuda", **extra,
             folder=str(tmp / f"tiny_{problem}_{label}")), problem)
         t_gpu = time.perf_counter() - tic
+        if label == "LU" and problem in LU_PATHS:
+            path = f"{problem}_lu"
+            launches[path] = dict(build.LAUNCHES)
+            check_launches(path, launches[path])
+            print(f"[3] {name}: launches {launches[path]}")
         if (problem, label) == ("aneurysm", "LU"):
-            launches["aneurysm_lu"] = dict(build.LAUNCHES)
-            check_launches("aneurysm_lu", launches["aneurysm_lu"])
             check_robin_f64_at_path(ns_g)
         Uc = ns_c["dvp_"]["n"]
         Ug = ns_g["dvp_"]["n"].cpu()
         rel = float((Ug - Uc).norm() / Uc.norm())
         tiers = [[h["tiers"] for h in ns["solver"].stepper.history]
                  if label != "LU" else [] for ns in (ns_c, ns_g)]
-        print(f"[3] {name} ({ns_c['mesh'].num_cells} cells, 3 steps): "
+        steps = round(tiny["T"] / tiny["dt"])
+        print(f"[3] {name} ({ns_c['mesh'].num_cells} cells, {steps} steps): "
               f"Newton iterations cpu {it_c} cuda {it_g}; ladder tiers cpu "
               f"{tiers[0]} cuda {tiers[1]}; U rel diff {rel:.3e}; wall cpu "
               f"{t_cpu:.1f} s, cuda {t_gpu:.1f} s")
@@ -1058,7 +1273,7 @@ def phase_parity(tmp):
         require(tiers[0] == tiers[1], f"{name}: ladder tiers differ")
         require(rel <= tol, f"{name}: U differs by {rel:.3e} relative "
                             f"(> {tol:.0e})")
-        require(log.count("Solved for timestep") == 3,
+        require(log.count("Solved for timestep") == steps,
                 f"{name}: tiny run missed steps")
     launches["ladder"] = phase_forced_ladder()
     return launches
@@ -1163,9 +1378,12 @@ def phase_forced_ladder():
     return launches
 
 
-def run_main_path(tmp, label, mesh_params, problem="cylinder", **cfg):
-    """driver.main on -p `problem` for 5 steps of dt=1e-3, the launch
-    counters reset just before and read just after."""
+def run_main_path(tmp, label, mesh_params, problem="cylinder", T=0.005,
+                  dt=0.001, floor=None, **cfg):
+    """driver.main on -p `problem` (a model's name or a problem file) for
+    T/dt steps (5 unless given), the launch counters reset just before
+    and read just after. Every step must converge, or, with `floor`
+    given, end with its residual at most `floor`."""
     import torch
 
     from vasp_tpu_torch.kernels import build
@@ -1175,11 +1393,12 @@ def run_main_path(tmp, label, mesh_params, problem="cylinder", **cfg):
     cfg_path.write_text(json.dumps(dict(
         mesh_path=None, generated_mesh_params=mesh_params, **NO_FILES,
         **cfg)))
-    folder = tmp / f"{problem}_{label}"
+    folder = tmp / f"main_{label}"
+    n_steps = round(T / dt)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     tic = time.perf_counter()
-    ns = driver.main(["-p", problem, "-T", "0.005", "-dt", "0.001",
+    ns = driver.main(["-p", problem, "-T", repr(T), "-dt", repr(dt),
                       "--folder", str(folder), "--config", str(cfg_path)],
                      return_namespace=True)
     torch.cuda.synchronize()
@@ -1189,14 +1408,22 @@ def run_main_path(tmp, label, mesh_params, problem="cylinder", **cfg):
              (folder / "metrics.jsonl").read_text().splitlines()]
     U = ns["dvp_"]["n"]
     require(U.is_cuda, f"{label}: the main path's state is not on the card")
-    require(len(steps) == 5, f"{label}: {len(steps)} steps instead of 5")
-    require(all(s["converged"] for s in steps),
-            f"{label}: a step did not converge")
+    require(len(steps) == n_steps,
+            f"{label}: {len(steps)} steps instead of {n_steps}")
+    if floor is None:
+        require(all(s["converged"] for s in steps),
+                f"{label}: a step did not converge")
+    else:
+        res = ", ".join(f"{s['residual']:.3e}" for s in steps)
+        print(f"    steps converged {[s['converged'] for s in steps]}, "
+              f"residuals {res}")
+        require(all(s["converged"] or s["residual"] <= floor for s in steps),
+                f"{label}: a step ended above {floor:.0e} unconverged")
     require(bool(torch.isfinite(U).all()), f"{label}: U is not finite")
     check_launches(label, launches)
     secs = [s["cpu_time"] for s in steps]
-    print(f"    {ns['mesh'].num_cells} cells, {ns['space'].ndof} dofs, 5 "
-          f"steps in {wall:.2f} s")
+    print(f"    {ns['mesh'].num_cells} cells, {ns['space'].ndof} dofs, "
+          f"{n_steps} steps in {wall:.2f} s")
     print_steps(secs, [s["newton_iterations"] for s in steps])
     print(f"    launches {launches}")
     print(f"    peak device memory "
@@ -1325,7 +1552,6 @@ def phase_models(tmp, records):
     20,832-cell tubes on the bench configuration; per model its launches
     and GMRES's bound per direction."""
     import gc
-    import re
 
     import torch
 
@@ -1338,19 +1564,152 @@ def phase_models(tmp, records):
         ns, launches = run_main_path(tmp, label, MODEL_MESH, problem=problem,
                                      **BENCH_CFG, **extra)
         k5 = report_stepper(ns["solver"].stepper, records)
-        log = (Path(ns["folder"]) / "run.log").read_text()
-        jmins = [float(x) for x in re.findall(r"Minimum Jacobian: (.*)", log)]
-        require(len(jmins) == 5 and min(jmins) > 0.0,
-                f"{problem}: minimum Jacobians {jmins}")
-        last = log[log.rindex("Newton iteration"):].splitlines()
-        for line in last:
-            if line.startswith(("Probe Point", "Minimum Jacobian")):
-                print(f"    last step: {line}")
+        report_model_lines(ns, problem, 5)
         profile_one_step(ns)
         out[label] = (launches, k5)
         del ns
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def report_model_lines(ns, problem, steps):
+    """Every step's minimum Jacobian positive; the last step's probe and
+    minimum-Jacobian lines printed."""
+    import re
+
+    log = (Path(ns["folder"]) / "run.log").read_text()
+    jmins = [float(x) for x in re.findall(r"Minimum Jacobian: (.*)", log)]
+    require(len(jmins) == steps and min(jmins) > 0.0,
+            f"{problem}: minimum Jacobians {jmins}")
+    last = log[log.rindex("Newton iteration"):].splitlines()
+    for line in last:
+        if line.startswith(("Probe Point", "Minimum Jacobian")):
+            print(f"    last step: {line}")
+
+
+# a problem file: -p predeform's hooks on a mesh saved with numpy (the card's
+# machine has no h5py), restricted to the FSI sphere as predeform's own
+# hook restricts a mesh file
+CHAIN_PROBLEM = '''"""-p predeform on the predeformed mesh {npz} (chip_smoke.py phase 9)."""
+import numpy as np
+
+from vasp_tpu_torch.mesh.markers import restrict_fsi_to_sphere
+from vasp_tpu_torch.mesh.tetmesh import TetMesh
+from vasp_tpu_torch.models.predeform import (  # noqa: F401
+    create_bcs, post_solve, pre_solve, set_problem_parameters)
+
+
+def get_mesh_domain_and_boundaries(fsi_region, fsi_id, rigid_id,
+                                   outer_wall_id, **namespace):
+    m = np.load({npz!r})
+    mesh = TetMesh(m["coords"], m["cells"], m["cell_markers"], m["facets"],
+                   m["facet_markers"])
+    return restrict_fsi_to_sphere(mesh, fsi_id, outer_wall_id, rigid_id,
+                                  fsi_region)
+'''
+
+
+def _wall_radial(ns):
+    """(mean outward radial displacement of the FSI interface's P2 nodes,
+    |d|) of a predeform run's final state, on the host."""
+    import numpy as np
+
+    space = ns["space"]
+    d = space.split(ns["dvp_"]["n"])[0].cpu().numpy()
+    iface = space.p2_dofs_on_facets(22)
+    xy = space.p2_coords[iface][:, :2]
+    rhat = xy / np.linalg.norm(xy, axis=1, keepdims=True)
+    return (float(np.einsum("ki,ki->k", d[iface][:, :2], rhat).mean()),
+            float(np.linalg.norm(d)))
+
+
+def phase_predeform(tmp, records):
+    """Phase 9, the prestress chain: -p predeform at 20,832 cells on the
+    bench configuration (PREDEFORM_CFG), 5 steps of dt=0.01; then the
+    predeformed mesh in memory (the vertex coordinates minus the last
+    displacement, as postprocessing/mesh_stages.predeform_mesh writes it)
+    and 5 re-inflation steps on it through the driver (a problem file).
+    Every step converges or ends below PREDEFORM_FLOOR, U is finite, the
+    minimum Jacobian is positive, and the re-inflated wall moves outward
+    with |d'|/|d| in 0.3-3 (tests/test_driver_predeform.py's bar). No
+    profiled step: a step of this path is seconds of ladder retries,
+    more device events than the profiler keeps."""
+    import numpy as np
+
+    from vasp_tpu_torch.run.metrics import compute_minimum_jacobian
+
+    out = {}
+    print("[9] predeform, bench configuration (max_it=50; ramps t_end_v="
+          "0.02, t_start_p=0.02, t_end_p=0.72), 20,832 cells, 5 steps of "
+          "dt=0.01:")
+    ns, out["predeform"] = run_main_path(
+        tmp, "predeform", MODEL_MESH, problem="predeform", T=0.05, dt=0.01,
+        floor=PREDEFORM_FLOOR, **PREDEFORM_CFG)
+    out["k5_predeform"] = report_stepper(ns["solver"].stepper, records)
+    log = (Path(ns["folder"]) / "run.log").read_text()
+    pressure = [ln for ln in log.splitlines() if ln.startswith("P = ")]
+    print(f"    last step: {pressure[-1]}")
+    mesh, space = ns["mesh"], ns["space"]
+    d = space.split(ns["dvp_"]["n"])[0]
+    jmin = compute_minimum_jacobian(space, d, verbose=False)
+    out_r, d_norm = _wall_radial(ns)
+    print(f"    minimum Jacobian {jmin}; wall radial displacement mean "
+          f"{out_r:.3e} m, |d| {d_norm:.3e}")
+    require(jmin > 0.0, f"predeform: minimum Jacobian {jmin}")
+    require(out_r > 0.0, "predeform: the wall did not move outward")
+
+    coords = mesh.coords - d[:mesh.num_vertices].cpu().numpy()
+    npz = tmp / "predeformed_mesh.npz"
+    np.savez(npz, coords=coords, cells=mesh.cells,
+             cell_markers=mesh.cell_markers, facets=mesh.facets,
+             facet_markers=mesh.facet_markers)
+    problem = tmp / "predeform_chain.py"
+    problem.write_text(CHAIN_PROBLEM.format(npz=str(npz)))
+    del ns, d
+    print("[9] the chain: 5 re-inflation steps on the predeformed mesh "
+          "(the same options):")
+    ns2, out["chain"] = run_main_path(
+        tmp, "chain", MODEL_MESH, problem=str(problem), T=0.05, dt=0.01,
+        floor=PREDEFORM_FLOOR, **PREDEFORM_CFG)
+    out["k5_chain"] = report_stepper(ns2["solver"].stepper, records)
+    require(np.array_equal(ns2["mesh"].coords, coords),
+            "chain: the run did not take the predeformed mesh")
+    jmin = compute_minimum_jacobian(
+        ns2["space"], ns2["space"].split(ns2["dvp_"]["n"])[0], verbose=False)
+    out_r2, d2_norm = _wall_radial(ns2)
+    ratio = d2_norm / d_norm
+    print(f"    minimum Jacobian {jmin}; wall radial displacement mean "
+          f"{out_r2:.3e} m, |d'| {d2_norm:.3e}, |d'|/|d| {ratio:.3f}")
+    require(jmin > 0.0, f"chain: minimum Jacobian {jmin}")
+    require(out_r2 > 0.0, "chain: the wall did not move outward")
+    require(0.3 < ratio < 3.0, f"chain: |d'|/|d| = {ratio:.3f}")
+    return out
+
+
+def phase_avf(tmp, records):
+    """Phase 9, -p avf on its generated Y mesh at 22,656 cells (17,664 if
+    the card's memory check refuses the banded preconditioner) on the
+    bench configuration, 5 steps of dt=1e-4: the lines of phase 5, every
+    step's minimum Jacobian positive, the last step's probe and minimum
+    Jacobian."""
+    out = {}
+    for mesh_params in (AVF_MESH, AVF_MESH_SMALL):
+        print(f"[9] avf, bench configuration (vel_t_ramp=1e-3, "
+              f"p_t_ramp 2e-4-1.2e-3), Y mesh {mesh_params}, 5 steps of "
+              f"dt=1e-4:")
+        try:
+            ns, out["avf"] = run_main_path(tmp, "avf", mesh_params,
+                                           problem="avf", T=5e-4, dt=1e-4,
+                                           **AVF_CFG)
+            break
+        except NotImplementedError as e:
+            require(mesh_params is AVF_MESH and "device memory" in str(e),
+                    f"avf: {e}")
+            print(f"    refused: {e}; taking the 17,664-cell mesh")
+    out["k5_avf"] = report_stepper(ns["solver"].stepper, records)
+    report_model_lines(ns, "avf", 5)
+    profile_one_step(ns)
     return out
 
 
@@ -1422,6 +1781,14 @@ def main():
         for label, (lnc, k5) in phase_models(tmp, records).items():
             launches[label] = lnc
             extra[f"k5_bound_ms_{label}"] = k5
+        for phase in (phase_predeform, phase_avf):
+            gc.collect()
+            torch.cuda.empty_cache()
+            for key, val in phase(tmp, records).items():
+                if key.startswith("k5_"):
+                    extra[f"k5_bound_ms_{key[3:]}"] = val
+                else:
+                    launches[key] = val
     gc.collect()
     torch.cuda.empty_cache()
     launches["bench"], extra["k5_bound_ms_bench"] = phase_bench(records)

@@ -8,7 +8,8 @@ inputs each test hands to both sides are made with numpy.
 Also what the stepper parity tests share: both steppers driven through
 the same steps (run_steps), the same damage of both packages' banded
 factors (damage_sinv), the ladder tiers a step printed (printed_tiers),
-and the torch thread count of the port's test modules (torch_threads)."""
+the torch thread count of the port's test modules (torch_threads), and a
+canonical order of a mesh's cells or facets (canonical_entities)."""
 import io
 from contextlib import redirect_stdout
 
@@ -137,6 +138,17 @@ def random_state(space, seed):
                             np.full(3 * space.n_p2, 1e-2),
                             np.full(space.n_p1, 1e2)])
     return np.random.default_rng(seed).normal(size=space.ndof) * scale
+
+
+def canonical_entities(rows, markers=None):
+    """A mesh's cells or facets (with their markers, if given) in a
+    canonical order: each row's vertices sorted, the rows sorted. vasp_tpu
+    lists facets in the order of its native facet builder where that
+    library loads, the port in the order of the numpy one."""
+    rows = np.sort(np.asarray(rows), axis=1)
+    if markers is not None:
+        rows = np.column_stack([rows, markers])
+    return rows[np.lexsort(rows.T[::-1])]
 
 
 def torch_threads(n):

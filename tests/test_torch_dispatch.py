@@ -2,6 +2,8 @@
 versions, CUDA tensors launch a kernel or raise, device="cuda" without a
 card raises, and configurations the CUDA kernels or the slice do not cover
 are refused by name."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -43,8 +45,9 @@ def test_cuda_without_card_raises(no_cuda, tiny_tube):
     (forms.make_fluid_kernel(**FLUID, p_stab=0.1), False),
     (forms.make_solid_kernel(SVK, 1e-3, 0.501), True),
     (forms.make_solid_kernel(SVK, 1e-3, 0.501, gravity=[0, 0, -9.81]), False),
-    (forms.make_solid_kernel(dict(SVK, material_model="MooneyRivlin"),
-                             1e-3, 0.501), False),
+    (forms.make_solid_kernel(dict(SVK, material_model="MooneyRivlin",
+                                  C01=2e4, C10=0.0, C11=1.8e6),
+                             1e-3, 0.501), True),
 ], ids=["constant", "small_constant", "volume", "volume_change", "elastic",
         "p_stab", "svk", "gravity", "mooney_rivlin"])
 def test_cuda_kernels_cover_their_configurations(kernel, ok):
@@ -54,6 +57,27 @@ def test_cuda_kernels_cover_their_configurations(kernel, ok):
     else:
         with pytest.raises(NotImplementedError, match="queue 1, item 10"):
             element.cuda_params(kernel)
+
+
+def test_mr_block_counts_under_its_own_name():
+    """A Mooney-Rivlin block launches (and counts) the MR instances of
+    K2/K3, an SVK block the SVK ones; the fluid has no material tag."""
+    mr = forms.make_solid_kernel(dict(SVK, material_model="MooneyRivlin",
+                                      C01=2e4, C10=0.0, C11=1.8e6),
+                                 1e-3, 0.501)
+    svk = forms.make_solid_kernel(SVK, 1e-3, 0.501)
+    fluid = forms.make_fluid_kernel(**FLUID)
+    names = [element.counter_name(SimpleNamespace(kernel=k), op, f32)
+             for k in (mr, svk, fluid) for op in ("residual", "jacobian")
+             for f32 in (False, True)]
+    assert names == [
+        "solid_residual_mr", "solid_residual_mr_f32", "solid_jacobian_mr",
+        "solid_jacobian_mr_f32", "solid_residual", "solid_residual_f32",
+        "solid_jacobian", "solid_jacobian_f32", "fluid_residual",
+        "fluid_residual_f32", "fluid_jacobian", "fluid_jacobian_f32"]
+    assert set(names) <= set(build.LAUNCHES)
+    assert element.cuda_params(mr)[5:] == (1, 2e4, 0.0, 1.8e6)
+    assert element.cuda_params(svk)[5:] == (0, 0.0, 0.0, 0.0)
 
 
 def test_dispatch_refuses_other_devices(tiny_tube):
@@ -66,7 +90,7 @@ def test_dispatch_refuses_other_devices(tiny_tube):
 
 @pytest.mark.parametrize("extra,item", [
     (dict(extrapolation="biharmonic"), 10),
-    (dict(material_model="MooneyRivlin"), 10),
+    (dict(extrapolation="biharmonic", extrapolation_sub_type="volume"), 10),
     (dict(n_devices=4), 13),
 ])
 def test_unported_options_raise(tiny_tube, extra, item):
@@ -146,6 +170,8 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "solid_residual_f32", "fluid_jacobian",
         "solid_jacobian", "fluid_jacobian_f32", "solid_jacobian_f32",
         "dg0_project_speed", "integrate_p2_dot_n", "dg0_project_jacobian",
+        "solid_residual_mr", "solid_residual_mr_f32", "solid_jacobian_mr",
+        "solid_jacobian_mr_f32",
         "elem_matvec", "ruiz_sweep", "ruiz_scale", "banded_assemble",
         "banded_apply", "banded_factorize_f64", "robin_residual",
         "robin_residual_f32", "robin_jacobian", "robin_jacobian_f32",

@@ -115,10 +115,3 @@ def test_svk_closed_form_matches_autodiff_and_vasp_tpu():
     assert _rel(S.numpy(), S_ad.numpy()) <= RTOL
     S_j = np.asarray(jax.vmap(lambda h: jkin.S_(h, SOLID))(jnp.asarray(H)))
     assert _rel(S.numpy(), S_j) <= RTOL
-
-
-def test_mooney_rivlin_not_ported_raises():
-    props = dict(SOLID, material_model="MooneyRivlin", C01=1.0, C10=1.0,
-                 C11=1.0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tkin.S_(torch.zeros(3, 3, dtype=torch.float64), props)

@@ -3,6 +3,8 @@ tiny tube (the same checks chip_smoke.py makes at full size). Tolerances,
 each with its reason:
 - float64 outputs: 1e-12 relative (the atomics' order varies, nothing
   else);
+- the Mooney-Rivlin solid (K2/K3 MR, at strains ~1e-2): the same rules
+  as the St.Venant-Kirchhoff one;
 - float32 element residuals (K1/K2 f32): as accurate as the plain
   version, ||R_kernel - R_plain|| <= 2 ||R_plain - R_f64|| + 1e-14
   ||R_f64||; both are float32 element work summed in float64, in other
@@ -311,3 +313,57 @@ def test_dg0_project_jacobian_kernel(system):
     dofs, Jinv, _, dN2, wq = cell_tables(sp, d.device, 2)
     jp = km.dg0_project_jacobian_plain(d, dofs, Jinv, dN2, wq)
     assert _rel(jk, jp) <= RTOL
+
+
+@pytest.fixture(scope="module")
+def mr_system(system):
+    """The tiny tube with a Mooney-Rivlin wall (predeform's constants, C10
+    made nonzero so that every term of S counts) and a displacement whose
+    strains are ~1e-2."""
+    sysm, U, U0 = system
+    props = dict(material_model="MooneyRivlin", rho_s=1e3, mu_s=3.45e5,
+                 lambda_s=3.1e6, C01=2e4, C10=5e4, C11=1.8e6, dx_s_id=2)
+    mr = FSISystem(sysm.mesh, dict(sysm.cfg, solid_properties=props))
+    sp = mr.space
+    rng = np.random.default_rng(31)
+    d = torch.as_tensor(1e-2 * sysm.mesh.hmin * rng.normal(size=3 * sp.n_p2),
+                        device="cuda")
+    U, U0 = U.clone(), U0.clone()
+    U[:3 * sp.n_p2] = d
+    U0[:3 * sp.n_p2] = 0.5 * d
+    return mr.assembler.blocks[1], U, U0
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["f64", "f32"])
+def test_mr_residual_kernel(mr_system, f32):
+    b, U, U0 = mr_system
+    dtype = torch.float32 if f32 else None
+    name = "solid_residual_mr" + ("_f32" if f32 else "")
+    n0 = build.LAUNCHES[name]
+    Rk = element.block_residual(b, U, U0, torch.zeros_like(U), dtype)
+    Rp = element.residual_plain(b, U, U0, torch.zeros_like(U), dtype)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 1
+    if not f32:
+        assert _rel(Rk, Rp) <= RTOL
+        return
+    R64 = element.residual_plain(b, U, U0, torch.zeros_like(U))
+    assert float((Rk - Rp).norm()) <= 2 * float((Rp - R64).norm()) \
+        + 1e-14 * float(R64.norm())
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float64, RTOL),
+                                    (torch.float32, 2e-7)],
+                         ids=["f64", "f32"])
+def test_mr_jacobian_kernel(mr_system, dt, tol):
+    b, U, U0 = mr_system
+    name = "solid_jacobian_mr" + ("_f32" if dt == torch.float32 else "")
+    n0 = build.LAUNCHES[name]
+    Ak = element.block_jacobian(b, U, U0, dt)
+    Ap = element.jacobian_plain(b, U, U0).to(dt)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 1
+    K = Ak.shape[0]
+    per_block = (Ak - Ap).double().reshape(K, -1).norm(dim=1) / \
+        Ap.double().reshape(K, -1).norm(dim=1)
+    assert float(per_block.max()) <= tol

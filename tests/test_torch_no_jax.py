@@ -30,6 +30,10 @@ SLICE = [
     "vasp_tpu_torch.mesh.markers", "vasp_tpu_torch.kernels.facet",
     "vasp_tpu_torch.models.waveform_data",
     "vasp_tpu_torch.models.offset_stenosis", "vasp_tpu_torch.models.aneurysm",
+    "vasp_tpu_torch.models.predeform", "vasp_tpu_torch.models.avf",
+    "vasp_tpu_torch.preprocessing", "vasp_tpu_torch.preprocessing.bifurcation",
+    "vasp_tpu_torch.postprocessing",
+    "vasp_tpu_torch.postprocessing.mesh_stages",
 ]
 
 

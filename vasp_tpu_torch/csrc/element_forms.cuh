@@ -2,9 +2,12 @@
 //
 // Replaces the element math of vasp_tpu/fem/forms.py: make_fluid_kernel
 // (ALE Navier-Stokes + continuity + Laplace lifting) and make_solid_kernel
-// with vasp_tpu/fem/kinematics.py (total-Lagrangian St.Venant-Kirchhoff +
-// kinematic row). The plain torch twin is vasp_tpu_torch/fem/forms.py; the
-// expressions below follow it term for term.
+// with vasp_tpu/fem/kinematics.py (total-Lagrangian St.Venant-Kirchhoff or
+// compressible Mooney-Rivlin + kinematic row). The plain torch twin is
+// vasp_tpu_torch/fem/forms.py with fem/kinematics.py; the expressions below
+// follow it term for term. vasp_tpu gets S from jax.grad of the strain
+// energy and its Jacobian from jax.jacfwd over that; here S is closed form
+// for both materials and K3 is forward mode (Dual) over it.
 //
 // T is the type of the local state u and of the result r, S = Real<T> the
 // type of everything else (u0, geometry, tables, parameters):
@@ -90,6 +93,12 @@ __device__ inline Dual operator/(double a, Dual b) {
 }
 __device__ inline Dual& operator+=(Dual& a, Dual b) { a = a + b; return a; }
 
+// log1p on each scalar type: float's own (the float instance must stay
+// free of float64 arithmetic), double's, and its derivative on a Dual
+__device__ inline float vt_log1p(float a) { return log1pf(a); }
+__device__ inline double vt_log1p(double a) { return log1p(a); }
+__device__ inline Dual vt_log1p(Dual a) { return Dual(log1p(a.v), a.d / (1.0 + a.v)); }
+
 // the type of everything a residual does not differentiate
 template <class T>
 struct RealOf { using type = T; };
@@ -110,9 +119,13 @@ struct FluidParams {
   int lift_sub;
 };
 
+// C01, C10, C11 and c0 = 2 C01 + 4 C10 serve the Mooney-Rivlin material
+// only. The material is a template parameter of the solid residual (kSVK,
+// kMooneyRivlin below), so each material is its own kernel instance.
 template <class S>
 struct SolidParams {
   S rho, mu, lam, dt, theta, one_m_theta, rho_dt, two_mu;
+  S C01, C10, C11, c0;
 };
 
 template <class S>
@@ -124,9 +137,11 @@ inline FluidParams<S> make_fluid_params(double rho, double mu, double dt, double
 
 template <class S>
 inline SolidParams<S> make_solid_params(double rho, double mu, double lam, double dt,
-                                        double theta) {
-  return SolidParams<S>{S(rho), S(mu), S(lam), S(dt), S(theta), S(1.0 - theta),
-                        S(rho / dt), S(2.0 * mu)};
+                                        double theta, double C01, double C10,
+                                        double C11) {
+  return SolidParams<S>{S(rho),       S(mu),         S(lam),      S(dt),
+                        S(theta),     S(1.0 - theta), S(rho / dt), S(2.0 * mu),
+                        S(C01),       S(C10),        S(C11),      S(2.0 * C01 + 4.0 * C10)};
 }
 
 // ------------------------------------------------------------ helpers --
@@ -312,25 +327,89 @@ __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
 }
 
 // ------------------------------------------------------------- solid --
-// St.Venant-Kirchhoff: E = (H + H^T + H^T H)/2 (cancellation-free),
-// S = lam tr(E) I + 2 mu E, P = (I + H) S.
+constexpr int kSVK = 0;
+constexpr int kMooneyRivlin = 1;
+
+// E = (H + H^T + H^T H)/2 (cancellation-free, exactly symmetric).
 template <class S, class V>
-__device__ inline void svk_piola1(const V H[3][3], const SolidParams<S>& P, V Pk[3][3]) {
-  const S zero = S(0), one = S(1), half = S(0.5);
-  V E[3][3];
+__device__ inline void green_lagrange(const V H[3][3], V E[3][3]) {
+  const S half = S(0.5);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       E[i][j] = half * (H[i][j] + H[j][i]
                         + (H[0][i] * H[0][j] + H[1][i] * H[1][j] + H[2][i] * H[2][j]));
+}
+
+// St.Venant-Kirchhoff: S = lam tr(E) I + 2 mu E.
+template <class S, class V>
+__device__ inline void svk_stress(const V E[3][3], const SolidParams<S>& P, V Sm[3][3]) {
   const V trE = E[0][0] + E[1][1] + E[2][2];
-  V Sm[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      Sm[i][j] = (i == j ? P.lam * trE : V(zero)) + P.two_mu * E[i][j];
+      Sm[i][j] = (i == j ? P.lam * trE : V(S(0))) + P.two_mu * E[i][j];
+}
+
+// Compressible Mooney-Rivlin, S = dW/dE in closed form (the derivation and
+// the folding of the constant terms: fem/kinematics.py S_mooney_rivlin):
+//   q = (tr E)^2 - tr E^2, x = 2 tr E + 2 q + 8 det E, lnJ = log1p(x)/2,
+//   h = (c0 - lam lnJ) / (1 + x),
+//   a = 4 C10 tr E + C11 (2 dI2 + dI1 (4 + 4 tr E))
+//       + (c0 (2 q + 8 det E) + lam lnJ (1 + 2 tr E)) / (1 + x),
+//   S = a I + (-4 C10 - 4 C11 dI1 + 2 h) E - 4 h cof(E).
+// No O(1) term is left to cancel, so the float instance is as precise
+// relative to |S| as E is; cof(E) is symmetric for symmetric E, so S is
+// too, and the symmetrization vasp_tpu applies to its gradient is exact.
+template <class S, class V>
+__device__ inline void mr_stress(const V E[3][3], const SolidParams<S>& P, V Sm[3][3]) {
+  const S one = S(1), two = S(2), four = S(4), eight = S(8);
+  const V trE = E[0][0] + E[1][1] + E[2][2];
+  V trE2 = V(S(0));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) trE2 += E[i][j] * E[j][i];
+  const V q = trE * trE - trE2;
+  const V detE = det3(E);
+  const V x = two * trE + two * q + eight * detE;
+  const V lnJ = S(0.5) * vt_log1p(x);
+  const V dI1 = two * trE;
+  const V dI2 = four * trE + two * q;
+  const V inv = one / (one + x);
+  const V h = (P.c0 - P.lam * lnJ) * inv;
+  const V a = four * P.C10 * trE + P.C11 * (two * dI2 + dI1 * (four + four * trE))
+            + (P.c0 * (two * q + eight * detE) + P.lam * lnJ * (one + two * trE)) * inv;
+  const V b = -four * P.C10 - four * P.C11 * dI1 + two * h;
+  const V g = -four * h;
+  V cof[3][3];
+  cof[0][0] = E[1][1] * E[2][2] - E[1][2] * E[2][1];
+  cof[0][1] = E[0][2] * E[2][1] - E[0][1] * E[2][2];
+  cof[0][2] = E[0][1] * E[1][2] - E[0][2] * E[1][1];
+  cof[1][1] = E[0][0] * E[2][2] - E[0][2] * E[2][0];
+  cof[1][2] = E[0][2] * E[1][0] - E[0][0] * E[1][2];
+  cof[2][2] = E[0][0] * E[1][1] - E[0][1] * E[1][0];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i; j < 3; ++j) {
+      Sm[i][j] = (i == j ? a : V(S(0))) + b * E[i][j] + g * cof[i][j];
+      if (j != i) Sm[j][i] = Sm[i][j];
+    }
+}
+
+// P = (I + H) S, S of the material MAT.
+template <int MAT, class S, class V>
+__device__ inline void piola1(const V H[3][3], const SolidParams<S>& P, V Pk[3][3]) {
+  const S zero = S(0), one = S(1);
+  V E[3][3], Sm[3][3];
+  green_lagrange<S>(H, E);
+  if constexpr (MAT == kMooneyRivlin)
+    mr_stress(E, P, Sm);
+  else
+    svk_stress(E, P, Sm);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -340,10 +419,10 @@ __device__ inline void svk_piola1(const V H[3][3], const SolidParams<S>& P, V Pk
                + (H[i][2] + (i == 2 ? one : zero)) * Sm[2][j];
 }
 
-template <class T>
-__device__ void solid_svk_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
-                                   Real<T> detJ, Real<T> vol, const SolidParams<Real<T>>& P,
-                                   int nq, T* r) {
+template <int MAT, class T>
+__device__ void solid_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
+                               Real<T> detJ, Real<T> vol, const SolidParams<Real<T>>& P,
+                               int nq, T* r) {
   using S = Real<T>;
   (void)vol;
   const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho;
@@ -366,8 +445,8 @@ __device__ void solid_svk_residual(const T* u, const Real<T>* u0, const Real<T>*
     S gd0[3][3], Po[3][3];
     p2_grad(u, G, gd);
     p2_grad(u0, G, gd0);
-    svk_piola1(gd, P, Pn);
-    svk_piola1(gd0, P, Po);
+    piola1<MAT>(gd, P, Pn);
+    piola1<MAT>(gd0, P, Po);
 
     T mom_val[3], kin[3];
 #pragma unroll

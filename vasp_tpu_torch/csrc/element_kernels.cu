@@ -1,5 +1,6 @@
 // K1/K2 (element residual + scatter, float64 and float32 element work) and
-// K3 (element Jacobians) on Hopper.
+// K3 (element Jacobians) on Hopper; the solid in St.Venant-Kirchhoff or
+// Mooney-Rivlin, one kernel instance per material.
 //
 // Replaces vasp_tpu/fem/assembly.py: CellBlock.residual_local with
 // Assembler.residual (vmapped make_fluid_kernel / make_solid_kernel, then
@@ -38,11 +39,23 @@ __device__ inline void eval_cell(const FluidParams<Real<T>>& P, const T* u,
   fluid_residual(u, u0, Jinv, detJ, vol, P, nq, r);
 }
 
-template <class T>
-__device__ inline void eval_cell(const SolidParams<Real<T>>& P, const T* u,
+// a solid cell of material MAT (kSVK or kMooneyRivlin)
+template <class S, int MAT>
+struct SolidCell {
+  SolidParams<S> p;
+};
+
+template <class T, int MAT>
+__device__ inline void eval_cell(const SolidCell<Real<T>, MAT>& C, const T* u,
                                  const Real<T>* u0, const Real<T>* Jinv, Real<T> detJ,
                                  Real<T> vol, int nq, T* r) {
-  solid_svk_residual(u, u0, Jinv, detJ, vol, P, nq, r);
+  solid_residual<MAT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
+}
+
+template <class S, int MAT>
+inline SolidCell<S, MAT> solid_cell(double rho, double mu, double lam, double dt,
+                                    double theta, double C01, double C10, double C11) {
+  return SolidCell<S, MAT>{make_solid_params<S>(rho, mu, lam, dt, theta, C01, C10, C11)};
 }
 
 constexpr int kResidualThreads = 64;
@@ -192,18 +205,23 @@ int vt_fluid_residual(const double* U, const double* U0, const int64_t* dofs,
       make_fluid_params<double>(rho, mu, dt, theta, lift_coeff, lift_sub), stream);
 }
 
+// material: 0 St.Venant-Kirchhoff, 1 Mooney-Rivlin (C01, C10, C11 read
+// by it only); any other value is refused.
 int vt_solid_residual(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
                       const double* rowmask, double* R, int f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
+                      int material, double C01, double C10, double C11,
                       void* stream) {
-  if (f32)
-    return launch_residual<float>(
-        U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
-        make_solid_params<float>(rho, mu, lam, dt, theta), stream);
-  return launch_residual<double>(
-      U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
-      make_solid_params<double>(rho, mu, lam, dt, theta), stream);
+#define VT_SOLID(S, MAT)                                                      \
+  launch_residual<S>(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,         \
+                     solid_cell<S, MAT>(rho, mu, lam, dt, theta, C01, C10, C11), \
+                     stream)
+  if (material == kSVK) return f32 ? VT_SOLID(float, kSVK) : VT_SOLID(double, kSVK);
+  if (material == kMooneyRivlin)
+    return f32 ? VT_SOLID(float, kMooneyRivlin) : VT_SOLID(double, kMooneyRivlin);
+#undef VT_SOLID
+  return (int)cudaErrorInvalidValue;
 }
 
 // A (K,64,64) is float32 when out_f32 is nonzero, else float64.
@@ -222,9 +240,19 @@ int vt_solid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
                       const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
+                      int material, double C01, double C10, double C11,
                       void* stream) {
-  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
-                         make_solid_params<double>(rho, mu, lam, dt, theta), stream);
+  if (material == kSVK)
+    return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
+                           solid_cell<double, kSVK>(rho, mu, lam, dt, theta, C01,
+                                                    C10, C11),
+                           stream);
+  if (material == kMooneyRivlin)
+    return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
+                           solid_cell<double, kMooneyRivlin>(rho, mu, lam, dt, theta,
+                                                             C01, C10, C11),
+                           stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

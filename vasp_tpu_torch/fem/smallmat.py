@@ -15,10 +15,8 @@ def det3(A):
     )
 
 
-def inv3(A, det=None):
-    """Inverse of (..., 3, 3) via adjugate."""
-    if det is None:
-        det = det3(A)
+def adj3(A):
+    """Adjugate of (..., 3, 3): the transposed cofactor matrix."""
     c00 = A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1]
     c01 = A[..., 0, 2] * A[..., 2, 1] - A[..., 0, 1] * A[..., 2, 2]
     c02 = A[..., 0, 1] * A[..., 1, 2] - A[..., 0, 2] * A[..., 1, 1]
@@ -28,7 +26,7 @@ def inv3(A, det=None):
     c20 = A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]
     c21 = A[..., 0, 1] * A[..., 2, 0] - A[..., 0, 0] * A[..., 2, 1]
     c22 = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
-    adj = torch.stack(
+    return torch.stack(
         [
             torch.stack([c00, c01, c02], dim=-1),
             torch.stack([c10, c11, c12], dim=-1),
@@ -36,4 +34,10 @@ def inv3(A, det=None):
         ],
         dim=-2,
     )
-    return adj / det[..., None, None]
+
+
+def inv3(A, det=None):
+    """Inverse of (..., 3, 3) via adjugate."""
+    if det is None:
+        det = det3(A)
+    return adj3(A) / det[..., None, None]

@@ -29,12 +29,15 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 # one count per kernel (per local size for K4 and K7: the _36 instances
-# serve the Robin facet blocks), bumped by its wrapper right where it
-# launches
+# serve the Robin facet blocks; per material for the solid's K2/K3: the
+# _mr instances are the Mooney-Rivlin ones), bumped by its wrapper right
+# where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
-     "fluid_jacobian_f32", "solid_jacobian_f32", "dg0_project_speed",
+     "fluid_jacobian_f32", "solid_jacobian_f32", "solid_residual_mr",
+     "solid_residual_mr_f32", "solid_jacobian_mr", "solid_jacobian_mr_f32",
+     "dg0_project_speed",
      "integrate_p2_dot_n", "dg0_project_jacobian", "elem_matvec",
      "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply",
      "banded_factorize_f64", "robin_residual", "robin_residual_f32",
@@ -109,8 +112,10 @@ def _bind(lib):
         "vt_set_element_tables": [P, P, P, P, I],
         "vt_fluid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
         "vt_fluid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
-        "vt_solid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, P],
-        "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, P],
+        "vt_solid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, D, D, D,
+                                         P],
+        "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, D, D, D,
+                                         P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
         "vt_dg0_project_jacobian": [P] * 5 + [I, P, I, P],

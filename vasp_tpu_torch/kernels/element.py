@@ -77,11 +77,16 @@ def jacobian_plain(block, U, U0, chunk=256):
 
 
 # ------------------------------------------------------------- cuda ----
+# the solid materials of the CUDA kernels: C entry point code, counter tag
+_MATERIALS = {"StVenantKirchoff": (0, ""), "LinearElastic": (0, ""),
+              "MooneyRivlin": (1, "_mr")}
+
+
 def cuda_params(kernel):
     """The kernel's scalar parameters in the C entry point's order; raises
     NotImplementedError for a configuration the CUDA kernels do not cover
-    (they cover Laplace lifting of every sub-type, p_stab=0, no gravity and
-    St.Venant-Kirchhoff)."""
+    (they cover Laplace lifting of every sub-type, p_stab=0, and the solid
+    without gravity in St.Venant-Kirchhoff or Mooney-Rivlin)."""
     if kernel.kind == "fluid":
         if kernel.lift != "laplace" or kernel.lift_sub not in _LIFT_SUB \
                 or kernel.p_stab:
@@ -93,14 +98,27 @@ def cuda_params(kernel):
         return (kernel.rho_f, kernel.mu_f, kernel.dt, kernel.theta,
                 kernel.lift_coeff, _LIFT_SUB[kernel.lift_sub])
     model = kernel.props.get("material_model", "StVenantKirchoff")
-    if model not in ("StVenantKirchoff", "LinearElastic") \
-            or np.any(kernel.gravity != 0.0):
+    if model not in _MATERIALS or np.any(kernel.gravity != 0.0):
         raise NotImplementedError(
-            f"CUDA solid kernel covers St.Venant-Kirchhoff without gravity; "
-            f"got {model!r}, gravity={kernel.gravity.tolist()} "
+            f"CUDA solid kernel covers {sorted(_MATERIALS)} without "
+            f"gravity; got {model!r}, gravity={kernel.gravity.tolist()} "
             f"(ROADMAP.md queue 1, item 10)")
+    mr = _MATERIALS[model][0] == 1
+    # SVK has no C01, C10, C11; the kernel does not read them
+    consts = tuple(float(kernel.props[k]) if mr else 0.0
+                   for k in ("C01", "C10", "C11"))
     return (kernel.rho_s, float(kernel.props["mu_s"]),
-            float(kernel.props["lambda_s"]), kernel.dt, kernel.theta)
+            float(kernel.props["lambda_s"]), kernel.dt, kernel.theta,
+            _MATERIALS[model][0], *consts)
+
+
+def counter_name(block, op, f32):
+    """The launch counter of the block's kernel: fluid_/solid_ + op, the
+    solid's material tag, then _f32 for the float32 instance."""
+    kern = block.kernel
+    tag = "" if kern.kind == "fluid" else _MATERIALS[
+        kern.props.get("material_model", "StVenantKirchoff")][1]
+    return f"{kern.kind}_{op}{tag}" + ("_f32" if f32 else "")
 
 
 def _prepare(block, U, U0):
@@ -150,9 +168,10 @@ def residual_cuda(block, U, U0, R, dtype=None):
     fn = lib.vt_fluid_residual if kind == "fluid" else lib.vt_solid_residual
     args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
                                    block.vol, block.rowmask, R)]
-    name = f"{kind}_residual" + ("_f32" if f32 else "")
-    build.check(fn(*args, int(f32), block.dofs.shape[0], nq,
-                   *cuda_params(block.kernel), stream), name)
+    params = cuda_params(block.kernel)
+    name = counter_name(block, "residual", f32)
+    build.check(fn(*args, int(f32), block.dofs.shape[0], nq, *params,
+                   stream), name)
     build.LAUNCHES[name] += 1
     return R
 
@@ -170,9 +189,9 @@ def jacobian_cuda(block, U, U0, dtype=torch.float64):
     fn = lib.vt_fluid_jacobian if kind == "fluid" else lib.vt_solid_jacobian
     args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
                                    block.vol, block.rowmask, A)]
-    name = f"{kind}_jacobian" + ("_f32" if f32 else "")
-    build.check(fn(*args, int(f32), K, nq, *cuda_params(block.kernel),
-                   stream), name)
+    params = cuda_params(block.kernel)
+    name = counter_name(block, "jacobian", f32)
+    build.check(fn(*args, int(f32), K, nq, *params, stream), name)
     build.LAUNCHES[name] += 1
     return A
 

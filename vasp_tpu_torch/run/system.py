@@ -4,8 +4,10 @@ Counterpart of vasp_tpu.run.system (turtleFSI's internal setup: mixed
 space, fluid / solid / extrapolation forms, Robin BC), driven by the same
 configuration vocabulary the reference's problem files use
 (SURVEY.md §2.3): dx_f_id / mu_f lists for multi-viscosity zones
-(reference: src/vasp/simulations/offset_stenosis.py:59-61) and
-robin_bc/k_s/c_s/ds_s_id (reference: src/vasp/simulations/aneurysm.py:73-76).
+(reference: src/vasp/simulations/offset_stenosis.py:59-61), solid_properties
+dicts per solid subdomain, St.Venant-Kirchhoff or Mooney-Rivlin
+(reference: src/vasp/simulations/avf.py:76-80), and robin_bc/k_s/c_s/ds_s_id
+(reference: src/vasp/simulations/aneurysm.py:73-76).
 Blocks are built on the device named by the config key ``device``
 (default "cuda").
 
@@ -15,9 +17,8 @@ from the same keys and defaults as vasp_tpu's make_solver; any other value
 ("mumps", "lu") the host-LU Newton solver (fem/solver.py).
 
 Not ported yet, and refused with the ROADMAP item that will port them:
-biharmonic lifting and the Mooney-Rivlin solid (queue 1, item 10) and
-n_devices > 1 (item 13); fem/timestepper.py refuses the iterative options
-it does not cover.
+biharmonic lifting (queue 1, item 10) and n_devices > 1 (item 13);
+fem/timestepper.py refuses the iterative options it does not cover.
 """
 import dataclasses
 
@@ -47,7 +48,6 @@ from vasp_tpu_torch.fem.timestepper import (
 )
 
 _SINGLE_DEVICE = (None, "None", "", 0, 1, "1")
-_SOLID_MODELS = ("StVenantKirchoff", "LinearElastic")
 
 
 def normalize_fluid_properties(cfg):
@@ -129,10 +129,6 @@ class FSISystem:
         blocks = []
         self.fluid_props = normalize_fluid_properties(cfg)
         self.solid_props = normalize_solid_properties(cfg)
-        for sp in self.solid_props:
-            model = sp.get("material_model", "StVenantKirchoff")
-            if model not in _SOLID_MODELS:
-                _not_ported(f"material_model={model!r}", 10)
 
         dofs_mixed = space.cell_dofs_mixed
         # d-dofs that carry the solid KINEMATIC equation (d-dot = v): every
