@@ -127,7 +127,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    cells (generated_mesh_params n_theta=16, n_r_fluid=3, n_r_solid=1,
    n_z=62) on the bench configuration, 5 steps of dt=1e-3; the checks and
    lines of phase 5, every step's minimum Jacobian positive, and the last
-   step's probe and minimum-Jacobian lines.
+   step's probe and minimum-Jacobian lines. The stenosis runs through a
+   problem file whose post_solve keeps each step's state on the card for
+   phase 10 (no second run, no HDF5).
 9. The Mooney-Rivlin models, counters reset just before each run and read
    just after, the checks and lines of phase 5:
    - -p predeform at 20,832 cells on the bench configuration with the
@@ -155,8 +157,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      2e-4-1.2e-3 s; its own 0.2 s ramps leave 5 steps at rest); every
      step's minimum Jacobian positive, the last step's probe and
      minimum-Jacobian lines.
+   The chain's problem file keeps each step's state, as phase 8's does.
+10. Postprocessing (K20a-c), counters reset just before the card's pass
+   and read just after: phase 8's stenosis series (St.Venant-Kirchhoff)
+   and phase 9's chain series (Mooney-Rivlin) postprocessed in memory
+   through the port's functions (the hemodynamic indices and WSS series,
+   the stress/strain fields with their largest eigenvalues, the band-pass
+   strain amplitudes, the PSD and spectrogram of |v| at up to 10,000 fluid
+   nodes), on the card and on the CPU: every output within 1e-12 of its
+   scale; within 1e-10 the eigenvalues and the band-pass amplitudes (acos
+   near r = +-1 turns a rounding change of r into ~1e-8 of p) and OSI,
+   RRT and ECAP (the mean WSS vector cancels over a reversing series, and
+   RRT is its inverse); every K20 kernel launched. Then each K20 kernel
+   against its plain version at production shapes, timed: K20a on a
+   seeded 951-step velocity series (-p offset_stenosis's T = 0.951 s at
+   dt = 1e-3) at the stenosis tube, with the host part (the loads' copy
+   and the boundary-mass splu solves) timed apart; K20b in SVK at that
+   tube and in Mooney-Rivlin at the chain's, on seeded 951-step
+   displacements; its eigenvalue entry on the (23,808 points, 951 steps)
+   strain tensors; K20c on a 10,000 x 951 spectrogram at the CLIs'
+   windowing (NFFT 256, nfft 512, 11 frames; cuFFT's rfft of the frames
+   timed beside it) and the PSD as a variant.
 
-Phases 3-9 run with HDF5 output off (save_step=0, checkpoint_step=0),
+Phases 3-10 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -337,6 +360,24 @@ REPLACES = {
     "solid_jacobian_mr_f32": (CSRC + "element_kernels.cu",
                               "vasp_tpu/fem/assembly.py:92 (MooneyRivlin)",
                               "predeform"),
+    "wss_load": (CSRC + "postproc.cu",
+                 "vasp_tpu/postprocessing/fields/hemodynamics.py:143",
+                 "postproc"),
+    "stress_strain_svk": (CSRC + "postproc.cu",
+                          "vasp_tpu/postprocessing/fields/stress_strain.py"
+                          ":166 with :112 and vasp_tpu/fem/kinematics.py:133",
+                          "postproc"),
+    "stress_strain_mr": (CSRC + "postproc.cu",
+                         "vasp_tpu/postprocessing/fields/stress_strain.py"
+                         ":166 with :112 and vasp_tpu/fem/kinematics.py:133 "
+                         "(MooneyRivlin)", "postproc"),
+    "max_eig": (CSRC + "postproc.cu",
+                "vasp_tpu/fem/kinematics.py:133 via "
+                "vasp_tpu/postprocessing/spectral/hi_pass_viz.py:205",
+                "postproc"),
+    "spectral_power": (CSRC + "postproc.cu",
+                       "vasp_tpu/postprocessing/spectral/core.py:34 and :57",
+                       "postproc"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
@@ -369,6 +410,8 @@ PATHS = {
     "predeform": _MR_F32F,
     "chain": _MR_F32F,
     "avf": _MR_F32F | {"dg0_project_jacobian"},
+    "postproc": {"wss_load", "stress_strain_svk", "stress_strain_mr",
+                 "max_eig", "spectral_power"},
 }
 
 
@@ -1556,21 +1599,37 @@ def phase_models(tmp, records):
     import torch
 
     out = {}
+    stenosis_file = tmp / "stenosis_series.py"
+    stenosis_file.write_text(STENOSIS_PROBLEM.format())
     for label, problem, extra in (
             ("stenosis", "offset_stenosis",
              dict(fsi_region=[0.0, 0.0, 0.012, 0.01])),
             ("aneurysm", "aneurysm", {})):
         print(f"[8] {problem}, bench configuration, 20,832 cells:")
-        ns, launches = run_main_path(tmp, label, MODEL_MESH, problem=problem,
-                                     **BENCH_CFG, **extra)
+        ns, launches = run_main_path(
+            tmp, label, MODEL_MESH, problem=str(stenosis_file)
+            if label == "stenosis" else problem, **BENCH_CFG, **extra)
         k5 = report_stepper(ns["solver"].stepper, records)
         report_model_lines(ns, problem, 5)
         profile_one_step(ns)
         out[label] = (launches, k5)
+        if label == "stenosis":
+            out["series_stenosis"] = kept_series(ns)
         del ns
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def kept_series(ns):
+    """What phase 10 postprocesses of a run: its mesh, space, flat config
+    and the (t, U) per step its problem file's post_solve kept."""
+    require(len(ns["series"]) == ns["counter"],
+            "the problem file kept no state of a step")
+    keep = ("mesh", "space", "series", "dt", "mu_f", "dx_f_id", "dx_s_id",
+            "solid_properties", "material_model", "mu_s", "lambda_s", "C01",
+            "C10", "C11", "rho_s")
+    return {k: ns[k] for k in keep if k in ns}
 
 
 def report_model_lines(ns, problem, steps):
@@ -1588,16 +1647,33 @@ def report_model_lines(ns, problem, steps):
             print(f"    last step: {line}")
 
 
+# the post_solve of a problem file that keeps each step's state on the card
+# (the series phase 10 postprocesses in memory: no second run, no h5py)
+SERIES_HOOK = '''
+
+def post_solve(dvp_, t, **namespace):
+    """The model's post_solve, then the step's (t, U) kept on the card."""
+    _post_solve(dvp_=dvp_, t=t, **namespace)
+    return {{"series": namespace.get("series", []) + [(t, dvp_["n"].clone())]}}
+'''
+# a problem file: -p offset_stenosis, its series kept (phases 8 and 10)
+STENOSIS_PROBLEM = '''"""-p offset_stenosis, its per-step state kept (chip_smoke.py phase 8)."""
+from vasp_tpu_torch.models.offset_stenosis import (  # noqa: F401
+    create_bcs, get_mesh_domain_and_boundaries, initiate, pre_solve,
+    set_problem_parameters)
+from vasp_tpu_torch.models.offset_stenosis import post_solve as _post_solve
+''' + SERIES_HOOK
 # a problem file: -p predeform's hooks on a mesh saved with numpy (the card's
 # machine has no h5py), restricted to the FSI sphere as predeform's own
-# hook restricts a mesh file
+# hook restricts a mesh file; its series kept (phase 10's Mooney-Rivlin wall)
 CHAIN_PROBLEM = '''"""-p predeform on the predeformed mesh {npz} (chip_smoke.py phase 9)."""
 import numpy as np
 
 from vasp_tpu_torch.mesh.markers import restrict_fsi_to_sphere
 from vasp_tpu_torch.mesh.tetmesh import TetMesh
 from vasp_tpu_torch.models.predeform import (  # noqa: F401
-    create_bcs, post_solve, pre_solve, set_problem_parameters)
+    create_bcs, pre_solve, set_problem_parameters)
+from vasp_tpu_torch.models.predeform import post_solve as _post_solve
 
 
 def get_mesh_domain_and_boundaries(fsi_region, fsi_id, rigid_id,
@@ -1607,7 +1683,7 @@ def get_mesh_domain_and_boundaries(fsi_region, fsi_id, rigid_id,
                    m["facet_markers"])
     return restrict_fsi_to_sphere(mesh, fsi_id, outer_wall_id, rigid_id,
                                   fsi_region)
-'''
+''' + SERIES_HOOK
 
 
 def _wall_radial(ns):
@@ -1673,6 +1749,7 @@ def phase_predeform(tmp, records):
         tmp, "chain", MODEL_MESH, problem=str(problem), T=0.05, dt=0.01,
         floor=PREDEFORM_FLOOR, **PREDEFORM_CFG)
     out["k5_chain"] = report_stepper(ns2["solver"].stepper, records)
+    out["series_chain"] = kept_series(ns2)
     require(np.array_equal(ns2["mesh"].coords, coords),
             "chain: the run did not take the predeformed mesh")
     jmin = compute_minimum_jacobian(
@@ -1756,6 +1833,312 @@ def profile_one_step(ns):
               f"{e.key[:90]}")
 
 
+# phase 10: the K20 kernels at the shapes of a production postprocessing
+# pass: a 951-step series (-p offset_stenosis: T = 0.951 s at dt = 1e-3,
+# save_step = 1) at the 20,832-cell tubes, and a spectrogram of 10,000
+# sampled nodes (the spectral CLIs' --n-samples default) at
+# num_windows_per_sec = 4, the CLIs' default (n_window = round(4 T) + 3)
+POST_STEPS = 951
+POST_NODES = 10000
+POST_WINDOWS_PER_SEC = 4.0
+POST_LOWCUT = 25.0  # the CLIs' --lowcut default
+# K20 tolerances against the plain versions and against the CPU path:
+# float64 with atomics in another order (1e-12 of the output's scale); the
+# Cardano eigenvalues 1e-10 of theirs (acos near r = +-1 turns a rounding
+# change of r into ~1e-8 of p), and so OSI, RRT and ECAP (the mean WSS
+# vector cancels over a reversing series; RRT is its inverse)
+TOL_POST = 1e-12
+TOL_EIG = 1e-10
+
+
+def _scale_err(a, b):
+    """(max |a - b| over the scale max |b|, max |a - b|)."""
+    import torch
+
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    mx = float((a - b).abs().max())
+    return mx / max(float(b.abs().max()), 1e-300), mx
+
+
+def _post_inputs(run, device):
+    """(times, v, d (T, n_p2, 3) float64 on `device`) of a kept run."""
+    import torch
+
+    n2 = run["space"].n_p2
+    U = torch.stack([u for _, u in run["series"]]).to(device)
+    T = U.shape[0]
+    return ([t for t, _ in run["series"]],
+            U[:, 3 * n2:6 * n2].reshape(T, n2, 3).contiguous(),
+            U[:, :3 * n2].reshape(T, n2, 3).contiguous())
+
+
+def _postproc_pass(run, device):
+    """The in-memory postprocessing of a kept run on `device`, through the
+    port's own functions: the hemodynamic indices and the WSS series
+    (fields/hemodynamics.py), the stress/strain fields with their largest
+    eigenvalues (fields/stress_strain.py), the band-pass amplitudes of the
+    strain (spectral/hi_pass_viz.strain_amplitudes), and the PSD and the
+    spectrogram of |v| at up to POST_NODES fluid nodes (spectral/core.py;
+    n_window = 2, the least that gives frames on a 5-step series)."""
+    import numpy as np
+
+    from vasp_tpu_torch.postprocessing.fields.hemodynamics import (
+        FluidBoundaryTables, hemodynamic_indices)
+    from vasp_tpu_torch.postprocessing.fields.stress_strain import (
+        SolidVertexTables, _normalize_solid_props)
+    from vasp_tpu_torch.postprocessing.spectral import core as spec
+    from vasp_tpu_torch.postprocessing.spectral.hi_pass_viz import (
+        strain_amplitudes)
+    from vasp_tpu_torch.postprocessing.spectral.transform import (
+        _TENSOR_SLOTS)
+
+    mesh, space = run["mesh"], run["space"]
+    times, v, d = _post_inputs(run, device)
+    T, fs = len(times), 1.0 / float(run["dt"])
+    mu_f = run["mu_f"][0] if isinstance(run["mu_f"], (list, tuple)) \
+        else run["mu_f"]
+    tables = FluidBoundaryTables(mesh, run["dx_f_id"])
+    idx, tau = hemodynamic_indices(tables, v, space.cell_dofs_p2, mu_f,
+                                   times, device=device)
+    solid = SolidVertexTables(mesh, space, _normalize_solid_props(run))
+    sig, eps, mps, mpe = (a.cpu().numpy() for a in solid.fields(
+        d, solid.device_tables(device)))
+    comps = {c: eps[..., k // 3, k % 3].reshape(T, -1).T
+             for c, k in _TENSOR_SLOTS.items()}
+    _, amp = strain_amplitudes(comps, fs, POST_LOWCUT, 1e5, None, T, device)
+    fluid = mesh.domain_vertices(np.atleast_1d(run["dx_f_id"]))
+    rows = np.sort(np.random.default_rng(0).choice(
+        fluid, size=min(POST_NODES, len(fluid)), replace=False))
+    speed = np.linalg.norm(v.cpu().numpy()[:, rows], axis=2).T  # (n, T)
+    psd, _ = spec.get_psd(speed, fs, device=device)
+    sgram, _, _ = spec.get_spectrogram(speed, fs, 2, device=device)
+    return dict(tau=tau, sig=sig, eps=eps, mps=mps, mpe=mpe, amp=amp,
+                psd=psd, spectrogram=sgram, **idx)
+
+
+def _seeded(shape, scale, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return scale * torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.float64)
+
+
+def _touched_bytes(dofs, steps):
+    """Bytes of the P2 rows (3 float64) a gather of `dofs` reads over
+    `steps` steps, each row counted once per step."""
+    return int(len(set(dofs.reshape(-1).tolist()))) * 3 * 8 * steps
+
+
+def _time_wss(records, run):
+    """K20a against its plain version on a seeded POST_STEPS-step velocity
+    series at the run's mesh; the host part of the pass (the loads'
+    device-to-host copy and the boundary-mass splu solves) timed apart."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.kernels import postproc
+    from vasp_tpu_torch.postprocessing.fields.hemodynamics import (
+        FluidBoundaryTables)
+
+    space = run["space"]
+    tables = FluidBoundaryTables(run["mesh"], run["dx_f_id"])
+    tab = tables.device_tables(space.cell_dofs_p2, torch.device("cuda"))
+    nb, mu = len(tables.bnodes), 3.5e-3
+    u = _seeded((POST_STEPS, space.n_p2, 3), 1.0, 100)
+    out = postproc.wss_load_cuda(u, *tab, nb, mu)
+    plain = postproc.wss_load_plain(u, *tab, nb, mu)
+    err = _scale_err(out, plain)
+    del plain
+    ms = cuda_ms(lambda: postproc.wss_load_cuda(u, *tab, nb, mu), 5)
+    plain_ms = cuda_ms(lambda: postproc.wss_load_plain(u, *tab, nb, mu), 2)
+    tic = time.perf_counter()
+    loads = out.cpu().numpy()
+    copy_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    np.stack([tables._mass_lu.solve(b) for b in loads])
+    solve_s = time.perf_counter() - tic
+    ops = count_ops(lambda: postproc.wss_load_plain(u[:1], *tab, nb, mu))
+    work = (_touched_bytes(tab[0].cpu().numpy(), POST_STEPS)
+            + nbytes(*tab) + nbytes(out), ops * POST_STEPS, "f64")
+    K = tab[0].shape[0]
+    records.add("wss_load", err, ms, plain_ms, work, TOL_POST,
+                f"T={POST_STEPS} K={K}", host_copy_ms=copy_s * 1e3,
+                host_splu_ms=solve_s * 1e3, n_bnodes=nb)
+    print(f"    K20a host part: device-to-host copy {copy_s * 1e3:.3f} ms, "
+          f"{POST_STEPS} splu solves ({nb} boundary nodes) "
+          f"{solve_s * 1e3:.3f} ms")
+
+
+def _time_stress(records, run, name):
+    """K20b (the run's material) against its plain version on a seeded
+    POST_STEPS-step displacement series at the run's mesh (strains
+    ~1e-3-1e-2)."""
+    import torch
+
+    from vasp_tpu_torch.kernels import postproc
+    from vasp_tpu_torch.postprocessing.fields.stress_strain import (
+        SolidVertexTables, _normalize_solid_props)
+
+    space = run["space"]
+    solid = SolidVertexTables(run["mesh"], space, _normalize_solid_props(run))
+    dofs, G = solid.device_tables(torch.device("cuda"))
+    d = _seeded((POST_STEPS, space.n_p2, 3), 1e-6, 101)
+    args = (d, dofs, G, solid.segments)
+    got = postproc.stress_strain_cuda(*args)
+    want = postproc.stress_strain_plain(*args)
+    errs = [_scale_err(g, w) for g, w in zip(got, want)]
+    for label, (rel, _), tol in zip(("sigma", "E", "max eig sigma",
+                                     "max eig E"), errs,
+                                    (TOL_POST, TOL_POST, TOL_EIG, TOL_EIG)):
+        require(rel <= tol, f"{name}: {label} {rel:.3e} > {tol:.0e}")
+    del want
+    ms = cuda_ms(lambda: postproc.stress_strain_cuda(*args), 3)
+    plain_ms = cuda_ms(lambda: postproc.stress_strain_plain(*args), 1)
+    ops = count_ops(lambda: postproc.stress_strain_plain(
+        d[:1], dofs, G, solid.segments))
+    work = (_touched_bytes(dofs.cpu().numpy(), POST_STEPS)
+            + nbytes(dofs, G, *got), ops * POST_STEPS, "f64")
+    err = (max(e[0] for e in errs), max(e[1] for e in errs))
+    records.add(name, err, ms, plain_ms, work, TOL_EIG,
+                f"T={POST_STEPS} K={dofs.shape[0]}x4")
+    return got[1]
+
+
+def _time_max_eig(records, eps):
+    """K20b's eigenvalue entry against get_eig on (points, steps, 3, 3)
+    amplitude-shaped tensors: the stress pass's POST_STEPS strain tensors
+    of every solid (cell, vertex), hi_pass_viz's strain shape."""
+    import torch
+
+    from vasp_tpu_torch.fem.kinematics import get_eig
+    from vasp_tpu_torch.kernels import postproc
+
+    A = eps.abs().permute(1, 2, 0, 3, 4).reshape(-1, POST_STEPS, 3, 3)
+    A = A.contiguous()
+    err = _scale_err(postproc.max_eig_cuda(A), get_eig(A))
+    ms = cuda_ms(lambda: postproc.max_eig_cuda(A), 3)
+    plain_ms = cuda_ms(lambda: get_eig(A), 1)
+    ops = count_ops(lambda: get_eig(A[:1]))
+    work = (nbytes(A) + A[..., 0, 0].numel() * 8, ops * A.shape[0], "f64")
+    records.add("max_eig", err, ms, plain_ms, work, TOL_EIG,
+                f"{A.shape[0]}x{POST_STEPS}")
+
+
+def _time_spectral(records):
+    """K20c against its plain version on the spectrogram of a seeded
+    POST_NODES x POST_STEPS series with the CLIs' windowing (NFFT 256,
+    nfft 512, 11 frames), cuFFT's rfft of the same frames beside it; the
+    PSD (one frame of all POST_STEPS samples) as a variant."""
+    import numpy as np
+    import torch
+    from scipy.signal import get_window
+
+    from vasp_tpu_torch.kernels import postproc
+    from vasp_tpu_torch.postprocessing.spectral import core as spec
+
+    x = _seeded((POST_NODES, POST_STEPS), 1.0, 102)
+    n_window = round(POST_WINDOWS_PER_SEC * POST_STEPS * 1e-3) + 3
+    NFFT = spec.shift_bit_length(int(POST_STEPS / n_window))
+    step = NFFT - int(0.75 * NFFT)
+    frames = x.unfold(1, NFFT, step)  # (n, B, NFFT)
+    frames = frames - frames.mean(dim=2, keepdim=True)
+    w = torch.as_tensor(get_window("blackmanharris", NFFT), device=x.device)
+    xw = (frames * w).contiguous()
+    scale = 1.0 / float(w.sum()) ** 2
+    X = torch.fft.rfft(xw, n=2 * NFFT, dim=2)
+    rfft_ms = cuda_ms(lambda: torch.fft.rfft(xw, n=2 * NFFT, dim=2), 5)
+    variants = {}
+    for label, XX, even in (("psd", torch.fft.rfft(x, dim=1)[:, None, :],
+                             POST_STEPS % 2 == 0), ("spectrogram", X, True)):
+        XX = XX.contiguous()
+        err = _scale_err(postproc.spectral_power_cuda(XX, scale, even),
+                         postproc.spectral_power_plain(XX, scale, even))
+        ms = cuda_ms(lambda: postproc.spectral_power_cuda(XX, scale, even),
+                     10)
+        plain_ms = cuda_ms(
+            lambda: postproc.spectral_power_plain(XX, scale, even), 3)
+        ops = count_ops(lambda: postproc.spectral_power_plain(XX, scale,
+                                                              even))
+        n, B, F = XX.shape
+        b_ms, by = bound(nbytes(XX) + F * B * 8, ops, "f64")
+        variants[label] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                               work=(nbytes(XX) + F * B * 8, ops, "f64"),
+                               shape=f"n={n} B={B} F={F}", bound_ms=b_ms,
+                               bound_by=by)
+        require(err[0] <= TOL_POST, f"spectral_power ({label}): {err[0]:.3e}")
+        print(f"    spectral_power {label} n={n} B={B} F={F}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({by})")
+    sg = variants["spectrogram"]
+    records.add("spectral_power", sg["err"], sg["ms"], sg["plain_ms"],
+                sg["work"], TOL_POST, sg["shape"], rfft_ms=rfft_ms,
+                variants={"psd": {k: variants["psd"][k] for k in
+                                  ("ms", "plain_ms", "bound_ms", "shape")}})
+    print(f"    cuFFT rfft of the spectrogram's frames ({tuple(xw.shape)} -> "
+          f"nfft {2 * NFFT}): {rfft_ms:.4f} ms")
+
+
+def phase_postproc(records, series):
+    """Phase 10: the postprocessing of phase 8's stenosis series and phase
+    9's chain series (the Mooney-Rivlin wall) in memory, on the card with
+    the launch counters reset just before and read just after (the path of
+    K20a-c), and on the CPU (the plain versions): the indices, WSS, stress,
+    strain, eigenvalues, band-pass amplitudes and spectra agree to
+    TOL_POST / TOL_EIG of their scale. Then each K20 kernel against its
+    plain version at production shapes (a POST_STEPS-step series at the
+    20,832-cell tubes, a POST_NODES-node spectrogram), timed."""
+    import gc
+
+    import torch
+
+    from vasp_tpu_torch.kernels import build
+
+    print(f"[10] postprocessing of the stenosis's and the chain's "
+          f"{len(series['stenosis']['series'])}-step series in memory, card "
+          f"against CPU:")
+    start = tic = time.perf_counter()
+    build.reset_launch_counts()
+    card = {k: _postproc_pass(run, torch.device("cuda"))
+            for k, run in series.items()}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    card_s = time.perf_counter() - tic
+    check_launches("postproc", launches)
+    host = {k: _postproc_pass(run, torch.device("cpu"))
+            for k, run in series.items()}
+    for k in series:
+        worst = []
+        for key, ref in host[k].items():
+            tol = TOL_EIG if key in ("mps", "mpe", "amp", "OSI", "RRT",
+                                     "ECAP") else TOL_POST
+            rel, _ = _scale_err(card[k][key], ref)
+            require(rel <= tol, f"{k}: {key} on the card is {rel:.3e} of "
+                                f"its scale from the CPU's (> {tol:.0e})")
+            worst.append(f"{key} {rel:.1e}")
+        print(f"    {k}: card vs CPU, max |diff| / scale: "
+              f"{', '.join(worst)}")
+    print(f"    the card's pass of both series took {card_s:.2f} s")
+    print(f"    launches {dict((n, launches[n]) for n in PATHS['postproc'])}")
+    print(f"[10] the K20 kernels at size ({POST_STEPS} steps, "
+          f"{POST_NODES} nodes):")
+    _time_wss(records, series["stenosis"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    eps = _time_stress(records, series["stenosis"], "stress_strain_svk")
+    _time_max_eig(records, eps)
+    del eps
+    gc.collect()
+    torch.cuda.empty_cache()
+    _time_stress(records, series["chain"], "stress_strain_mr")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _time_spectral(records)
+    print(f"[10] phase 10 took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+
 def main():
     phase_device()
     import gc
@@ -1778,17 +2161,26 @@ def main():
             "jac_recompute=2, atol=1e-6):", **BENCH_CFG)
         gc.collect()
         torch.cuda.empty_cache()
-        for label, (lnc, k5) in phase_models(tmp, records).items():
-            launches[label] = lnc
-            extra[f"k5_bound_ms_{label}"] = k5
+        series = {}
+        for label, val in phase_models(tmp, records).items():
+            if label.startswith("series_"):
+                series[label[7:]] = val
+                continue
+            launches[label], extra[f"k5_bound_ms_{label}"] = val
         for phase in (phase_predeform, phase_avf):
             gc.collect()
             torch.cuda.empty_cache()
             for key, val in phase(tmp, records).items():
                 if key.startswith("k5_"):
                     extra[f"k5_bound_ms_{key[3:]}"] = val
+                elif key.startswith("series_"):
+                    series[key[7:]] = val
                 else:
                     launches[key] = val
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["postproc"] = phase_postproc(records, series)
+    del series
     gc.collect()
     torch.cuda.empty_cache()
     launches["bench"], extra["k5_bound_ms_bench"] = phase_bench(records)
@@ -1804,7 +2196,8 @@ def main():
             launches=launches[path][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], path=path,
-            **({"variants": r["variants"]} if "variants" in r else {})))
+            **{k: r[k] for k in ("variants", "rfft_ms", "host_copy_ms",
+                                 "host_splu_ms") if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

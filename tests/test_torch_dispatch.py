@@ -98,6 +98,43 @@ def test_unported_options_raise(tiny_tube, extra, item):
         FSISystem(tiny_tube, dict(CFG, **extra))
 
 
+@pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
+def test_multi_device_postprocessing_raises(tmp_path, stage):
+    """vasp_tpu's n_devices > 1 postprocessing (timesteps sharded over
+    devices) is refused by its ROADMAP item before any file is read."""
+    from vasp_tpu_torch.postprocessing.fields import (
+        hemodynamics,
+        stress_strain,
+    )
+
+    fn = {"hemodynamics": hemodynamics.compute_hemodynamics,
+          "stress_strain": stress_strain.compute_stress_strain}[stage]
+    with pytest.raises(NotImplementedError, match="item 13"):
+        fn(tmp_path, n_devices=2, device="cpu")
+
+
+@pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
+def test_postprocessing_on_cuda_without_card_raises(no_cuda, tmp_path,
+                                                    stage):
+    from vasp_tpu_torch.postprocessing.fields import (
+        hemodynamics,
+        stress_strain,
+    )
+
+    fn = {"hemodynamics": hemodynamics.compute_hemodynamics,
+          "stress_strain": stress_strain.compute_stress_strain}[stage]
+    with pytest.raises(RuntimeError, match="cuda"):
+        fn(tmp_path)
+
+
+def test_postprocessing_kernels_refuse_other_devices():
+    from vasp_tpu_torch.kernels import postproc
+
+    A = torch.zeros((2, 3, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        postproc.max_eig(A)
+
+
 @pytest.mark.parametrize("lin", ["gmres", "iterative", "ras"])
 def test_iterative_solvers_raise(tiny_tube, lin):
     """The three iterative names build the Newton-Krylov solver with
@@ -175,7 +212,9 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "elem_matvec", "ruiz_sweep", "ruiz_scale", "banded_assemble",
         "banded_apply", "banded_factorize_f64", "robin_residual",
         "robin_residual_f32", "robin_jacobian", "robin_jacobian_f32",
-        "elem_matvec_36", "ruiz_sweep_36", "ruiz_scale_36"}
+        "elem_matvec_36", "ruiz_sweep_36", "ruiz_scale_36", "wss_load",
+        "stress_strain_svk", "stress_strain_mr", "max_eig",
+        "spectral_power"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

@@ -19,6 +19,10 @@ each with its reason:
 - K14 (Robin facet term): float64 residual and Jacobian 1e-12, the float32
   residual by the K1/K2 rule, the float32 Jacobian 2e-7 per block (both
   round the same float64 value once); K19c 1e-12;
+- K20a (WSS load), K20b (stress/strain, SVK and MR, and the eigenvalue
+  entry) and K20c (spectral power): float64, 1e-12 relative to each
+  output's scale; the eigenvalues 1e-10 of their scale (acos near
+  r = +-1 turns a rounding change of r into ~1e-8 of p);
 - K6: no fixed bound. Its float32 c-term dot products run in another
   order than torch's, and the scans carry the difference through 2 nb - 1
   steps, amplified by the factors' norms. The kernel must be as accurate
@@ -367,3 +371,91 @@ def test_mr_jacobian_kernel(mr_system, dt, tol):
     per_block = (Ak - Ap).double().reshape(K, -1).norm(dim=1) / \
         Ap.double().reshape(K, -1).norm(dim=1)
     assert float(per_block.max()) <= tol
+
+
+# ------------------------------------------------------- postprocessing --
+def _close_to_scale(a, b, rel):
+    assert float((a - b).abs().max()) <= rel * float(b.abs().max()), (
+        float((a - b).abs().max()), float(b.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def postproc_inputs(system):
+    """The tiny tube's fluid-boundary and solid-vertex tables on the card,
+    and seeded 3-step velocity and displacement series (strains ~1e-2)."""
+    from vasp_tpu_torch.postprocessing.fields.hemodynamics import (
+        FluidBoundaryTables,
+    )
+    from vasp_tpu_torch.postprocessing.fields.stress_strain import (
+        SolidVertexTables,
+    )
+
+    sysm = system[0]
+    mesh, space = sysm.space.mesh, sysm.space
+    rng = np.random.default_rng(31)
+    u = torch.as_tensor(rng.normal(size=(3, space.n_p2, 3)), device="cuda")
+    d = torch.as_tensor(rng.normal(size=(3, space.n_p2, 3)) * 1e-6,
+                        device="cuda")
+    wss = FluidBoundaryTables(mesh)
+    svk = {"dx_s_id": 2, "material_model": "StVenantKirchoff",
+           "mu_s": 3.45e5, "lambda_s": 3.1e6}
+    mr = dict(svk, material_model="MooneyRivlin", C01=0.003e6, C10=0.0,
+              C11=0.538e6)
+    solids = {name: SolidVertexTables(mesh, space, [props])
+              for name, props in (("svk", svk), ("mr", mr))}
+    return u, d, wss, space, solids
+
+
+def test_wss_load_kernel(postproc_inputs):
+    from vasp_tpu_torch.kernels import postproc
+
+    u, _, wss, space, _ = postproc_inputs
+    tables = wss.device_tables(space.cell_dofs_p2, u.device)
+    nb = len(wss.bnodes)
+    out = postproc.wss_load_cuda(u, *tables, nb, 3.5e-3)
+    torch.cuda.synchronize()
+    _close_to_scale(out, postproc.wss_load_plain(u, *tables, nb, 3.5e-3),
+                    RTOL)
+
+
+@pytest.mark.parametrize("walls", ["svk", "mr"])
+def test_stress_strain_kernel(postproc_inputs, walls):
+    from vasp_tpu_torch.kernels import postproc
+
+    _, d, _, _, solids = postproc_inputs
+    tab = solids[walls]
+    args = (d, *tab.device_tables(d.device), tab.segments)
+    build.reset_launch_counts()
+    got = postproc.stress_strain_cuda(*args)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"stress_strain_{walls}"] == 1
+    want = postproc.stress_strain_plain(*args)
+    for g, w, rel in zip(got, want, (RTOL, RTOL, 1e-10, 1e-10)):
+        _close_to_scale(g, w, rel)
+
+
+def test_max_eig_kernel(postproc_inputs):
+    from vasp_tpu_torch.fem.kinematics import get_eig
+    from vasp_tpu_torch.kernels import postproc
+
+    rng = np.random.default_rng(32)
+    A = rng.normal(size=(4096, 3, 3))
+    A = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), device="cuda")
+    out = postproc.max_eig_cuda(A)
+    torch.cuda.synchronize()
+    _close_to_scale(out, get_eig(A), 1e-10)
+
+
+@pytest.mark.parametrize("even", [True, False])
+def test_spectral_power_kernel(even):
+    from vasp_tpu_torch.kernels import postproc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(33)
+    x = torch.as_tensor(rng.normal(size=(300, 5, 64 if even else 63)),
+                        device="cuda")
+    X = torch.fft.rfft(x, dim=2)
+    got = postproc.spectral_power_cuda(X, 0.37, even)
+    torch.cuda.synchronize()
+    _close_to_scale(got, postproc.spectral_power_plain(X, 0.37, even), RTOL)

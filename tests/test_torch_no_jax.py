@@ -34,10 +34,23 @@ SLICE = [
     "vasp_tpu_torch.preprocessing", "vasp_tpu_torch.preprocessing.bifurcation",
     "vasp_tpu_torch.postprocessing",
     "vasp_tpu_torch.postprocessing.mesh_stages",
+    "vasp_tpu_torch.postprocessing.common", "vasp_tpu_torch.kernels.postproc",
+    "vasp_tpu_torch.postprocessing.fields",
+    "vasp_tpu_torch.postprocessing.fields.create_hdf5",
+    "vasp_tpu_torch.postprocessing.fields.hemodynamics",
+    "vasp_tpu_torch.postprocessing.fields.stress_strain",
+    "vasp_tpu_torch.postprocessing.spectral",
+    "vasp_tpu_torch.postprocessing.spectral.core",
+    "vasp_tpu_torch.postprocessing.spectral.transform",
+    "vasp_tpu_torch.postprocessing.spectral.hi_pass_viz",
+    "vasp_tpu_torch.postprocessing.spectral.figures",
+    "vasp_tpu_torch.postprocessing.spectral.point_trace",
+    "vasp_tpu_torch.postprocessing.log_plotter", "vasp_tpu_torch.cli",
 ]
 
 
-@pytest.mark.parametrize("forbidden", ["jax", "vasp_tpu"])
+@pytest.mark.parametrize("forbidden", ["jax", "vasp_tpu", "h5py",
+                                       "matplotlib"])
 def test_slice_imports_without_jax(forbidden):
     code = (
         "import importlib, sys\n"

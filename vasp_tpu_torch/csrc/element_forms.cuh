@@ -33,15 +33,17 @@
 // Quadrature and basis tables (weights, P1 values, P2 values, P2 reference
 // gradients), uploaded by vt_set_element_tables, in float64 and rounded to
 // float32. Every thread walks the quadrature points in the same order, so
-// each read is a broadcast.
-__constant__ double c_wq[VT_NQ_MAX];
-__constant__ double c_N1[VT_NQ_MAX * 4];
-__constant__ double c_N2[VT_NQ_MAX * 10];
-__constant__ double c_dN2[VT_NQ_MAX * 30];
-__constant__ float c_wq_f[VT_NQ_MAX_F32];
-__constant__ float c_N1_f[VT_NQ_MAX_F32 * 4];
-__constant__ float c_N2_f[VT_NQ_MAX_F32 * 10];
-__constant__ float c_dN2_f[VT_NQ_MAX_F32 * 30];
+// each read is a broadcast. Static: each source that includes this header
+// (element_kernels.cu, postproc.cu) has its own copy, so the objects link
+// into one library; only element_kernels.cu uploads and reads them.
+static __constant__ double c_wq[VT_NQ_MAX];
+static __constant__ double c_N1[VT_NQ_MAX * 4];
+static __constant__ double c_N2[VT_NQ_MAX * 10];
+static __constant__ double c_dN2[VT_NQ_MAX * 30];
+static __constant__ float c_wq_f[VT_NQ_MAX_F32];
+static __constant__ float c_N1_f[VT_NQ_MAX_F32 * 4];
+static __constant__ float c_N2_f[VT_NQ_MAX_F32 * 10];
+static __constant__ float c_dN2_f[VT_NQ_MAX_F32 * 30];
 
 template <class S>
 struct Tab;

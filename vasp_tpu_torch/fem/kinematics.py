@@ -133,3 +133,21 @@ def piola1(grad_d, props):
     """First Piola-Kirchhoff stress P = F S."""
     eye = torch.eye(3, dtype=grad_d.dtype, device=grad_d.device)
     return (eye + grad_d) @ S_(grad_d, props)
+
+
+def get_eig(T):
+    """Largest eigenvalue of symmetric (..., 3, 3) tensors in closed form
+    (Cardano), vasp_tpu's get_eig term for term (reference:
+    postprocessing_h5py_common.py:734-801): the clip of r to [-1, 1], and
+    the trace third where p2 <= 1e-30 (a near-isotropic tensor). The plain
+    version of the eigenvalue in the K20b kernels (kernels/postproc.py)."""
+    q = _trace(T) / 3.0
+    eye = torch.eye(3, dtype=T.dtype, device=T.device)
+    B = T - q[..., None, None] * eye
+    p2 = (B * B).sum(dim=(-2, -1)) / 2.0
+    p = torch.sqrt(torch.clamp_min(p2 / 3.0, 1e-300))
+    r = det3(B) / torch.clamp_min(2.0 * p ** 3, 1e-300)
+    r = torch.clamp(r, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    eig_max = q + 2.0 * p * torch.cos(phi)
+    return torch.where(p2 <= 1e-30, q, eig_max)

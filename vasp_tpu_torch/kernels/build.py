@@ -22,16 +22,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
-           "banded.cu", "facet_kernels.cu")
+           "banded.cu", "facet_kernels.cu", "postproc.cu")
 HEADERS = ("element_forms.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 # one count per kernel (per local size for K4 and K7: the _36 instances
-# serve the Robin facet blocks; per material for the solid's K2/K3: the
-# _mr instances are the Mooney-Rivlin ones), bumped by its wrapper right
-# where it launches
+# serve the Robin facet blocks; per material for the solid's K2/K3 and
+# for K20b: the _mr instances are the Mooney-Rivlin ones), bumped by its
+# wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
@@ -42,7 +42,8 @@ LAUNCHES = dict.fromkeys(
      "ruiz_sweep", "ruiz_scale", "banded_assemble", "banded_apply",
      "banded_factorize_f64", "robin_residual", "robin_residual_f32",
      "robin_jacobian", "robin_jacobian_f32", "elem_matvec_36",
-     "ruiz_sweep_36", "ruiz_scale_36"), 0)
+     "ruiz_sweep_36", "ruiz_scale_36", "wss_load", "stress_strain_svk",
+     "stress_strain_mr", "max_eig", "spectral_power"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -106,6 +107,7 @@ def library():
 
 def _bind(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    L = ctypes.c_int64
     sigs = {
         "vt_element_nq_max": [],
         "vt_element_nq_max_f32": [],
@@ -128,6 +130,11 @@ def _bind(lib):
         "vt_banded_solve": [P] * 5 + [I, I, P],
         "vt_banded_permute": [P, I, P, I, I, P, P],
         "vt_banded_unpermute": [P, P, I, P, I, P],
+        "vt_wss_load": [P] * 9 + [I, I, I, L, I, D, P],
+        "vt_stress_strain": [P, P, P, I, D, D, D, D, D, P, P, P, P, I, I, I,
+                             I, L, P],
+        "vt_max_eig": [P, P, L, P],
+        "vt_spectral_power": [P, P, I, I, I, D, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
