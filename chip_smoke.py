@@ -1849,6 +1849,7 @@ POST_LOWCUT = 25.0  # the CLIs' --lowcut default
 # vector cancels over a reversing series; RRT is its inverse)
 TOL_POST = 1e-12
 TOL_EIG = 1e-10
+EIGVALSH_BATCH = 16384  # the largest power of 2 cuSOLVER's batched syev takes
 
 
 def _scale_err(a, b):
@@ -1973,17 +1974,21 @@ def _time_wss(records, run):
 def _time_stress(records, run, name):
     """K20b (the run's material) against its plain version on a seeded
     POST_STEPS-step displacement series at the run's mesh (strains
-    ~1e-3-1e-2)."""
+    ~1e-3-1e-2), in the chunks of steps compute_stress_strain launches
+    (default_chunk_steps), both sides; one launch over the whole series
+    and the chunks' host copies (displacement in, fields out) apart."""
     import torch
 
     from vasp_tpu_torch.kernels import postproc
     from vasp_tpu_torch.postprocessing.fields.stress_strain import (
-        SolidVertexTables, _normalize_solid_props)
+        SolidVertexTables, _normalize_solid_props, default_chunk_steps)
 
     space = run["space"]
     solid = SolidVertexTables(run["mesh"], space, _normalize_solid_props(run))
     dofs, G = solid.device_tables(torch.device("cuda"))
     d = _seeded((POST_STEPS, space.n_p2, 3), 1e-6, 101)
+    chunk = default_chunk_steps(space.n_p2, dofs.shape[0])
+    chunks = [d[c:c + chunk] for c in range(0, POST_STEPS, chunk)]
     args = (d, dofs, G, solid.segments)
     got = postproc.stress_strain_cuda(*args)
     want = postproc.stress_strain_plain(*args)
@@ -1993,22 +1998,43 @@ def _time_stress(records, run, name):
                                     (TOL_POST, TOL_POST, TOL_EIG, TOL_EIG)):
         require(rel <= tol, f"{name}: {label} {rel:.3e} > {tol:.0e}")
     del want
-    ms = cuda_ms(lambda: postproc.stress_strain_cuda(*args), 3)
-    plain_ms = cuda_ms(lambda: postproc.stress_strain_plain(*args), 1)
+    ms = cuda_ms(lambda: [postproc.stress_strain_cuda(c, dofs, G,
+                                                      solid.segments)
+                          for c in chunks], 3)
+    one_ms = cuda_ms(lambda: postproc.stress_strain_cuda(*args), 3)
+    plain_ms = cuda_ms(lambda: [postproc.stress_strain_plain(
+        c, dofs, G, solid.segments) for c in chunks], 1)
+    d_host = d.cpu()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for c in range(0, POST_STEPS, chunk):
+        out = postproc.stress_strain_cuda(d_host[c:c + chunk].cuda(), dofs,
+                                          G, solid.segments)
+        [a.cpu() for a in out]
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - tic) * 1e3 - ms
     ops = count_ops(lambda: postproc.stress_strain_plain(
         d[:1], dofs, G, solid.segments))
     work = (_touched_bytes(dofs.cpu().numpy(), POST_STEPS)
             + nbytes(dofs, G, *got), ops * POST_STEPS, "f64")
     err = (max(e[0] for e in errs), max(e[1] for e in errs))
     records.add(name, err, ms, plain_ms, work, TOL_EIG,
-                f"T={POST_STEPS} K={dofs.shape[0]}x4")
+                f"T={POST_STEPS} K={dofs.shape[0]}x4", chunk_steps=chunk,
+                one_launch_ms=one_ms, host_copy_ms=copy_ms)
+    print(f"    {name}: {len(chunks)} launches of {chunk} steps (the CLI's "
+          f"chunks) {ms:.4f} ms, one launch of {POST_STEPS} steps "
+          f"{one_ms:.4f} ms; the chunks' host copies {copy_ms:.3f} ms")
     return got[1]
 
 
 def _time_max_eig(records, eps):
     """K20b's eigenvalue entry against get_eig on (points, steps, 3, 3)
     amplitude-shaped tensors: the stress pass's POST_STEPS strain tensors
-    of every solid (cell, vertex), hi_pass_viz's strain shape."""
+    of every solid (cell, vertex), hi_pass_viz's strain shape. The library
+    yardstick is torch.linalg.eigvalsh's largest eigenvalue (the port never
+    calls it), in batches of EIGVALSH_BATCH matrices: cuSOLVER's batched
+    syev behind it refuses a batch of 3x3s beyond ~23,000
+    (CUSOLVER_STATUS_INVALID_VALUE; PyTorch 2.11, CUDA 12.8)."""
     import torch
 
     from vasp_tpu_torch.fem.kinematics import get_eig
@@ -2016,13 +2042,24 @@ def _time_max_eig(records, eps):
 
     A = eps.abs().permute(1, 2, 0, 3, 4).reshape(-1, POST_STEPS, 3, 3)
     A = A.contiguous()
-    err = _scale_err(postproc.max_eig_cuda(A), get_eig(A))
+    batches = A.reshape(-1, 3, 3).split(EIGVALSH_BATCH)
+
+    def library():
+        return torch.cat([torch.linalg.eigvalsh(b)[:, -1] for b in batches])
+
+    out = postproc.max_eig_cuda(A)
+    err = _scale_err(out, get_eig(A))
+    lib_err, _ = _scale_err(out.reshape(-1), library())
     ms = cuda_ms(lambda: postproc.max_eig_cuda(A), 3)
     plain_ms = cuda_ms(lambda: get_eig(A), 1)
+    lib_ms = cuda_ms(library, 1)
     ops = count_ops(lambda: get_eig(A[:1]))
     work = (nbytes(A) + A[..., 0, 0].numel() * 8, ops * A.shape[0], "f64")
     records.add("max_eig", err, ms, plain_ms, work, TOL_EIG,
-                f"{A.shape[0]}x{POST_STEPS}")
+                f"{A.shape[0]}x{POST_STEPS}", library_ms=lib_ms,
+                library_calls=len(batches))
+    print(f"    max_eig against eigvalsh's largest ({len(batches)} calls of "
+          f"{EIGVALSH_BATCH}): {lib_err:.3e} of the scale")
 
 
 def _time_spectral(records):
@@ -2197,7 +2234,9 @@ def main():
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], path=path,
             **{k: r[k] for k in ("variants", "rfft_ms", "host_copy_ms",
-                                 "host_splu_ms") if k in r}))
+                                 "host_splu_ms", "chunk_steps",
+                                 "one_launch_ms", "library_calls")
+               if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -434,6 +434,47 @@ def test_stress_strain_kernel(postproc_inputs, walls):
         _close_to_scale(g, w, rel)
 
 
+def _compact(dofs):
+    """dofs with the nodes renumbered 0.. in order of first use, and their
+    count: a few cells' tables over a series of only their nodes."""
+    nodes, inv = np.unique(dofs.cpu().numpy(), return_inverse=True)
+    return torch.as_tensor(inv.reshape(dofs.shape), device=dofs.device), \
+        len(nodes)
+
+
+def test_post_kernels_past_the_grid_limit(postproc_inputs):
+    """K20a and K20b at T = 70,000 steps, more than the 65,535 blocks of
+    the grid's second axis, on 4 facets / 2 cells of the tiny tube: every
+    step, the last ones too, agrees with the plain version (1e-12; the
+    eigenvalues 1e-10)."""
+    from vasp_tpu_torch.kernels import postproc
+
+    _, _, wss, space, solids = postproc_inputs
+    T = 70_000
+    rng = np.random.default_rng(34)
+    dofs, G2, normals, wq, N1f, area2, fb = wss.device_tables(
+        space.cell_dofs_p2, "cuda")
+    dofs, n = _compact(dofs[:4])
+    fb, nb = _compact(fb[:4])
+    u = torch.as_tensor(rng.normal(size=(T, n, 3)), device="cuda")
+    args = (u, dofs, G2[:4].contiguous(), normals[:4].contiguous(), wq, N1f,
+            area2[:4].contiguous(), fb, nb, 3.5e-3)
+    out = postproc.wss_load_cuda(*args)
+    torch.cuda.synchronize()
+    _close_to_scale(out, postproc.wss_load_plain(*args), RTOL)
+    svk = solids["svk"]
+    sdofs, G = svk.device_tables("cuda")
+    sdofs, n = _compact(sdofs[:2])
+    d = torch.as_tensor(rng.normal(size=(T, n, 3)) * 1e-6, device="cuda")
+    args = (d, sdofs, G[:2].contiguous(), [(0, 2, svk.segments[0][2])])
+    got = postproc.stress_strain_cuda(*args)
+    torch.cuda.synchronize()
+    want = postproc.stress_strain_plain(*args)
+    for g, w, rel in zip(got, want, (RTOL, RTOL, 1e-10, 1e-10)):
+        _close_to_scale(g, w, rel)
+        _close_to_scale(g[-1], w[-1], rel)
+
+
 def test_max_eig_kernel(postproc_inputs):
     from vasp_tpu_torch.fem.kinematics import get_eig
     from vasp_tpu_torch.kernels import postproc

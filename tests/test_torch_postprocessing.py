@@ -269,6 +269,26 @@ def test_stress_tensors_match_vasp_tpu(stress):
     assert np.abs(ej).max() > 1e-3  # strains of a few 1e-3 and up
 
 
+def test_stress_streamed_equals_one_chunk(stress, tmp_path):
+    """The stress pass streamed one step a chunk (chunk_steps=1) writes the
+    same series and averages as the default chunking (one chunk of the
+    whole series here) to 1e-13 of each field's scale: the plain version's
+    batched products round in an order that depends on the batch size
+    (measured 6e-15 relative)."""
+    (_, _), (tf, rt) = stress
+    f = tmp_path / "case"
+    shutil.copytree(tf, f)
+    shutil.rmtree(f / "StressStrain")
+    r1 = port_stress.compute_stress_strain(f, device="cpu", chunk_steps=1)
+    pairs = [(r1[k], rt[k]) for k in ("mps_avg", "mpe_avg")]
+    pairs += [(_ckpt_series(f / "StressStrain" / f"{n}.h5", n),
+               _ckpt_series(tf / "StressStrain" / f"{n}.h5", n))
+              for n in ("TrueStress", "MaxPrincipalStrain")]
+    for got, want in pairs:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-13 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("name", ["MaxPrincipalStress", "MaxPrincipalStrain"])
 def test_max_principal_fields_match_vasp_tpu(stress, name):
     """The Cardano eigenvalues and their time averages agree to 1e-10 of

@@ -46,9 +46,17 @@ def separate_mesh(argv=None):
 
 
 def predeform_mesh(argv=None):
-    from vasp_tpu_torch.postprocessing.mesh_stages import main
+    from vasp_tpu_torch.postprocessing.mesh_stages import (
+        predeform_mesh as _pre,
+    )
 
-    main(argv)
+    def extra(p):
+        p.add_argument("--scale-factor", type=float, default=-1.0)
+
+    args = _folder_parser("vasp-tpu-torch-predeform-mesh",
+                          extra).parse_args(argv)
+    out = _pre(args.folder, args.mesh_path, args.scale_factor)
+    print(f"Predeformed mesh written to {out}")
 
 
 # ---------------- field conversions ----------------

@@ -32,19 +32,21 @@
 // What bounds them on an H100 and what the design does about it:
 // - K20a: ~1 KB of gathered velocities and tables and ~80 FLOP x nq x 30
 //   per (facet, step): both tiny; a few thousand facets x T steps. One
-//   thread per (facet, step), the steps on the grid's second axis, the
-//   quadrature loop in registers, the load scattered by native f64
-//   atomicAdd (its order varies from run to run, which moves the load by
-//   rounding only). The tables come as device pointers.
+//   thread per (facet, step), the steps on the grid's second axis (a
+//   stride loop past its 65,535 blocks), the quadrature loop in registers,
+//   the load scattered by native f64 atomicAdd (its order varies from run
+//   to run, which moves the load by rounding only). The tables come as
+//   device pointers.
 // - K20b: bytes. It writes 20 doubles per (cell, vertex, step) and reads a
 //   30-double gather and a 30-double G row. One thread per (cell, vertex,
-//   step), the steps on the grid's second axis; every output is written
-//   once, threads of a warp on neighbouring (cell, vertex) rows.
+//   step), the steps on the grid's second axis as in K20a; every output
+//   is written once, threads of a warp on neighbouring (cell, vertex) rows.
 // - K20c: bytes. It reads the whole spectrum once and writes F x B doubles.
-//   One block per (frequency tile of 32, frame): 32 x 16 threads, the
-//   32 frequencies of a tile contiguous in memory, 16 lanes over the nodes
-//   in a fixed order, then a fixed-order tree over the lanes in shared
-//   memory. No atomics, so repeated runs give the same bits.
+//   One block per (frequency tile of 32, frame), the frames strided as
+//   K20a's steps: 32 x 16 threads, the 32 frequencies of a tile contiguous
+//   in memory, 16 lanes over the nodes in a fixed order, then a
+//   fixed-order tree over the lanes in shared memory. No atomics, so
+//   repeated runs give the same bits.
 #include <cstdint>
 
 #include "element_forms.cuh"
@@ -81,81 +83,77 @@ wss_load_kernel(const double* __restrict__ u, const int64_t* __restrict__ dofs,
                 const double* __restrict__ G2, const double* __restrict__ normals,
                 const double* __restrict__ wq, const double* __restrict__ N1f,
                 const double* __restrict__ area2, const int64_t* __restrict__ fb,
-                double* __restrict__ load, int K, int nq, int64_t n_p2, int nb,
-                double mu) {
+                double* __restrict__ load, int K, int nq, int T, int64_t n_p2,
+                int nb, double mu) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
-  const int64_t t = blockIdx.y;
-  const double* ut = u + t * n_p2 * 3;
-  double ue[10][3];
-#pragma unroll
-  for (int a = 0; a < 10; ++a) {
-    const int64_t node = dofs[(int64_t)k * 10 + a];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) ue[a][i] = ut[node * 3 + i];
-  }
   const double n[3] = {normals[k * 3], normals[k * 3 + 1], normals[k * 3 + 2]};
   const double a2 = area2[k];
-  double b[3][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
-  for (int q = 0; q < nq; ++q) {
-    const double* G = G2 + ((int64_t)k * nq + q) * 30;
-    double g[3][3];
+  for (int64_t t = blockIdx.y; t < T; t += gridDim.y) {
+    const double* ut = u + t * n_p2 * 3;
+    double ue[10][3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int a = 0; a < 10; ++a) {
+      const int64_t node = dofs[(int64_t)k * 10 + a];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int i = 0; i < 3; ++i) ue[a][i] = ut[node * 3 + i];
+    }
+    double b[3][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
+    for (int q = 0; q < nq; ++q) {
+      const double* G = G2 + ((int64_t)k * nq + q) * 30;
+      double g[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          double s = 0.0;
+#pragma unroll
+          for (int a = 0; a < 10; ++a) s += ue[a][i] * G[a * 3 + j];
+          g[i][j] = s;
+        }
+      double tr[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
         double s = 0.0;
 #pragma unroll
-        for (int a = 0; a < 10; ++a) s += ue[a][i] * G[a * 3 + j];
-        g[i][j] = s;
+        for (int j = 0; j < 3; ++j) s += mu * (g[i][j] + g[j][i]) * n[j];
+        tr[i] = s;
       }
-    double tr[3];
+      const double tn = tr[0] * n[0] + tr[1] * n[1] + tr[2] * n[2];
+      const double w = wq[q] * a2;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      double s = 0.0;
+      for (int a = 0; a < 3; ++a) {
+        const double wn = w * N1f[q * 3 + a];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) s += mu * (g[i][j] + g[j][i]) * n[j];
-      tr[i] = s;
+        for (int i = 0; i < 3; ++i) b[a][i] += wn * (tr[i] - tn * n[i]);
+      }
     }
-    const double tn = tr[0] * n[0] + tr[1] * n[1] + tr[2] * n[2];
-    const double w = wq[q] * a2;
+    double* lt = load + t * (int64_t)nb * 3;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const double wn = w * N1f[q * 3 + a];
+      const int64_t node = fb[(int64_t)k * 3 + a];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) b[a][i] += wn * (tr[i] - tn * n[i]);
+      for (int i = 0; i < 3; ++i) atomicAdd(lt + node * 3 + i, b[a][i]);
     }
-  }
-  double* lt = load + t * (int64_t)nb * 3;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int64_t node = fb[(int64_t)k * 3 + a];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) atomicAdd(lt + node * 3 + i, b[a][i]);
   }
 }
 
 constexpr int kStressThreads = 128;
 
-// Cells k0 .. k0 + Kseg - 1 of the (T, Ktot, 4, ...) outputs, one material.
+// One (cell, vertex) row of one step: dt the step's displacement rows,
+// dk the cell's 10 P2 dofs, Gk the vertex's physical gradients (10, 3).
 template <int MAT>
-__global__ void __launch_bounds__(kStressThreads)
-stress_strain_kernel(const double* __restrict__ d, const int64_t* __restrict__ dofs,
-                     const double* __restrict__ G, SolidParams<double> P,
-                     double* __restrict__ sig, double* __restrict__ eps,
-                     double* __restrict__ mps, double* __restrict__ mpe, int k0,
-                     int Kseg, int Ktot, int64_t n_p2) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= Kseg * 4) return;
-  const int64_t k = k0 + e / 4;
-  const int v = e % 4;
-  const int64_t t = blockIdx.y;
-  const double* dt = d + t * n_p2 * 3;
-  const double* Gk = G + (k * 4 + v) * 30;
+__device__ inline void stress_strain_row(const double* __restrict__ dt,
+                                         const int64_t* __restrict__ dk,
+                                         const double* __restrict__ Gk,
+                                         const SolidParams<double>& P, int64_t row,
+                                         double* __restrict__ sig, double* __restrict__ eps,
+                                         double* __restrict__ mps,
+                                         double* __restrict__ mpe) {
   double H[3][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
 #pragma unroll
   for (int a = 0; a < 10; ++a) {
-    const int64_t node = dofs[k * 10 + a];
+    const int64_t node = dk[a];
     const double da[3] = {dt[node * 3], dt[node * 3 + 1], dt[node * 3 + 2]};
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -184,7 +182,6 @@ stress_strain_kernel(const double* __restrict__ d, const int64_t* __restrict__ d
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       s[i][j] = (FS[i][0] * F[j][0] + FS[i][1] * F[j][1] + FS[i][2] * F[j][2]) / J;
-  const int64_t row = (t * Ktot + k) * 4 + v;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -194,6 +191,23 @@ stress_strain_kernel(const double* __restrict__ d, const int64_t* __restrict__ d
     }
   mps[row] = max_eig(s);
   mpe[row] = max_eig(E);
+}
+
+// Cells k0 .. k0 + Kseg - 1 of the (T, Ktot, 4, ...) outputs, one material.
+template <int MAT>
+__global__ void __launch_bounds__(kStressThreads)
+stress_strain_kernel(const double* __restrict__ d, const int64_t* __restrict__ dofs,
+                     const double* __restrict__ G, SolidParams<double> P,
+                     double* __restrict__ sig, double* __restrict__ eps,
+                     double* __restrict__ mps, double* __restrict__ mpe, int k0,
+                     int Kseg, int Ktot, int T, int64_t n_p2) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= Kseg * 4) return;
+  const int64_t k = k0 + e / 4;
+  const int v = e % 4;
+  for (int64_t t = blockIdx.y; t < T; t += gridDim.y)
+    stress_strain_row<MAT>(d + t * n_p2 * 3, dofs + k * 10, G + (k * 4 + v) * 30, P,
+                           (t * Ktot + k) * 4 + v, sig, eps, mps, mpe);
 }
 
 __global__ void __launch_bounds__(kStressThreads)
@@ -216,26 +230,32 @@ spectral_power_kernel(const double2* __restrict__ X, double* __restrict__ out, i
                       int B, int F, double scale, int even) {
   __shared__ double part[kNodeLanes][kFreqTile];
   const int f = blockIdx.x * kFreqTile + threadIdx.x;
-  const int b = blockIdx.y;
-  double s = 0.0;
-  if (f < F) {
-    for (int node = threadIdx.y; node < n; node += kNodeLanes) {
-      const double2 x = X[((int64_t)node * B + b) * F + f];
-      s += x.x * x.x + x.y * x.y;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    double s = 0.0;
+    if (f < F) {
+      for (int node = threadIdx.y; node < n; node += kNodeLanes) {
+        const double2 x = X[((int64_t)node * B + b) * F + f];
+        s += x.x * x.x + x.y * x.y;
+      }
     }
-  }
-  part[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-#pragma unroll
-  for (int h = kNodeLanes / 2; h > 0; h /= 2) {
-    if (threadIdx.y < h) part[threadIdx.y][threadIdx.x] += part[threadIdx.y + h][threadIdx.x];
+    part[threadIdx.y][threadIdx.x] = s;
     __syncthreads();
-  }
-  if (threadIdx.y == 0 && f < F) {
-    const double c = (f == 0 || (even && f == F - 1)) ? 1.0 : 2.0;
-    out[(int64_t)f * B + b] = part[0][threadIdx.x] * scale * c / n;
+#pragma unroll
+    for (int h = kNodeLanes / 2; h > 0; h /= 2) {
+      if (threadIdx.y < h) part[threadIdx.y][threadIdx.x] += part[threadIdx.y + h][threadIdx.x];
+      __syncthreads();
+    }
+    if (threadIdx.y == 0 && f < F) {
+      const double c = (f == 0 || (even && f == F - 1)) ? 1.0 : 2.0;
+      out[(int64_t)f * B + b] = part[0][threadIdx.x] * scale * c / n;
+    }
+    __syncthreads();  // part is refilled for the next frame
   }
 }
+
+// Blocks on the grid's second axis (at most 65,535); the kernels stride
+// over the steps (frames) past it.
+inline unsigned grid_steps(int T) { return T < 65535 ? (unsigned)T : 65535u; }
 
 }  // namespace
 
@@ -249,9 +269,9 @@ int vt_wss_load(const double* u, const int64_t* dofs, const double* G2,
                 const double* area2, const int64_t* fb, double* load, int K, int nq,
                 int T, int64_t n_p2, int nb, double mu, void* stream) {
   if (K > 0 && T > 0) {
-    const dim3 grid((K + kWssThreads - 1) / kWssThreads, T);
+    const dim3 grid((K + kWssThreads - 1) / kWssThreads, grid_steps(T));
     wss_load_kernel<<<grid, kWssThreads, 0, (cudaStream_t)stream>>>(
-        u, dofs, G2, normals, wq, N1f, area2, fb, load, K, nq, n_p2, nb, mu);
+        u, dofs, G2, normals, wq, N1f, area2, fb, load, K, nq, T, n_p2, nb, mu);
   }
   return (int)cudaGetLastError();
 }
@@ -267,14 +287,14 @@ int vt_stress_strain(const double* d, const int64_t* dofs, const double* G, int 
     // rho, dt and theta serve the residual only
     const SolidParams<double> P =
         make_solid_params<double>(1.0, mu, lam, 1.0, 1.0, C01, C10, C11);
-    const dim3 grid((Kseg * 4 + kStressThreads - 1) / kStressThreads, T);
+    const dim3 grid((Kseg * 4 + kStressThreads - 1) / kStressThreads, grid_steps(T));
     cudaStream_t s = (cudaStream_t)stream;
     if (mat == kMooneyRivlin)
       stress_strain_kernel<kMooneyRivlin><<<grid, kStressThreads, 0, s>>>(
-          d, dofs, G, P, sig, eps, mps, mpe, k0, Kseg, Ktot, n_p2);
+          d, dofs, G, P, sig, eps, mps, mpe, k0, Kseg, Ktot, T, n_p2);
     else
       stress_strain_kernel<kSVK><<<grid, kStressThreads, 0, s>>>(
-          d, dofs, G, P, sig, eps, mps, mpe, k0, Kseg, Ktot, n_p2);
+          d, dofs, G, P, sig, eps, mps, mpe, k0, Kseg, Ktot, T, n_p2);
   }
   return (int)cudaGetLastError();
 }
@@ -294,7 +314,7 @@ int vt_max_eig(const double* A, double* out, int64_t N, void* stream) {
 int vt_spectral_power(const void* X, double* out, int n, int B, int F, double scale,
                       int even, void* stream) {
   if (n > 0 && B > 0 && F > 0) {
-    const dim3 grid((F + kFreqTile - 1) / kFreqTile, B);
+    const dim3 grid((F + kFreqTile - 1) / kFreqTile, grid_steps(B));
     const dim3 block(kFreqTile, kNodeLanes);
     spectral_power_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const double2*)X, out, n, B, F, scale, even);

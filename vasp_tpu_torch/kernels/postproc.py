@@ -24,18 +24,9 @@ import torch
 from vasp_tpu_torch.fem.kinematics import E_, S_, get_eig
 from vasp_tpu_torch.fem.smallmat import det3
 from vasp_tpu_torch.kernels import build
+from vasp_tpu_torch.kernels.element import _MATERIALS
 
 _F64, _I64 = torch.float64, torch.int64
-
-
-def _material(props):
-    """(instance, counter name) of the K20b kernel for a material."""
-    model = props.get("material_model", "StVenantKirchoff")
-    if model == "MooneyRivlin":
-        return 1, "stress_strain_mr"
-    if model in ("StVenantKirchoff", "LinearElastic"):
-        return 0, "stress_strain_svk"
-    raise KeyError(f"unknown material_model {model!r}")
 
 
 # ------------------------------------------------------------ plain ----
@@ -116,7 +107,9 @@ def stress_strain_cuda(d, dofs, G, segments):
     mps = torch.empty((T, K, 4), dtype=_F64, device=dev)
     mpe = torch.empty_like(mps)
     for k0, n, props in segments:
-        mat, name = _material(props)
+        mat, tag = _MATERIALS[props.get("material_model",
+                                        "StVenantKirchoff")]
+        name = "stress_strain" + (tag or "_svk")
         consts = [float(props.get(c) or 0.0) for c in
                   ("mu_s", "lambda_s", "C01", "C10", "C11")]
         build.check(lib.vt_stress_strain(

@@ -118,11 +118,19 @@ class SolidVertexTables:
         return out / np.maximum(cnt, 1.0)
 
 
+def default_chunk_steps(n_p2, K):
+    """Timesteps per chunk of the stress pass: ~0.5 GB of float64, the
+    displacement rows (3 n_p2 a step) in and the 20 values of each of the
+    K x 4 (cell, vertex) rows out."""
+    return max(1, int(6.25e7 / (3 * n_p2 + 80 * K)))
+
+
 def compute_stress_strain(folder, mesh_path=None, stride=1, n_devices=None,
-                          device="cuda"):
+                          device="cuda", chunk_steps=None):
     """Main entry (vasp-tpu-torch-compute-stress). The displacement series
-    is streamed one timestep at a time (vasp_tpu's single-device stream);
-    the fields run on `device` (K20b on a card). n_devices > 1 (vasp_tpu
+    is streamed in chunks of `chunk_steps` timesteps (default
+    default_chunk_steps), each one K20b launch per material on a card, so
+    memory is O(chunk x ndof) regardless of T. n_devices > 1 (vasp_tpu
     shards chunks of timesteps over devices) is refused: multi-device code
     is ROADMAP item 13."""
     import h5py
@@ -182,19 +190,25 @@ def compute_stress_strain(folder, mesh_path=None, stride=1, n_devices=None,
     mps_sum = np.zeros(nv)
     mpe_sum = np.zeros(nv)
     dev_tables = tables.device_tables(dev)
+    if chunk_steps is None:
+        chunk_steps = default_chunk_steps(n_p2, K)
     with h5py.File(d_file, "r") as f_d:
-        for k, t in enumerate(times):
-            d = np.zeros((1, n_p2, 3))
-            d[0, ids] = f_d[f"displacement/vector_{steps[k]}"][:]
-            sig, eps, mps, mpe = (a[0].cpu().numpy() for a in tables.fields(
+        for c0 in range(0, len(times), chunk_steps):
+            chunk = range(c0, min(c0 + chunk_steps, len(times)))
+            d = np.zeros((len(chunk), n_p2, 3))
+            for i, k in enumerate(chunk):
+                d[i, ids] = f_d[f"displacement/vector_{steps[k]}"][:]
+            fields = (a.cpu().numpy() for a in tables.fields(
                 torch.as_tensor(d, device=dev), dev_tables))
-            writers["MaxPrincipalStress"].write(mps.reshape(-1), float(t))
-            writers["MaxPrincipalStrain"].write(mpe.reshape(-1), float(t))
-            tensor_writers["TrueStress"].write(sig.reshape(-1), float(t))
-            tensor_writers["GreenLagrangeStrain"].write(eps.reshape(-1),
-                                                        float(t))
-            mps_sum += tables.to_nodes(mps)
-            mpe_sum += tables.to_nodes(mpe)
+            for k, sig, eps, mps, mpe in zip(chunk, *fields):
+                t = float(times[k])
+                writers["MaxPrincipalStress"].write(mps.reshape(-1), t)
+                writers["MaxPrincipalStrain"].write(mpe.reshape(-1), t)
+                tensor_writers["TrueStress"].write(sig.reshape(-1), t)
+                tensor_writers["GreenLagrangeStrain"].write(eps.reshape(-1),
+                                                            t)
+                mps_sum += tables.to_nodes(mps)
+                mpe_sum += tables.to_nodes(mpe)
 
     avg = {"MaxPrincipalStress_avg": mps_sum / len(times),
            "MaxPrincipalStrain_avg": mpe_sum / len(times)}

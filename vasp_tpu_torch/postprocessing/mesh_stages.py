@@ -107,22 +107,3 @@ def predeform_mesh(folder, mesh_path=None, scale_factor=-1.0):
                 coords += disp[:n] * scale_factor
                 dst[f"{grp}/coordinates"][...] = coords
     return out
-
-
-def main(argv=None):
-    """Console entry point (vasp-tpu-torch-predeform-mesh): the counterpart
-    of vasp-predeform-mesh, the same arguments."""
-    import argparse
-
-    p = argparse.ArgumentParser(prog="vasp-tpu-torch-predeform-mesh")
-    p.add_argument("--folder", required=True,
-                   help="simulation results folder")
-    p.add_argument("--mesh-path", default=None)
-    p.add_argument("--scale-factor", type=float, default=-1.0)
-    args = p.parse_args(argv)
-    out = predeform_mesh(args.folder, args.mesh_path, args.scale_factor)
-    print(f"Predeformed mesh written to {out}")
-
-
-if __name__ == "__main__":
-    main()
