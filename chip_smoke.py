@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. Device: needs torch.cuda; prints the card's name and power limit and
    builds the CUDA kernels from csrc/ (one nvcc per source, in parallel;
    build seconds, ptxas register and spill report); the SASS of the
-   float32 residual instances (fluid, solid in St.Venant-Kirchhoff and in
-   Mooney-Rivlin, and the Robin facet term) must hold no float64
-   arithmetic.
+   float32 residual instances (the fluid with Laplace, elastic and no mesh
+   lifting, the solid in St.Venant-Kirchhoff and in Mooney-Rivlin, and
+   the Robin facet term) and of the float32 biharmonic lifting correction
+   (K16) must hold no float64 arithmetic.
 2. Kernel vs plain on the card at the 20,832-cell tube (184,845 dofs):
    every kernel against its plain torch version on the same inputs, each
    timed with CUDA events beside its plain version, its bound (bytes over
@@ -61,6 +62,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    1e-12, f32 2e-7 per block), on a displacement with strains ~1e-2 so
    that the log1p and cofactor terms count; once with the predeform
    wall's constants and once with the AVF vein's (the "vein" variant).
+   Then, back at the 20,832-cell tube, the fluid's elastic-lifting and
+   no-lifting instances of K1/K3 (the rules of K1/K3 above), the
+   pressure stabilization (p_stab=0.1) on the Laplace and on the elastic
+   instance and the solid's gravity ([0, 0, -9.81]) as variants of the
+   instances they run in (the same checks and times),
+   and the biharmonic lifting correction (K16) on the tube's bc1 tables
+   (beta = 1, 14,880 fluid cells) in float64 (1e-12) and float32 (as
+   accurate as the plain version: its distance to the float64
+   correction of the same input at most twice the plain version's plus
+   1e-14 of it), with cuSPARSE's SpMV of the correction's assembled CSR
+   as the yardstick.
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
    (plain versions) and on the card (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
@@ -91,7 +103,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    predeform of tests/test_driver_predeform.py (theta=1, lmbda=0.5, its
    raise_on_fail=False) and the tiny AVF of tests/test_torch_driver_avf.py
    (tests/test_driver_avf.py's cut to 2 steps and 1,536 cells, whose host
-   splu takes minutes at its own size).
+   splu takes minutes at its own size). Then the lifting options of the
+   tiny cylinder, cut to one step, on the LU path (U within 1e-8, the
+   same Newton counts):
+   biharmonic lifting at its defaults (bc1, beta = 1); elastic lifting
+   with p_stab=0.1 and gravity [0, 0, -9.81] in one run; and no lifting
+   (extrapolation="no_extrapolation", through a problem file that holds
+   every fluid-only d dof at 0), also on the bench configuration (its 3
+   steps, U within 3e-2); counters reset just before each card run and read just after
+   (the f64 elastic and no-lifting instances' paths, and the float32
+   no-lifting ones').
 4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
    cylinder of 10 layers; its host splu takes under a minute on a
    CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
@@ -178,8 +199,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    strain tensors; K20c on a 10,000 x 951 spectrogram at the CLIs'
    windowing (NFFT 256, nfft 512, 11 frames; cuFFT's rfft of the frames
    timed beside it) and the PSD as a variant.
+11. Mesh lifting at full width, counters reset just before each run and
+   read just after, every step converged, the lines of phase 5, launches
+   and peak memory:
+   - 11a: -p aneurysm at 20,832 cells with biharmonic lifting (bc2,
+     biharmonic_beta=1e-2: tests/test_biharmonic.py's Krylov case) on the
+     bench configuration, 5 steps of dt=1e-3 (K16 in float64 in every
+     residual, in float32 in every matvec);
+   - 11b: -p cylinder on the 2,520-cell tube of phase 4 with biharmonic
+     lifting at its defaults (bc1, beta = 1) on the LU path, 3 steps; the
+     host splu seconds beside phase 4's (the correction's 2-ring stencil
+     adds fill);
+   - 11c: -p cylinder at 20,832 cells with elastic lifting on the bench
+     configuration, 5 steps (the float32 elastic instances of K1/K3).
 
-Phases 3-10 run with HDF5 output off (save_step=0, checkpoint_step=0),
+Phases 3-11 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -285,6 +319,50 @@ _MU_VEIN = 3e6 / (2 * (1 + 0.45))
 VEIN = {"material_model": "MooneyRivlin", "rho_s": 1.0e3, "mu_s": _MU_VEIN,
         "lambda_s": 0.45 * 2.0 * _MU_VEIN / (1.0 - 2.0 * 0.45),
         "C01": 0.003e6, "C10": 0.0, "C11": 0.538e6}
+# the lifting and body-force options: elastic lifting with the pressure
+# stabilization and solid gravity (phase 3's tiny LU run, phase 2's
+# variants), biharmonic lifting at its defaults (bc1, beta = 1: phase 3,
+# 11b) and on tests/test_biharmonic.py's Krylov case (bc2, beta = 1e-2:
+# 11a)
+P_STAB = 0.1
+GRAVITY = [0.0, 0.0, -9.81]
+ELASTIC = dict(extrapolation="elastic", p_stab=P_STAB, gravity=GRAVITY)
+BIHARMONIC = dict(extrapolation="biharmonic")
+# the tiny cylinder cut to 1 step for the lifting options' LU parity runs
+# (each LU step refactorizes on the host); the no-lifting Krylov run keeps
+# TINY's 3 steps, which the f32f bound was set on (after 2 steps the state
+# is smaller and the same inexact directions differ by 1.7e-2 relative
+# between two CPU thread counts, after 3 by 6.9e-3)
+TINY_LIFT = dict(TINY, T=0.001)
+BIHARMONIC_KRYLOV = dict(extrapolation="biharmonic",
+                         extrapolation_sub_type="bc2", biharmonic_beta=1e-2)
+# a problem file: -p cylinder without mesh lifting, its fluid mesh held
+# (every fluid-only d dof at 0: without lifting those rows have no
+# equation)
+NO_LIFT = "no_lift_cylinder"
+NO_LIFT_PROBLEM = '''"""-p cylinder, extrapolation="no_extrapolation", fluid-only d at 0 (chip_smoke.py phase 3)."""
+import numpy as np
+
+from vasp_tpu_torch.fem.dirichlet import DirichletBC
+from vasp_tpu_torch.models.cylinder import (  # noqa: F401
+    get_mesh_domain_and_boundaries, post_solve, pre_solve)
+from vasp_tpu_torch.models.cylinder import create_bcs as _create_bcs
+from vasp_tpu_torch.models.cylinder import set_problem_parameters as _parameters
+
+
+def set_problem_parameters(default_variables, **namespace):
+    _parameters(default_variables)
+    default_variables.update(extrapolation="no_extrapolation")
+    return default_variables
+
+
+def create_bcs(space, mesh, dx_s_id, **namespace):
+    out = _create_bcs(space=space, mesh=mesh, dx_s_id=dx_s_id, **namespace)
+    solid = np.unique(space.cell_dofs_p2[mesh.cell_markers == dx_s_id])
+    fluid_only = np.setdiff1d(np.arange(space.n_p2), solid)
+    out["bcs"].append(DirichletBC(space.field_dofs("d", fluid_only), 0.0))
+    return out
+'''
 # a small tube (bench.py's physics) for the forced ladder runs
 LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
                    n_r_fluid=2, n_r_solid=1, n_z=5)
@@ -378,11 +456,46 @@ REPLACES = {
     "spectral_power": (CSRC + "postproc.cu",
                        "vasp_tpu/postprocessing/spectral/core.py:34 and :57",
                        "postproc"),
+    "fluid_residual_elastic": (CSRC + "element_kernels.cu",
+                               "vasp_tpu/fem/forms.py:191 (elastic lifting)",
+                               "elastic_lu"),
+    "fluid_residual_elastic_f32": (CSRC + "element_kernels.cu",
+                                   "vasp_tpu/fem/forms.py:191 (elastic "
+                                   "lifting) via vasp_tpu/fem/assembly.py:83 "
+                                   "(dtype=float32)", "elastic"),
+    "fluid_jacobian_elastic": (CSRC + "element_kernels.cu",
+                               "vasp_tpu/fem/assembly.py:92 (elastic "
+                               "lifting)", "elastic_lu"),
+    "fluid_jacobian_elastic_f32": (CSRC + "element_kernels.cu",
+                                   "vasp_tpu/fem/assembly.py:92 (elastic "
+                                   "lifting)", "elastic"),
+    "fluid_residual_nolift": (CSRC + "element_kernels.cu",
+                              "vasp_tpu/fem/forms.py:195 (no_extrapolation)",
+                              "nolift_lu"),
+    "fluid_residual_nolift_f32": (CSRC + "element_kernels.cu",
+                                  "vasp_tpu/fem/forms.py:195 "
+                                  "(no_extrapolation) via "
+                                  "vasp_tpu/fem/assembly.py:83 "
+                                  "(dtype=float32)", "nolift_f32f"),
+    "fluid_jacobian_nolift": (CSRC + "element_kernels.cu",
+                              "vasp_tpu/fem/assembly.py:92 "
+                              "(no_extrapolation)", "nolift_lu"),
+    "fluid_jacobian_nolift_f32": (CSRC + "element_kernels.cu",
+                                  "vasp_tpu/fem/assembly.py:92 "
+                                  "(no_extrapolation)", "nolift_f32f"),
+    "lift_correction": (CSRC + "lifting.cu",
+                        "vasp_tpu/fem/biharmonic.py:135", "biharmonic_krylov"),
+    "lift_correction_f32": (CSRC + "lifting.cu",
+                            "vasp_tpu/fem/biharmonic.py:135 (float32 "
+                            "Krylov matvec)", "biharmonic_krylov"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
                  "ruiz_scale", "banded_assemble", "banded_apply"}
 _KRYLOV = _KRYLOV_FLUID | {"solid_jacobian_f32"}
+# the Krylov path's kernels but the fluid's Jacobian (a run whose fluid
+# block is an elastic or no-lifting one launches that instance's)
+_KRYLOV_SOLID = _KRYLOV - {"fluid_jacobian_f32"}
 _MEASURES = {"dg0_project_speed", "integrate_p2_dot_n"}
 _ROBIN_F32 = {"robin_residual_f32", "robin_jacobian_f32", "elem_matvec_36",
               "ruiz_sweep_36", "ruiz_scale_36"}
@@ -412,6 +525,23 @@ PATHS = {
     "avf": _MR_F32F | {"dg0_project_jacobian"},
     "postproc": {"wss_load", "stress_strain_svk", "stress_strain_mr",
                  "max_eig", "spectral_power"},
+    "biharmonic_tiny_lu": {"fluid_residual", "solid_residual",
+                           "fluid_jacobian", "solid_jacobian",
+                           "lift_correction"} | _MEASURES,
+    "elastic_lu": {"fluid_residual_elastic", "solid_residual",
+                   "fluid_jacobian_elastic", "solid_jacobian"} | _MEASURES,
+    "nolift_lu": {"fluid_residual_nolift", "solid_residual",
+                  "fluid_jacobian_nolift", "solid_jacobian"} | _MEASURES,
+    "nolift_f32f": {"fluid_residual_nolift_f32", "solid_residual_f32",
+                    "fluid_jacobian_nolift_f32"} | _KRYLOV_SOLID | _MEASURES,
+    "biharmonic_krylov": {"lift_correction", "lift_correction_f32",
+                          "fluid_residual_f32", "solid_residual_f32",
+                          "dg0_project_jacobian"} | _ROBIN_F32 | _KRYLOV
+    | _MEASURES,
+    "biharmonic_lu": {"lift_correction", "fluid_residual", "solid_residual",
+                      "fluid_jacobian", "solid_jacobian"} | _MEASURES,
+    "elastic": {"fluid_residual_elastic_f32", "solid_residual_f32",
+                "fluid_jacobian_elastic_f32"} | _KRYLOV_SOLID | _MEASURES,
 }
 
 
@@ -533,12 +663,14 @@ def phase_device():
 
 
 def check_f32_residual_sass(build):
-    """The float32 residual instances (the fluid cells' K1, the solid
-    cells' K2 in St.Venant-Kirchhoff and in Mooney-Rivlin, and the Robin
-    facets' K14) must do no float64 arithmetic (a stray double literal,
-    parameter or math call would promote their math): count the f64
-    arithmetic instructions in their SASS. Only the input roundings (F2F)
-    and the float64 scatter (RED.ADD.F64) may touch f64."""
+    """The float32 residual instances (the fluid cells' K1 with Laplace,
+    elastic and no mesh lifting, the solid cells' K2 in St.Venant-Kirchhoff
+    and in Mooney-Rivlin, and the Robin facets' K14) and the float32
+    biharmonic lifting correction (K16's three kernels) must do no float64
+    arithmetic (a stray double literal, parameter or math call would
+    promote their math): count the f64 arithmetic instructions in their
+    SASS. Only the input roundings (F2F) and the float64 scatter
+    (RED.ADD.F64) may touch f64."""
     import re
 
     tool = Path("/usr/local/cuda/bin/cuobjdump")
@@ -546,9 +678,10 @@ def check_f32_residual_sass(build):
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     funcs = [f for f in sass.split("Function : ")[1:]
-             if "residual_kernelIf" in f.split("\n", 1)[0]]
-    require(len(funcs) == 4, f"found {len(funcs)} float32 residual "
-                             f"instances in the SASS, expected 4")
+             if re.search(r"(residual|lift_\w+)_kernelIf",
+                          f.split("\n", 1)[0])]
+    require(len(funcs) == 9, f"found {len(funcs)} float32 residual and "
+                             f"lifting instances in the SASS, expected 9")
     for f in funcs:
         n = len(re.findall(r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b", f))
         print(f"    SASS of {f.split(chr(10), 1)[0].strip()[:90]}: {n} "
@@ -1225,6 +1358,86 @@ def phase_mr_kernels(records):
         records[name]["variants"] = {"vein": r}
 
 
+def phase_lifting_kernels(records, system, U, U0):
+    """At the 20,832-cell tube: the fluid's elastic and no-lifting
+    instances of K1/K3 against their plain versions (their own records),
+    p_stab on the Laplace and the elastic instance and the solid's gravity
+    (variants, by the same checks), and K16 in float64 and float32 on the tube's biharmonic
+    tables (bc1, beta = 1) with cuSPARSE's SpMV of the correction's CSR
+    as its yardstick."""
+    import dataclasses
+
+    import torch
+
+    from vasp_tpu_torch.fem.biharmonic import build_biharmonic, correction_csr
+    from vasp_tpu_torch.fem.forms import make_fluid_kernel, make_solid_kernel
+    from vasp_tpu_torch.kernels import lifting
+
+    (fluid,) = [b for b in system.assembler.blocks if b.kernel.kind == "fluid"]
+    (solid,) = [b for b in system.assembler.blocks if b.kernel.kind == "solid"]
+    fk, sk = fluid.kernel, solid.kernel
+
+    def fluid_block(**kw):
+        return dataclasses.replace(fluid, kernel=make_fluid_kernel(
+            fk.rho_f, fk.mu_f, fk.dt, fk.theta, lift_sub=fk.lift_sub,
+            lift_coeff=fk.lift_coeff, quad_degree=fk.quad_degree, **kw))
+
+    element_block_records(records, fluid_block(lift="elastic"), U, U0,
+                          " elastic")
+    element_block_records(records, fluid_block(lift="no_extrapolation"), U,
+                          U0, " nolift")
+    # p_stab and gravity are parameters of existing instances: kept as
+    # variants of those instances' records
+    for variant, b in (
+            ("p_stab", fluid_block(p_stab=P_STAB)),
+            ("p_stab", fluid_block(lift="elastic", p_stab=P_STAB)),
+            ("gravity", dataclasses.replace(solid, kernel=make_solid_kernel(
+                sk.props, sk.dt, sk.theta, gravity=GRAVITY,
+                quad_degree=sk.quad_degree)))):
+        sub = Records()
+        element_block_records(sub, b, U, U0, f" {variant}")
+        for name, r in sub.items():
+            records[name].setdefault("variants", {})[variant] = r
+
+    space = system.space
+    lift = build_biharmonic(system.mesh, space, [1], sub_type="bc1",
+                            quad_degree=3, beta=1.0, device="cuda")
+    K = lift["p2dofs"].shape[0]
+    ndof, n_d = space.ndof, 3 * space.n_p2
+    C = correction_csr(lift, ndof)
+    print(f"[2] K16 on the tube's biharmonic tables (bc1, beta = 1): "
+          f"{K} fluid cells, {space.n_p2} P2 nodes, the correction's CSR "
+          f"{C.nnz} nonzeros")
+    for dt, kind in ((torch.float64, "f64"), (torch.float32, "f32")):
+        x = U.to(dt)
+        name = lifting.counter_name(x)
+        ck = lifting.correction_cuda(lift, x)
+        cp = lifting.correction_plain(lift, x)
+        tol = TOL_F64
+        if dt == torch.float32:
+            c64 = lifting.correction_plain(lift, x.double())
+            tol = (2 * float((cp.double() - c64).norm())
+                   + 1e-14 * float(c64.norm())) / float(cp.double().norm())
+        Cs = torch.sparse_csr_tensor(
+            torch.as_tensor(C.indptr, dtype=torch.int64),
+            torch.as_tensor(C.indices, dtype=torch.int64),
+            torch.as_tensor(C.data, dtype=dt), (ndof, ndof)).to("cuda")
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(Cs, x[:, None]), 50)
+        lib_rel = rel_err(torch.sparse.mm(Cs, x[:, None])[:, 0], cp)[0]
+        print(f"    cuSPARSE SpMV of the correction's {kind} CSR: "
+              f"{lib_ms:.4f} ms, rel {lib_rel:.3e} from the plain version")
+        del Cs
+        work = (nbytes(lift["Ke"], lift["p2dofs"], lift["minv"],
+                       lift["wfree"], lift["dmask"])
+                + n_d * x.element_size() + nbytes(ck),
+                count_ops(lambda: lifting.correction_plain(lift, x)), kind)
+        records.add(name, rel_err(ck, cp),
+                    cuda_ms(lambda: lifting.correction_cuda(lift, x), 100),
+                    cuda_ms(lambda: lifting.correction_plain(lift, x), 20),
+                    work, tol, f"K={K} {kind} -> ({ndof},)",
+                    library_ms=lib_ms)
+
+
 def phase_kernels():
     import torch
 
@@ -1234,6 +1447,7 @@ def phase_kernels():
               f"{b.name}={b.dofs.shape[0]}" for b in system.assembler.blocks))
     records = Records()
     phase_element_kernels(records, system, U, U0)
+    phase_lifting_kernels(records, system, U, U0)
     extra = phase_iterative_kernels(records, system, bc)
     del system, U, U0
     torch.cuda.empty_cache()
@@ -1257,44 +1471,52 @@ def _run_quiet(overrides, problem="cylinder"):
 
 
 # the path parity runs of phase 3: (problem, its tiny run, label, config
-# keys, tolerance on U)
+# keys, tolerance on U, the path of PATHS whose launches the card's run
+# reports or None): the f64 Robin, MR, elastic and no-lifting kernels and
+# the float32 no-lifting ones launch on no other path
 PARITY = (
-    ("cylinder", TINY, "LU", {}, TOL_PATH_LU),
-    ("cylinder", TINY, "gmres", dict(linear_solver="gmres"), TOL_PATH_GMRES),
-    ("cylinder", TINY, "f32f", BENCH_CFG, TOL_PATH_F32F),
-    ("aneurysm", TINY_ANEURYSM, "LU", {}, TOL_PATH_LU),
-    ("aneurysm", TINY_ANEURYSM, "f32f", BENCH_CFG, TOL_PATH_F32F),
-    ("predeform", TINY_PREDEFORM, "LU", {}, TOL_PATH_LU),
-    ("avf", TINY_AVF, "LU", {}, TOL_PATH_LU),
+    ("cylinder", TINY, "LU", {}, TOL_PATH_LU, None),
+    ("cylinder", TINY, "gmres", dict(linear_solver="gmres"), TOL_PATH_GMRES,
+     None),
+    ("cylinder", TINY, "f32f", BENCH_CFG, TOL_PATH_F32F, None),
+    ("aneurysm", TINY_ANEURYSM, "LU", {}, TOL_PATH_LU, "aneurysm_lu"),
+    ("aneurysm", TINY_ANEURYSM, "f32f", BENCH_CFG, TOL_PATH_F32F, None),
+    ("predeform", TINY_PREDEFORM, "LU", {}, TOL_PATH_LU, "predeform_lu"),
+    ("avf", TINY_AVF, "LU", {}, TOL_PATH_LU, "avf_lu"),
+    ("cylinder", TINY_LIFT, "biharmonic LU", BIHARMONIC, TOL_PATH_LU,
+     "biharmonic_tiny_lu"),
+    ("cylinder", TINY_LIFT, "elastic+p_stab+gravity LU", ELASTIC,
+     TOL_PATH_LU, "elastic_lu"),
+    (NO_LIFT, TINY_LIFT, "LU", {}, TOL_PATH_LU, "nolift_lu"),
+    (NO_LIFT, TINY, "f32f", BENCH_CFG, TOL_PATH_F32F, "nolift_f32f"),
 )
-# the LU runs on the card whose launches a path of PATHS reads: the f64
-# Robin kernels and the f64 MR kernels launch on no other path
-LU_PATHS = ("aneurysm", "predeform", "avf")
 
 
 def phase_parity(tmp):
     """The path parity runs, then the forced ladder runs; returns the
-    launches of the forced ladder runs on the card and of the tiny
-    aneurysm's, predeform's and AVF's LU runs on the card (counters reset
-    just before each)."""
+    launches of the forced ladder runs on the card and of the parity runs
+    on the card that name a path (counters reset just before each)."""
     from vasp_tpu_torch.kernels import build
 
+    (tmp / f"{NO_LIFT}.py").write_text(NO_LIFT_PROBLEM)
     launches = {}
-    for problem, tiny, label, extra, tol in PARITY:
+    for problem, tiny, label, extra, tol, path in PARITY:
         name = f"tiny {problem}, {label} path"
+        tag = f"{problem}_{label}".replace(" ", "_").replace("+", "_")
+        run_problem = str(tmp / f"{NO_LIFT}.py") if problem == NO_LIFT \
+            else problem
         tic = time.perf_counter()
         ns_c, it_c, _ = _run_quiet(dict(
             tiny, device="cpu", **extra,
-            folder=str(tmp / f"tiny_cpu_{problem}_{label}")), problem)
+            folder=str(tmp / f"tiny_cpu_{tag}")), run_problem)
         t_cpu = time.perf_counter() - tic
         build.reset_launch_counts()
         tic = time.perf_counter()
         ns_g, it_g, log = _run_quiet(dict(
             tiny, device="cuda", **extra,
-            folder=str(tmp / f"tiny_{problem}_{label}")), problem)
+            folder=str(tmp / f"tiny_{tag}")), run_problem)
         t_gpu = time.perf_counter() - tic
-        if label == "LU" and problem in LU_PATHS:
-            path = f"{problem}_lu"
+        if path is not None:
             launches[path] = dict(build.LAUNCHES)
             check_launches(path, launches[path])
             print(f"[3] {name}: launches {launches[path]}")
@@ -1303,8 +1525,9 @@ def phase_parity(tmp):
         Uc = ns_c["dvp_"]["n"]
         Ug = ns_g["dvp_"]["n"].cpu()
         rel = float((Ug - Uc).norm() / Uc.norm())
+        krylov = "linear_solver" in extra
         tiers = [[h["tiers"] for h in ns["solver"].stepper.history]
-                 if label != "LU" else [] for ns in (ns_c, ns_g)]
+                 if krylov else [] for ns in (ns_c, ns_g)]
         steps = round(tiny["T"] / tiny["dt"])
         print(f"[3] {name} ({ns_c['mesh'].num_cells} cells, {steps} steps): "
               f"Newton iterations cpu {it_c} cuda {it_g}; ladder tiers cpu "
@@ -1487,13 +1710,64 @@ def print_steps(secs, newton):
 
 
 def phase_lu(tmp):
+    """Phase 4; returns the launches and the host splu seconds."""
     print("[4] cylinder, LU path:")
     ns, launches = run_main_path(tmp, "lu", LU_MESH)
     timings = dict(ns["solver"].timings)
     print(f"    factorizations {ns['solver'].factorizations}; solver time "
           f"split (s): " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in sorted(timings.items())))
-    return launches
+    return launches, timings["splu"]
+
+
+def phase_lifting(tmp, records, lu_splu_s):
+    """Phase 11: biharmonic lifting on the Krylov path (11a, -p aneurysm
+    at 20,832 cells, bc2, beta = 1e-2, bench configuration) and on the LU
+    path (11b, -p cylinder at 2,520 cells, bc1, beta = 1), elastic lifting
+    on the bench configuration (11c, -p cylinder at 20,832 cells); each
+    with the checks and lines of phase 5 (every step converged; a profiled
+    step on the Krylov path)."""
+    import gc
+
+    import torch
+
+    out = {}
+    print("[11a] aneurysm, biharmonic lifting (bc2, biharmonic_beta=1e-2), "
+          "bench configuration, 20,832 cells, 5 steps of dt=1e-3:")
+    ns, out["biharmonic_krylov"] = run_main_path(
+        tmp, "biharmonic_krylov", MODEL_MESH, problem="aneurysm",
+        **BENCH_CFG, **BIHARMONIC_KRYLOV)
+    out["k5_biharmonic_krylov"] = report_stepper(ns["solver"].stepper,
+                                                 records)
+    report_model_lines(ns, "aneurysm", 5)
+    profile_one_step(ns)
+    del ns
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[11b] cylinder, biharmonic lifting (bc1, beta = 1), LU path, "
+          "2,520 cells, 3 steps of dt=1e-3:")
+    ns, out["biharmonic_lu"] = run_main_path(
+        tmp, "biharmonic_lu", LU_MESH, T=0.003, **BIHARMONIC)
+    solver = ns["solver"]
+    timings = dict(solver.timings)
+    print(f"    factorizations {solver.factorizations}; solver time split "
+          f"(s): " + ", ".join(f"{k} {v:.3f}"
+                               for k, v in sorted(timings.items())))
+    A = solver.state.A_s
+    print(f"    host splu {timings['splu']:.3f} s against phase 4's "
+          f"{lu_splu_s:.3f} s (Laplace lifting); the factorized matrix has "
+          f"{A.nnz} nonzeros, its biharmonic correction "
+          f"{solver._lift_csr.nnz}")
+    del ns, solver, A
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[11c] cylinder, elastic lifting, bench configuration, 20,832 "
+          "cells, 5 steps of dt=1e-3:")
+    ns, out["elastic"] = run_main_path(
+        tmp, "elastic", FULL_MESH, extrapolation="elastic", **BENCH_CFG)
+    out["k5_elastic"] = report_stepper(ns["solver"].stepper, records)
+    profile_one_step(ns)
+    return out
 
 
 def report_stepper(st, records):
@@ -2177,25 +2451,37 @@ def phase_postproc(records, series):
 
 
 def main():
+    start = time.perf_counter()
+
+    def elapsed(label):
+        print(f"[time] {label} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
+
     phase_device()
     import gc
 
     import torch
 
+    elapsed("phase 1")
     records, extra = phase_kernels()
+    elapsed("phase 2")
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
         launches = phase_parity(tmp)
-        launches["lu"] = phase_lu(tmp)
+        elapsed("phase 3")
+        launches["lu"], lu_splu_s = phase_lu(tmp)
+        elapsed("phase 4")
         launches["gmres"], extra["k5_bound_ms_gmres"] = phase_krylov(
             tmp, records, "gmres", "[5] cylinder, Newton-Krylov path "
             "(linear_solver=gmres):", linear_solver="gmres")
+        elapsed("phase 5")
         gc.collect()
         torch.cuda.empty_cache()
         launches["f32f"], extra["k5_bound_ms_f32f"] = phase_krylov(
             tmp, records, "f32f", "[6] cylinder, bench configuration "
             "(residual_dtype=f32f, krylov_dtype=f32, gmres_tol=1e-3, "
             "jac_recompute=2, atol=1e-6):", **BENCH_CFG)
+        elapsed("phase 6")
         gc.collect()
         torch.cuda.empty_cache()
         series = {}
@@ -2204,7 +2490,11 @@ def main():
                 series[label[7:]] = val
                 continue
             launches[label], extra[f"k5_bound_ms_{label}"] = val
-        for phase in (phase_predeform, phase_avf):
+        elapsed("phase 8")
+        phases = (phase_predeform, phase_avf,
+                  lambda tmp, records: phase_lifting(tmp, records,
+                                                     lu_splu_s))
+        for phase in phases:
             gc.collect()
             torch.cuda.empty_cache()
             for key, val in phase(tmp, records).items():
@@ -2214,13 +2504,16 @@ def main():
                     series[key[7:]] = val
                 else:
                     launches[key] = val
+            elapsed("phase 9" if phase is not phases[-1] else "phase 11")
     gc.collect()
     torch.cuda.empty_cache()
     launches["postproc"] = phase_postproc(records, series)
+    elapsed("phase 10")
     del series
     gc.collect()
     torch.cuda.empty_cache()
     launches["bench"], extra["k5_bound_ms_bench"] = phase_bench(records)
+    elapsed("phase 7")
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():

@@ -36,27 +36,39 @@ def test_cuda_without_card_raises(no_cuda, tiny_tube):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kernel,ok", [
-    (forms.make_fluid_kernel(**FLUID, lift_sub="constant"), True),
-    (forms.make_fluid_kernel(**FLUID, lift_sub="small_constant"), True),
-    (forms.make_fluid_kernel(**FLUID, lift_sub="volume"), True),
-    (forms.make_fluid_kernel(**FLUID, lift_sub="volume_change"), True),
-    (forms.make_fluid_kernel(**FLUID, lift="elastic"), False),
-    (forms.make_fluid_kernel(**FLUID, p_stab=0.1), False),
-    (forms.make_solid_kernel(SVK, 1e-3, 0.501), True),
-    (forms.make_solid_kernel(SVK, 1e-3, 0.501, gravity=[0, 0, -9.81]), False),
+@pytest.mark.parametrize("kernel,tail", [
+    (forms.make_fluid_kernel(**FLUID, lift_sub="constant"), (0, 0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift_sub="small_constant"),
+     (0, 0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift_sub="volume"), (1, 0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift_sub="volume_change"),
+     (2, 0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift="elastic"), (0, 1, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, p_stab=0.1), (0, 0, 0.1)),
+    (forms.make_solid_kernel(SVK, 1e-3, 0.501), (0.0, 0.0, 0.0)),
+    (forms.make_solid_kernel(SVK, 1e-3, 0.501, gravity=[0, 0, -9.81]),
+     (0.0, 0.0, -9.81)),
     (forms.make_solid_kernel(dict(SVK, material_model="MooneyRivlin",
                                   C01=2e4, C10=0.0, C11=1.8e6),
-                             1e-3, 0.501), True),
+                             1e-3, 0.501), (0.0, 0.0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift="no_extrapolation"), (0, 2, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift="biharmonic", lift_sub="bc1"),
+     (0, 0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift="biharmonic", lift_sub="bc2"),
+     (0, 0, 0.0)),
+    (forms.make_fluid_kernel(**FLUID, lift="biharmonic", lift_sub="volume"),
+     (1, 0, 0.0)),
 ], ids=["constant", "small_constant", "volume", "volume_change", "elastic",
-        "p_stab", "svk", "gravity", "mooney_rivlin"])
-def test_cuda_kernels_cover_their_configurations(kernel, ok):
-    if ok:
-        params = element.cuda_params(kernel)
-        assert all(isinstance(p, (int, float)) for p in params)
-    else:
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            element.cuda_params(kernel)
+        "p_stab", "svk", "gravity", "mooney_rivlin", "no_extrapolation",
+        "biharmonic_bc1", "biharmonic_bc2", "biharmonic_volume"])
+def test_cuda_kernels_cover_their_configurations(kernel, tail):
+    """Every configuration of the plain forms has its CUDA parameters: the
+    fluid's (lifting sub-type code, lifting mode, p_stab; biharmonic on the
+    Laplace branch, bc1/bc2 with the constant coefficient), the solid's
+    gravity last."""
+    params = element.cuda_params(kernel)
+    assert all(isinstance(p, (int, float)) for p in params)
+    assert params[-3:] == tail
 
 
 def test_mr_block_counts_under_its_own_name():
@@ -76,8 +88,31 @@ def test_mr_block_counts_under_its_own_name():
         "solid_jacobian", "solid_jacobian_f32", "fluid_residual",
         "fluid_residual_f32", "fluid_jacobian", "fluid_jacobian_f32"]
     assert set(names) <= set(build.LAUNCHES)
-    assert element.cuda_params(mr)[5:] == (1, 2e4, 0.0, 1.8e6)
-    assert element.cuda_params(svk)[5:] == (0, 0.0, 0.0, 0.0)
+    assert element.cuda_params(mr)[5:] == (1, 2e4, 0.0, 1.8e6, 0.0, 0.0, 0.0)
+    assert element.cuda_params(svk)[5:] == (0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+
+
+def test_lifting_blocks_count_under_their_own_names():
+    """The elastic and the no-lifting fluid instances of K1/K3 count under
+    their own names; the biharmonic fluid block is a Laplace one; K16
+    counts per dtype."""
+    from vasp_tpu_torch.kernels import lifting
+
+    names = [element.counter_name(SimpleNamespace(
+        kernel=forms.make_fluid_kernel(**FLUID, lift=lift)), op, f32)
+        for lift in ("elastic", "no_extrapolation", "biharmonic")
+        for op in ("residual", "jacobian") for f32 in (False, True)]
+    assert names == [
+        "fluid_residual_elastic", "fluid_residual_elastic_f32",
+        "fluid_jacobian_elastic", "fluid_jacobian_elastic_f32",
+        "fluid_residual_nolift", "fluid_residual_nolift_f32",
+        "fluid_jacobian_nolift", "fluid_jacobian_nolift_f32",
+        "fluid_residual", "fluid_residual_f32", "fluid_jacobian",
+        "fluid_jacobian_f32"]
+    lift_names = [lifting.counter_name(torch.zeros(1, dtype=dt))
+                  for dt in (torch.float64, torch.float32)]
+    assert lift_names == ["lift_correction", "lift_correction_f32"]
+    assert set(names + lift_names) <= set(build.LAUNCHES)
 
 
 def test_dispatch_refuses_other_devices(tiny_tube):
@@ -88,14 +123,43 @@ def test_dispatch_refuses_other_devices(tiny_tube):
         element.block_residual(block, U, U, U)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (dict(extrapolation="biharmonic"), 10),
-    (dict(extrapolation="biharmonic", extrapolation_sub_type="volume"), 10),
-    (dict(n_devices=4), 13),
-])
+# the id the n_devices case had beside the two biharmonic cases, which
+# went with the refusal they tested
+@pytest.mark.parametrize("extra,item", [(dict(n_devices=4), 13)],
+                         ids=["extra2-13"])
 def test_unported_options_raise(tiny_tube, extra, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         FSISystem(tiny_tube, dict(CFG, **extra))
+
+
+@pytest.mark.parametrize("sub_type", ["bc1", "volume"])
+def test_biharmonic_options_build(tiny_tube, sub_type):
+    """extrapolation="biharmonic" builds on the CPU: the correction's
+    tables on the system's device, the fluid block on the Laplace branch
+    with beta*gamma, both solvers holding the tables."""
+    cfg = dict(CFG, extrapolation="biharmonic",
+               extrapolation_sub_type=sub_type, biharmonic_beta=0.5)
+    system = FSISystem(tiny_tube, cfg)
+    lift = system.lift
+    assert lift["beta"] == 0.5 and lift["beta_gamma"] > 0.0
+    assert lift["Ke"].device.type == "cpu"
+    (fluid,) = [b.kernel for b in system.assembler.blocks
+                if b.kernel.kind == "fluid"]
+    assert fluid.lift_coeff == lift["beta_gamma"]
+    assert element.cuda_params(fluid)[5] == (1 if sub_type == "volume" else 0)
+    bcs = system.make_bcset([])
+    assert system.make_solver(bcs).lift is lift
+    gmres = FSISystem(tiny_tube, dict(cfg, linear_solver="gmres"))
+    assert gmres.make_solver(gmres.make_bcset([])).stepper._lift is not None
+
+
+def test_lift_correction_refuses_other_devices(tiny_tube):
+    from vasp_tpu_torch.kernels import lifting
+
+    system = FSISystem(tiny_tube, dict(CFG, extrapolation="biharmonic"))
+    U = torch.zeros(system.space.ndof, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        lifting.correction_apply(system.lift, U)
 
 
 @pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
@@ -214,7 +278,12 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "robin_residual_f32", "robin_jacobian", "robin_jacobian_f32",
         "elem_matvec_36", "ruiz_sweep_36", "ruiz_scale_36", "wss_load",
         "stress_strain_svk", "stress_strain_mr", "max_eig",
-        "spectral_power"}
+        "spectral_power", "fluid_residual_elastic",
+        "fluid_residual_elastic_f32", "fluid_jacobian_elastic",
+        "fluid_jacobian_elastic_f32", "fluid_residual_nolift",
+        "fluid_residual_nolift_f32", "fluid_jacobian_nolift",
+        "fluid_jacobian_nolift_f32", "lift_correction",
+        "lift_correction_f32"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

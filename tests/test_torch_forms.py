@@ -56,6 +56,8 @@ FLUID_CASES = [
     dict(lift="elastic", lift_sub="constant", lift_coeff=1.0),
     dict(lift="no_extrapolation"),
     dict(lift="laplace", lift_sub="constant", p_stab=0.1),
+    dict(lift="biharmonic", lift_sub="bc1", lift_coeff=2.3),
+    dict(lift="biharmonic", lift_sub="volume", lift_coeff=2.3),
 ]
 
 

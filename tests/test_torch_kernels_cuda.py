@@ -23,6 +23,10 @@ each with its reason:
   entry) and K20c (spectral power): float64, 1e-12 relative to each
   output's scale; the eigenvalues 1e-10 of their scale (acos near
   r = +-1 turns a rounding change of r into ~1e-8 of p);
+- K16 (biharmonic lifting correction): float64 1e-12; float32 by the
+  K1/K2 f32 rule, against the float64 correction of the same input;
+- the fluid's elastic and no-lifting instances, p_stab and gravity: the
+  rules of K1/K2/K3 above;
 - K6: no fixed bound. Its float32 c-term dot products run in another
   order than torch's, and the scans carry the difference through 2 nb - 1
   steps, amplified by the factors' norms. The kernel must be as accurate
@@ -500,3 +504,105 @@ def test_spectral_power_kernel(even):
     got = postproc.spectral_power_cuda(X, 0.37, even)
     torch.cuda.synchronize()
     _close_to_scale(got, postproc.spectral_power_plain(X, 0.37, even), RTOL)
+
+
+# ------------------------------------------- lifting and body force --
+# the element kernels' lifting and body-force options: each variant is
+# the tiny tube's fluid or solid block with another kernel
+LIFT_VARIANTS = {
+    "elastic": (0, dict(lift="elastic")),
+    "elastic_p_stab": (0, dict(lift="elastic", p_stab=0.1)),
+    "no_extrapolation": (0, dict(lift="no_extrapolation")),
+    "laplace_p_stab": (0, dict(p_stab=0.1)),
+    "biharmonic_volume": (0, dict(lift="biharmonic", lift_sub="volume",
+                                  lift_coeff=2.3)),
+    "gravity": (1, dict(gravity=[0.0, 0.0, -9.81])),
+    "gravity_mr": (1, dict(gravity=[0.0, 0.0, -9.81])),
+}
+
+
+def _variant_block(sysm, mr_block, name):
+    import dataclasses
+
+    from vasp_tpu_torch.fem import forms
+
+    i, kw = LIFT_VARIANTS[name]
+    b = sysm.assembler.blocks[i]
+    k = b.kernel
+    if i == 0:
+        kern = forms.make_fluid_kernel(
+            k.rho_f, k.mu_f, k.dt, k.theta, quad_degree=k.quad_degree,
+            **(dict(lift_sub=k.lift_sub, lift_coeff=k.lift_coeff) | kw))
+    else:
+        if name == "gravity_mr":
+            b, k = mr_block, mr_block.kernel
+        kern = forms.make_solid_kernel(k.props, k.dt, k.theta,
+                                       quad_degree=k.quad_degree, **kw)
+    return dataclasses.replace(b, kernel=kern)
+
+
+@pytest.mark.parametrize("name", sorted(LIFT_VARIANTS))
+def test_lifting_and_body_force_kernels(system, mr_system, name):
+    """K1/K2 (f64 and f32) and K3 (f64 and f32) with a lifting or
+    body-force option against their plain versions, counted under the
+    block's own names (the _elastic and _nolift instances; p_stab and
+    gravity are parameters of the existing ones)."""
+    _, U, U0 = system
+    mr_b, Umr, U0mr = mr_system
+    if name == "gravity_mr":
+        U, U0 = Umr, U0mr
+    b = _variant_block(system[0], mr_b, name)
+    names = [element.counter_name(b, op, f32) for op in ("residual",
+                                                         "jacobian")
+             for f32 in (False, True)]
+    n0 = [build.LAUNCHES[n] for n in names]
+    Rk = element.block_residual(b, U, U0, torch.zeros_like(U))
+    Rp = element.residual_plain(b, U, U0, torch.zeros_like(U))
+    assert _rel(Rk, Rp) <= RTOL
+    Rk32 = element.block_residual(b, U, U0, torch.zeros_like(U),
+                                  torch.float32)
+    Rp32 = element.residual_plain(b, U, U0, torch.zeros_like(U),
+                                  torch.float32)
+    assert float((Rk32 - Rp32).norm()) <= 2 * float((Rp32 - Rp).norm()) \
+        + 1e-14 * float(Rp.norm())
+    Ap = element.jacobian_plain(b, U, U0)
+    K = Ap.shape[0]
+    for dt, tol in ((torch.float64, RTOL), (torch.float32, 2e-7)):
+        Ak = element.block_jacobian(b, U, U0, dt)
+        per_block = (Ak - Ap.to(dt)).double().reshape(K, -1).norm(dim=1) / \
+            Ap.to(dt).double().reshape(K, -1).norm(dim=1)
+        assert float(per_block.max()) <= tol
+    torch.cuda.synchronize()
+    assert [build.LAUNCHES[n] for n in names] == [x + 1 for x in n0]
+
+
+@pytest.mark.parametrize("sub_type", ["bc1", "bc2"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_lift_correction_kernel(system, sub_type, dtype):
+    """K16 against its plain version on the tiny tube's biharmonic tables:
+    float64 1e-12; float32 as accurate as the plain version, i.e. its
+    distance to the float64 correction of the same input at most twice the
+    plain version's plus 1e-14 of it (both sum the two L applications in
+    float32, in other orders)."""
+    from vasp_tpu_torch.kernels import lifting
+
+    sysm, U, _ = system
+    bih = FSISystem(sysm.mesh, dict(sysm.cfg, extrapolation="biharmonic",
+                                    extrapolation_sub_type=sub_type))
+    x = U.to(dtype)
+    name = lifting.counter_name(x)
+    n0 = build.LAUNCHES[name]
+    ck = lifting.correction_apply(bih.lift, x)
+    cp = lifting.correction_plain(bih.lift, x)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == n0 + 1
+    assert ck.dtype == dtype and ck.shape == x.shape
+    n_d = 3 * bih.space.n_p2
+    assert not ck[n_d:].any()
+    if dtype == torch.float64:
+        assert _rel(ck, cp) <= RTOL
+        return
+    c64 = lifting.correction_plain(bih.lift, x.double())
+    assert float((ck.double() - cp.double()).norm()) <= \
+        2 * float((cp.double() - c64).norm()) + 1e-14 * float(c64.norm())

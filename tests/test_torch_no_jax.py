@@ -46,6 +46,7 @@ SLICE = [
     "vasp_tpu_torch.postprocessing.spectral.figures",
     "vasp_tpu_torch.postprocessing.spectral.point_trace",
     "vasp_tpu_torch.postprocessing.log_plotter", "vasp_tpu_torch.cli",
+    "vasp_tpu_torch.fem.biharmonic", "vasp_tpu_torch.kernels.lifting",
 ]
 
 

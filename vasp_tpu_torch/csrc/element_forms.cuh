@@ -1,9 +1,12 @@
 // One cell's monolithic FSI element residual, templated on its scalar type.
 //
 // Replaces the element math of vasp_tpu/fem/forms.py: make_fluid_kernel
-// (ALE Navier-Stokes + continuity + Laplace lifting) and make_solid_kernel
-// with vasp_tpu/fem/kinematics.py (total-Lagrangian St.Venant-Kirchhoff or
-// compressible Mooney-Rivlin + kinematic row). The plain torch twin is
+// (ALE Navier-Stokes + continuity, with or without the Brezzi-Pitkaranta
+// pressure stabilization, + Laplace, elastic or no mesh lifting; the
+// biharmonic lifting's element part is the Laplace one) and
+// make_solid_kernel with vasp_tpu/fem/kinematics.py (total-Lagrangian
+// St.Venant-Kirchhoff or compressible Mooney-Rivlin, gravity, + kinematic
+// row). The plain torch twin is
 // vasp_tpu_torch/fem/forms.py with fem/kinematics.py; the expressions below
 // follow it term for term. vasp_tpu gets S from jax.grad of the strain
 // energy and its Jacobian from jax.jacfwd over that; here S is closed form
@@ -101,6 +104,10 @@ __device__ inline float vt_log1p(float a) { return log1pf(a); }
 __device__ inline double vt_log1p(double a) { return log1p(a); }
 __device__ inline Dual vt_log1p(Dual a) { return Dual(log1p(a.v), a.d / (1.0 + a.v)); }
 
+// pow on the real types (the pressure stabilization's h^2 = (6 vol)^(2/3))
+__device__ inline float vt_pow(float a, float b) { return powf(a, b); }
+__device__ inline double vt_pow(double a, double b) { return pow(a, b); }
+
 // the type of everything a residual does not differentiate
 template <class T>
 struct RealOf { using type = T; };
@@ -110,40 +117,54 @@ template <class T>
 using Real = typename RealOf<T>::type;
 
 // ------------------------------------------------------------ params --
-// lift_sub: 0 = constant / small_constant (coefficient baked into
-// lift_coeff), 1 = volume, 2 = volume_change. Other extrapolations,
-// p_stab and gravity are refused by the Python wrapper. The derived
+// The mesh lifting of the fluid residual, a template parameter (each mode
+// is its own kernel instance): Laplace (extrapolation "laplace", and the
+// first L application of "biharmonic"), elastic, or none
+// ("no_extrapolation": zero d rows).
+constexpr int kLiftLaplace = 0;
+constexpr int kLiftElastic = 1;
+constexpr int kLiftNone = 2;
+
+// lift_sub (Laplace lifting): 0 = constant / small_constant and every other
+// sub-type (coefficient baked into lift_coeff), 1 = volume, 2 =
+// volume_change. p_stab = 0 skips the pressure stabilization. The derived
 // constants (rho/dt, 1 - theta, 2 mu) are formed in double on the host and
 // rounded once, as the plain version's Python floats are.
 template <class S>
 struct FluidParams {
-  S rho, mu, dt, theta, one_m_theta, rho_dt, lift_coeff;
+  S rho, mu, dt, theta, one_m_theta, rho_dt, lift_coeff, p_stab;
   int lift_sub;
 };
 
 // C01, C10, C11 and c0 = 2 C01 + 4 C10 serve the Mooney-Rivlin material
 // only. The material is a template parameter of the solid residual (kSVK,
-// kMooneyRivlin below), so each material is its own kernel instance.
+// kMooneyRivlin below), so each material is its own kernel instance. g is
+// the gravity vector of the body force rho g (zero when none is given:
+// subtracting rho * 0 leaves the momentum term bitwise as it was).
 template <class S>
 struct SolidParams {
   S rho, mu, lam, dt, theta, one_m_theta, rho_dt, two_mu;
   S C01, C10, C11, c0;
+  S g[3];
 };
 
 template <class S>
 inline FluidParams<S> make_fluid_params(double rho, double mu, double dt, double theta,
-                                        double lift_coeff, int lift_sub) {
-  return FluidParams<S>{S(rho), S(mu), S(dt), S(theta), S(1.0 - theta), S(rho / dt),
-                        S(lift_coeff), lift_sub};
+                                        double lift_coeff, int lift_sub, double p_stab) {
+  return FluidParams<S>{S(rho),        S(mu),      S(dt),         S(theta),
+                        S(1.0 - theta), S(rho / dt), S(lift_coeff), S(p_stab),
+                        lift_sub};
 }
 
 template <class S>
 inline SolidParams<S> make_solid_params(double rho, double mu, double lam, double dt,
                                         double theta, double C01, double C10,
-                                        double C11) {
+                                        double C11, double gx = 0.0, double gy = 0.0,
+                                        double gz = 0.0) {
   return SolidParams<S>{S(rho),       S(mu),         S(lam),      S(dt),
                         S(theta),     S(1.0 - theta), S(rho / dt), S(2.0 * mu),
-                        S(C01),       S(C10),        S(C11),      S(2.0 * C01 + 4.0 * C10)};
+                        S(C01),       S(C10),        S(C11),      S(2.0 * C01 + 4.0 * C10),
+                        {S(gx), S(gy), S(gz)}};
 }
 
 // ------------------------------------------------------------ helpers --
@@ -210,7 +231,8 @@ __device__ inline void p2_grad(const V* c, const S G[10][3], V g[3][3]) {
 
 // ------------------------------------------------------------- fluid --
 // u: local (64,) [d 10x3 | v 10x3 | p 4]; u0 likewise; Jinv row-major 3x3.
-template <class T>
+// LIFT: kLiftLaplace, kLiftElastic or kLiftNone.
+template <int LIFT, class T>
 __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
                                Real<T> detJ, Real<T> vol, const FluidParams<Real<T>>& P,
                                int nq, T* r) {
@@ -302,13 +324,18 @@ __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
     const T divv = Jd * (gvFi[0][0] + gvFi[1][1] + gvFi[2][2]);
 
     // Laplace lifting coefficient
-    T a_q;
-    if (P.lift_sub == 2)
-      a_q = P.lift_coeff / Jd;
-    else if (P.lift_sub == 1)
-      a_q = T(P.lift_coeff / vol);
-    else
-      a_q = T(P.lift_coeff);
+    T a_q = T(zero);
+    if constexpr (LIFT == kLiftLaplace) {
+      if (P.lift_sub == 2)
+        a_q = P.lift_coeff / Jd;
+      else if (P.lift_sub == 1)
+        a_q = T(P.lift_coeff / vol);
+      else
+        a_q = T(P.lift_coeff);
+    }
+    // elastic lifting: sigma = 2 eps(d) + tr(eps(d)) I = gd + gd^T + tr(gd) I
+    T tr_gd = T(zero);
+    if constexpr (LIFT == kLiftElastic) tr_gd = gd[0][0] + gd[1][1] + gd[2][2];
 
     const S wdet = Tab<S>::wq(q) * detJ;
 #pragma unroll
@@ -316,15 +343,44 @@ __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
       const S n = Tab<S>::N2(q * 10 + a);
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        const T gdG = gd[i][0] * G[a][0] + gd[i][1] * G[a][1] + gd[i][2] * G[a][2];
         const T mgG = mom_grad[i][0] * G[a][0] + mom_grad[i][1] * G[a][1]
                     + mom_grad[i][2] * G[a][2];
-        r[a * 3 + i] += wdet * a_q * gdG;
+        if constexpr (LIFT == kLiftLaplace) {
+          const T gdG = gd[i][0] * G[a][0] + gd[i][1] * G[a][1] + gd[i][2] * G[a][2];
+          r[a * 3 + i] += wdet * a_q * gdG;
+        } else if constexpr (LIFT == kLiftElastic) {
+          const T sG = (gd[i][0] + gd[0][i]) * G[a][0] + (gd[i][1] + gd[1][i]) * G[a][1]
+                     + (gd[i][2] + gd[2][i]) * G[a][2] + tr_gd * G[a][i];
+          r[a * 3 + i] += (wdet * P.lift_coeff) * sG;
+        }
         r[30 + a * 3 + i] += (wdet * n) * mom_val[i] + wdet * mgG;
       }
     }
 #pragma unroll
     for (int b = 0; b < 4; ++b) r[60 + b] += wdet * divv * Tab<S>::N1(q * 4 + b);
+  }
+
+  // Brezzi-Pitkaranta pressure stabilization, (p_stab h^2 / mu) vol
+  // G1 G1^T p with G1 = dN1 Jinv the constant P1 gradients and h^2 =
+  // (6 vol)^(2/3); it reads only p and the geometry, once per cell
+  if (P.p_stab != zero) {
+    S G1[4][3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      G1[1][l] = Jinv[l];
+      G1[2][l] = Jinv[3 + l];
+      G1[3][l] = Jinv[6 + l];
+      G1[0][l] = -Jinv[l] - Jinv[3 + l] - Jinv[6 + l];
+    }
+    T gp[3];
+#pragma unroll
+    for (int l = 0; l < 3; ++l)
+      gp[l] = u[60] * G1[0][l] + u[61] * G1[1][l] + u[62] * G1[2][l] + u[63] * G1[3][l];
+    const S h2 = vt_pow(S(6) * vol, S(2.0 / 3.0));
+    const S c = P.p_stab * h2 / mu * vol;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      r[60 + b] += c * (G1[b][0] * gp[0] + G1[b][1] * gp[1] + G1[b][2] * gp[2]);
   }
 }
 
@@ -453,7 +509,7 @@ __device__ void solid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
     T mom_val[3], kin[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      mom_val[i] = P.rho_dt * (v_q[i] - v0_q[i]);
+      mom_val[i] = P.rho_dt * (v_q[i] - v0_q[i]) - rho * P.g[i];
       kin[i] = rho * ((d_q[i] - d0_q[i]) / P.dt - (th * v_q[i] + one_m_th * v0_q[i]));
     }
 

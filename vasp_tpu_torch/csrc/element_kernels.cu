@@ -1,6 +1,9 @@
 // K1/K2 (element residual + scatter, float64 and float32 element work) and
-// K3 (element Jacobians) on Hopper; the solid in St.Venant-Kirchhoff or
-// Mooney-Rivlin, one kernel instance per material.
+// K3 (element Jacobians) on Hopper; the fluid with Laplace, elastic or no
+// mesh lifting, the solid in St.Venant-Kirchhoff or Mooney-Rivlin, one
+// kernel instance per lifting mode and per material; the fluid's pressure
+// stabilization (p_stab) and the solid's gravity are parameters of those
+// instances, their zero values the old path.
 //
 // Replaces vasp_tpu/fem/assembly.py: CellBlock.residual_local with
 // Assembler.residual (vmapped make_fluid_kernel / make_solid_kernel, then
@@ -32,11 +35,25 @@
 
 namespace {
 
-template <class T>
-__device__ inline void eval_cell(const FluidParams<Real<T>>& P, const T* u,
+// a fluid cell with the mesh lifting LIFT (kLiftLaplace, kLiftElastic,
+// kLiftNone)
+template <class S, int LIFT>
+struct FluidCell {
+  FluidParams<S> p;
+};
+
+template <class T, int LIFT>
+__device__ inline void eval_cell(const FluidCell<Real<T>, LIFT>& C, const T* u,
                                  const Real<T>* u0, const Real<T>* Jinv, Real<T> detJ,
                                  Real<T> vol, int nq, T* r) {
-  fluid_residual(u, u0, Jinv, detJ, vol, P, nq, r);
+  fluid_residual<LIFT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
+}
+
+template <class S, int LIFT>
+inline FluidCell<S, LIFT> fluid_cell(double rho, double mu, double dt, double theta,
+                                     double lift_coeff, int lift_sub, double p_stab) {
+  return FluidCell<S, LIFT>{
+      make_fluid_params<S>(rho, mu, dt, theta, lift_coeff, lift_sub, p_stab)};
 }
 
 // a solid cell of material MAT (kSVK or kMooneyRivlin)
@@ -54,8 +71,10 @@ __device__ inline void eval_cell(const SolidCell<Real<T>, MAT>& C, const T* u,
 
 template <class S, int MAT>
 inline SolidCell<S, MAT> solid_cell(double rho, double mu, double lam, double dt,
-                                    double theta, double C01, double C10, double C11) {
-  return SolidCell<S, MAT>{make_solid_params<S>(rho, mu, lam, dt, theta, C01, C10, C11)};
+                                    double theta, double C01, double C10, double C11,
+                                    double gx, double gy, double gz) {
+  return SolidCell<S, MAT>{
+      make_solid_params<S>(rho, mu, lam, dt, theta, C01, C10, C11, gx, gy, gz)};
 }
 
 constexpr int kResidualThreads = 64;
@@ -191,31 +210,41 @@ int vt_set_element_tables(const double* wq, const double* N1, const double* N2,
 }
 
 // f32 nonzero: the float32 instance (tables of at most VT_NQ_MAX_F32 points).
+// lift_mode: kLiftLaplace, kLiftElastic or kLiftNone; any other value is
+// refused.
 int vt_fluid_residual(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
                       const double* rowmask, double* R, int f32, int K, int nq,
                       double rho, double mu, double dt, double theta,
-                      double lift_coeff, int lift_sub, void* stream) {
-  if (f32)
-    return launch_residual<float>(
-        U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
-        make_fluid_params<float>(rho, mu, dt, theta, lift_coeff, lift_sub), stream);
-  return launch_residual<double>(
-      U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,
-      make_fluid_params<double>(rho, mu, dt, theta, lift_coeff, lift_sub), stream);
+                      double lift_coeff, int lift_sub, int lift_mode, double p_stab,
+                      void* stream) {
+#define VT_FLUID(S, LIFT)                                                      \
+  launch_residual<S>(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,          \
+                     fluid_cell<S, LIFT>(rho, mu, dt, theta, lift_coeff,       \
+                                         lift_sub, p_stab),                    \
+                     stream)
+  if (lift_mode == kLiftLaplace)
+    return f32 ? VT_FLUID(float, kLiftLaplace) : VT_FLUID(double, kLiftLaplace);
+  if (lift_mode == kLiftElastic)
+    return f32 ? VT_FLUID(float, kLiftElastic) : VT_FLUID(double, kLiftElastic);
+  if (lift_mode == kLiftNone)
+    return f32 ? VT_FLUID(float, kLiftNone) : VT_FLUID(double, kLiftNone);
+#undef VT_FLUID
+  return (int)cudaErrorInvalidValue;
 }
 
 // material: 0 St.Venant-Kirchhoff, 1 Mooney-Rivlin (C01, C10, C11 read
-// by it only); any other value is refused.
+// by it only); any other value is refused. (gx, gy, gz): gravity.
 int vt_solid_residual(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
                       const double* rowmask, double* R, int f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
-                      int material, double C01, double C10, double C11,
-                      void* stream) {
+                      int material, double C01, double C10, double C11, double gx,
+                      double gy, double gz, void* stream) {
 #define VT_SOLID(S, MAT)                                                      \
   launch_residual<S>(U, U0, dofs, Jinv, detJ, vol, rowmask, R, K, nq,         \
-                     solid_cell<S, MAT>(rho, mu, lam, dt, theta, C01, C10, C11), \
+                     solid_cell<S, MAT>(rho, mu, lam, dt, theta, C01, C10, C11, \
+                                        gx, gy, gz),                          \
                      stream)
   if (material == kSVK) return f32 ? VT_SOLID(float, kSVK) : VT_SOLID(double, kSVK);
   if (material == kMooneyRivlin)
@@ -229,28 +258,35 @@ int vt_fluid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
                       const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double dt, double theta,
-                      double lift_coeff, int lift_sub, void* stream) {
-  return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
-                         make_fluid_params<double>(rho, mu, dt, theta, lift_coeff,
-                                                   lift_sub),
-                         stream);
+                      double lift_coeff, int lift_sub, int lift_mode, double p_stab,
+                      void* stream) {
+#define VT_FLUID(LIFT)                                                           \
+  launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,      \
+                  fluid_cell<double, LIFT>(rho, mu, dt, theta, lift_coeff, lift_sub, \
+                                           p_stab),                              \
+                  stream)
+  if (lift_mode == kLiftLaplace) return VT_FLUID(kLiftLaplace);
+  if (lift_mode == kLiftElastic) return VT_FLUID(kLiftElastic);
+  if (lift_mode == kLiftNone) return VT_FLUID(kLiftNone);
+#undef VT_FLUID
+  return (int)cudaErrorInvalidValue;
 }
 
 int vt_solid_jacobian(const double* U, const double* U0, const int64_t* dofs,
                       const double* Jinv, const double* detJ, const double* vol,
                       const double* rowmask, void* A, int out_f32, int K, int nq,
                       double rho, double mu, double lam, double dt, double theta,
-                      int material, double C01, double C10, double C11,
-                      void* stream) {
+                      int material, double C01, double C10, double C11, double gx,
+                      double gy, double gz, void* stream) {
   if (material == kSVK)
     return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
                            solid_cell<double, kSVK>(rho, mu, lam, dt, theta, C01,
-                                                    C10, C11),
+                                                    C10, C11, gx, gy, gz),
                            stream);
   if (material == kMooneyRivlin)
     return launch_jacobian(U, U0, dofs, Jinv, detJ, vol, rowmask, A, out_f32, K, nq,
                            solid_cell<double, kMooneyRivlin>(rho, mu, lam, dt, theta,
-                                                             C01, C10, C11),
+                                                             C01, C10, C11, gx, gy, gz),
                            stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 
 Counterpart of vasp_tpu.fem.forms (same discretization contract: P2/P2/P1
 Taylor-Hood (d, v, p), theta-scheme, ALE Navier-Stokes on the reference
-domain, total-Lagrangian St.Venant-Kirchhoff solid, Laplace or elastic mesh
-lifting on the fluid).
+domain, total-Lagrangian St.Venant-Kirchhoff or Mooney-Rivlin solid,
+Laplace, elastic or no mesh lifting on the fluid; the biharmonic lifting's
+element part is the Laplace one, its correction fem/biharmonic.py).
 
 Each kernel object evaluates ONE cell's residual with ``cell(u (64,), u0
 (64,), Jinv (3,3), detJ (), vol ()) -> (64,)`` in tensor ops, and calling
@@ -98,7 +99,9 @@ class FluidKernel(_ElementKernel):
     """Fluid element residual (ALE Navier-Stokes + mesh lifting).
 
     lift_coeff carries the sub_type-dependent global scaling (e.g.
-    0.01*hmin^2 for 'small_constant')."""
+    0.01*hmin^2 for 'small_constant'; beta*gamma for 'biharmonic', whose
+    element kernel carries the first Laplace application, the L M^-1 L - L
+    correction being added globally by fem/biharmonic.py)."""
 
     kind = "fluid"
 
@@ -111,7 +114,8 @@ class FluidKernel(_ElementKernel):
         self.lift, self.lift_sub = lift, lift_sub
         self.lift_coeff = float(lift_coeff)
         self.p_stab = float(p_stab)
-        if lift not in ("laplace", "elastic", "no_extrapolation"):
+        if lift not in ("laplace", "biharmonic", "elastic",
+                        "no_extrapolation"):
             raise ValueError(f"unknown extrapolation: {lift}")
 
     def cell(self, u, u0, Jinv, detJ, vol):
@@ -172,7 +176,7 @@ class FluidKernel(_ElementKernel):
             rp = rp + (self.p_stab * h2 / mu_f) * vol * (G1 @ gp)
 
         # ---- mesh lifting ----
-        if self.lift == "laplace":
+        if self.lift in ("laplace", "biharmonic"):
             if self.lift_sub == "volume":
                 a_q = (self.lift_coeff / vol).expand(gd.shape[0])
             elif self.lift_sub == "volume_change":

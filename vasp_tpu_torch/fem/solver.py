@@ -6,7 +6,10 @@ on a GPU), the Jacobian is assembled into a host CSR, Ruiz-equilibrated
 and factorized with scipy's splu — the reference's MUMPS-equivalent path
 (reference: src/vasp/simulations/offset_stenosis.py:44-48). The control
 flow (Jacobian reuse knobs, stall rebuild, 8-candidate backtracking,
-Levenberg fallback) is the reference package's, unchanged.
+Levenberg fallback) is the reference package's, unchanged. With
+biharmonic lifting (``lift``, the tables of fem/biharmonic.py) the
+correction term enters the residual through K16 (kernels/lifting.py) and
+the factorized matrix as its host CSR, bc rows and columns zeroed.
 
 Stdout follows the reference solver's de-facto log API consumed by
 vasp-log-plotter and the regression tests
@@ -25,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from vasp_tpu_torch.fem.biharmonic import correction_apply, correction_csr
 
 
 @dataclass
@@ -72,7 +77,8 @@ def _host_ruiz(A, bc_mask, sweeps=4):
 
 
 class NewtonSolver:
-    def __init__(self, assembler, bc_set, options: NewtonOptions):
+    def __init__(self, assembler, bc_set, options: NewtonOptions,
+                 lift=None):
         if options.linear_solver != "lu":
             raise NotImplementedError(
                 f"linear_solver={options.linear_solver!r}: NewtonSolver is "
@@ -84,6 +90,10 @@ class NewtonSolver:
         self.state = NewtonState()
         self.timings = defaultdict(float)
         self.factorizations = 0  # splu calls, Levenberg ones included
+        # biharmonic lifting correction: the linear L M^-1 L - L term on
+        # the fluid d-block, in the residual and in the factorized matrix
+        self.lift = lift
+        self._lift_csr = None
 
     @contextmanager
     def _timed(self, phase, device=None):
@@ -95,6 +105,8 @@ class NewtonSolver:
 
     def _residual(self, U, U0, load):
         R = self.asm.residual(U, U0) + load
+        if self.lift is not None:
+            R = R + correction_apply(self.lift, U)
         return torch.where(self.bc.mask_on(U.device), 0.0, R)
 
     def _residual_norm(self, U, U0, load):
@@ -113,9 +125,14 @@ class NewtonSolver:
         self.state.last_rebuild_tstep = tstep
         self.state.iters_since_rebuild = 0
         # factorize the RUIZ-EQUILIBRATED matrix: the raw monolithic FSI
-        # Jacobian spans ~12 decades and can exceed f64 LU accuracy
+        # Jacobian spans ~12 decades and can exceed f64 LU accuracy;
+        # equilibration runs on the fully assembled host CSR, so that every
+        # term (the biharmonic correction too, which the element Jacobians
+        # do not carry) is scaled
         with self._timed("to_csr"):
             A = self.asm.to_csr(self.state.jacs, bc_mask=self.bc.mask)
+            if self.lift is not None:
+                A = A + self._lift_matrix()
         with self._timed("ruiz"):
             drn, dcn = _host_ruiz(A, self.bc.mask, sweeps=4)
             A_s = (sp.diags(drn) @ A @ sp.diags(dcn)).tocsc()
@@ -125,6 +142,17 @@ class NewtonSolver:
         self.state.A_s = A_s  # kept for the Levenberg fallback
         self.state.lu_dr = drn
         self.state.lu_dc = dcn
+
+    def _lift_matrix(self):
+        """The correction's host CSR with its bc rows and columns zeroed,
+        built once."""
+        if self._lift_csr is None:
+            C = correction_csr(self.lift, self.asm.ndof).tolil()
+            idx = np.nonzero(self.bc.mask)[0]
+            C[idx, :] = 0.0
+            C[:, idx] = 0.0
+            self._lift_csr = C.tocsr()
+        return self._lift_csr
 
     # ---------------- linear solve ----------------
     def _linear_solve(self, R):

@@ -24,6 +24,12 @@ with fine residuals, the exact tier (float64 Jacobians and GMRES), the
 rebuild-at-current-state exact retry and the stall-triggered rebuild.
 Each tier prints vasp_tpu's line for it and is recorded in ``history``.
 
+With biharmonic lifting (``system.lift``) the correction term (K16,
+kernels/lifting.py) enters every residual variant, always on the float64
+U, and the Krylov matvec, on the Krylov vector in its own dtype. Ruiz and
+the banded factors see only the element Jacobians, which carry the
+correction's Laplace surrogate (fem/biharmonic.py), as in vasp_tpu.
+
 The Newton loop is a host loop of device calls: the residual norm, the
 line-search acceptance, the stall count and GMRES's early exit are read
 on the host as they are needed. vasp_tpu's TPU workarounds are not ported:
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from vasp_tpu_torch.fem import banded as banded_mod
+from vasp_tpu_torch.fem.biharmonic import correction_apply
 from vasp_tpu_torch.fem.krylov import gmres
 from vasp_tpu_torch.fem.scaling import ruiz_scales, scale_element_jacobians
 
@@ -160,6 +167,7 @@ class IterativeStepper:
         mask_np = np.asarray(bc_set.mask)
         self.mask = bc_set.mask_on(self.device)
         self.recompute_tstep = int(recompute_tstep)
+        self._lift = getattr(system, "lift", None)
         self._jdtype = torch.float32 if opt.jac_dtype == "f32" \
             else torch.float64
         self._last_rebuild = -(10 ** 9)
@@ -260,6 +268,8 @@ class IterativeStepper:
     def _residual(self, U, U0, load, dtype=None):
         with self._timed("residual"):
             R = self.asm.residual(U, U0, dtype) + load
+            if self._lift is not None:
+                R = R + correction_apply(self._lift, U)
             R = torch.where(self.mask, 0.0, R)
             return R, float(torch.linalg.norm(R))
 
@@ -279,6 +289,8 @@ class IterativeStepper:
             with self._timed("matvec"):
                 t = dcw * torch.where(mask, 0.0, x)
                 y = asm.matvec(jacs, t).to(wdt)
+                if self._lift is not None:
+                    y = y + correction_apply(self._lift, t).to(wdt)
                 return torch.where(mask, x, drw * y)
 
         def precond(r):

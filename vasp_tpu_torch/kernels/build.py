@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
-           "banded.cu", "facet_kernels.cu", "postproc.cu")
+           "banded.cu", "facet_kernels.cu", "postproc.cu", "lifting.cu")
 HEADERS = ("element_forms.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -30,12 +30,18 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # one count per kernel (per local size for K4 and K7: the _36 instances
 # serve the Robin facet blocks; per material for the solid's K2/K3 and
-# for K20b: the _mr instances are the Mooney-Rivlin ones), bumped by its
-# wrapper right where it launches
+# for K20b: the _mr instances are the Mooney-Rivlin ones; per mesh
+# lifting for the fluid's K1/K3: the _elastic and _nolift instances; per
+# dtype for K16), bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
-     "fluid_jacobian_f32", "solid_jacobian_f32", "solid_residual_mr",
+     "fluid_jacobian_f32", "solid_jacobian_f32", "fluid_residual_elastic",
+     "fluid_residual_elastic_f32", "fluid_jacobian_elastic",
+     "fluid_jacobian_elastic_f32", "fluid_residual_nolift",
+     "fluid_residual_nolift_f32", "fluid_jacobian_nolift",
+     "fluid_jacobian_nolift_f32", "lift_correction", "lift_correction_f32",
+     "solid_residual_mr",
      "solid_residual_mr_f32", "solid_jacobian_mr", "solid_jacobian_mr_f32",
      "dg0_project_speed",
      "integrate_p2_dot_n", "dg0_project_jacobian", "elem_matvec",
@@ -112,12 +118,12 @@ def _bind(lib):
         "vt_element_nq_max": [],
         "vt_element_nq_max_f32": [],
         "vt_set_element_tables": [P, P, P, P, I],
-        "vt_fluid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
-        "vt_fluid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, P],
-        "vt_solid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, D, D, D,
-                                         P],
-        "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, D, D, D,
-                                         P],
+        "vt_fluid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, I, D, P],
+        "vt_fluid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, I, D, P],
+        "vt_solid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I] + [D] * 6
+        + [P],
+        "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I] + [D] * 6
+        + [P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
         "vt_dg0_project_jacobian": [P] * 5 + [I, P, I, P],
@@ -135,6 +141,7 @@ def _bind(lib):
                              I, L, P],
         "vt_max_eig": [P, P, L, P],
         "vt_spectral_power": [P, P, I, I, I, D, I, P],
+        "vt_lift_correction": [P] * 6 + [D, D, P, P, I, I, I, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

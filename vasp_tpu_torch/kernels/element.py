@@ -30,8 +30,14 @@ import torch
 
 from vasp_tpu_torch.kernels import build
 
-_LIFT_SUB = {"constant": 0, "small_constant": 0, "volume": 1,
-             "volume_change": 2}
+# the Laplace lifting's sub-types: 1 volume, 2 volume_change, every other
+# (constant, small_constant, biharmonic's bc1 and bc2) 0, the constant
+# coefficient, as in fem/forms.py
+_LIFT_SUB = {"volume": 1, "volume_change": 2}
+# the fluid's mesh lifting: C entry point code, counter tag; the
+# biharmonic lifting's element part is the Laplace one
+_LIFTS = {"laplace": (0, ""), "biharmonic": (0, ""), "elastic": (1, "_elastic"),
+          "no_extrapolation": (2, "_nolift")}
 
 # device index -> the quadrature degree whose tables sit in its constant memory
 _uploaded_tables = {}
@@ -83,41 +89,42 @@ _MATERIALS = {"StVenantKirchoff": (0, ""), "LinearElastic": (0, ""),
 
 
 def cuda_params(kernel):
-    """The kernel's scalar parameters in the C entry point's order; raises
-    NotImplementedError for a configuration the CUDA kernels do not cover
-    (they cover Laplace lifting of every sub-type, p_stab=0, and the solid
-    without gravity in St.Venant-Kirchhoff or Mooney-Rivlin)."""
+    """The kernel's scalar parameters in the C entry point's order: the
+    fluid's with its lifting mode, sub-type code and p_stab (0 skips the
+    stabilization), the solid's with its material code, constants and
+    gravity (0 when none is given). Every configuration of fem/forms.py is
+    covered; an unknown lifting or material raises as the plain version
+    does."""
     if kernel.kind == "fluid":
-        if kernel.lift != "laplace" or kernel.lift_sub not in _LIFT_SUB \
-                or kernel.p_stab:
-            raise NotImplementedError(
-                f"CUDA fluid kernel covers extrapolation='laplace' "
-                f"(sub-types {sorted(_LIFT_SUB)}) with p_stab=0; got "
-                f"{kernel.lift!r}/{kernel.lift_sub!r}, p_stab={kernel.p_stab} "
-                f"(ROADMAP.md queue 1, item 10)")
+        if kernel.lift not in _LIFTS:
+            raise ValueError(f"unknown extrapolation: {kernel.lift}")
         return (kernel.rho_f, kernel.mu_f, kernel.dt, kernel.theta,
-                kernel.lift_coeff, _LIFT_SUB[kernel.lift_sub])
+                kernel.lift_coeff, _LIFT_SUB.get(kernel.lift_sub, 0),
+                _LIFTS[kernel.lift][0], kernel.p_stab)
     model = kernel.props.get("material_model", "StVenantKirchoff")
-    if model not in _MATERIALS or np.any(kernel.gravity != 0.0):
-        raise NotImplementedError(
-            f"CUDA solid kernel covers {sorted(_MATERIALS)} without "
-            f"gravity; got {model!r}, gravity={kernel.gravity.tolist()} "
-            f"(ROADMAP.md queue 1, item 10)")
+    if model not in _MATERIALS:
+        raise KeyError(f"unknown material_model {model!r}; known: "
+                       f"{list(_MATERIALS)}")
     mr = _MATERIALS[model][0] == 1
     # SVK has no C01, C10, C11; the kernel does not read them
     consts = tuple(float(kernel.props[k]) if mr else 0.0
                    for k in ("C01", "C10", "C11"))
     return (kernel.rho_s, float(kernel.props["mu_s"]),
             float(kernel.props["lambda_s"]), kernel.dt, kernel.theta,
-            _MATERIALS[model][0], *consts)
+            _MATERIALS[model][0], *consts,
+            *(float(g) for g in kernel.gravity))
 
 
 def counter_name(block, op, f32):
     """The launch counter of the block's kernel: fluid_/solid_ + op, the
-    solid's material tag, then _f32 for the float32 instance."""
+    fluid's lifting tag or the solid's material tag, then _f32 for the
+    float32 instance."""
     kern = block.kernel
-    tag = "" if kern.kind == "fluid" else _MATERIALS[
-        kern.props.get("material_model", "StVenantKirchoff")][1]
+    if kern.kind == "fluid":
+        tag = _LIFTS[kern.lift][1]
+    else:
+        tag = _MATERIALS[kern.props.get("material_model",
+                                        "StVenantKirchoff")][1]
     return f"{kern.kind}_{op}{tag}" + ("_f32" if f32 else "")
 
 

@@ -4,7 +4,7 @@ Counterpart of vasp_tpu.preprocessing.bifurcation, the same host numpy
 code: the parametric Y (template_specs, bifurcation_fsi_mesh and the
 helpers they call) that -p avf meshes when it has no mesh file. The STL
 path (branched_specs_from_stl, surface_bifurcation_mesh) is not ported
-yet (ROADMAP.md queue 1, item 10).
+yet (ROADMAP.md queue 1, item 16, the meshing pipeline).
 
 The reference meshes branched anatomy with vmtk's branch extractor + mesh
 branch clipper on top of a TetGen volume mesh

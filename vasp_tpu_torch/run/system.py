@@ -6,8 +6,11 @@ configuration vocabulary the reference's problem files use
 (SURVEY.md §2.3): dx_f_id / mu_f lists for multi-viscosity zones
 (reference: src/vasp/simulations/offset_stenosis.py:59-61), solid_properties
 dicts per solid subdomain, St.Venant-Kirchhoff or Mooney-Rivlin
-(reference: src/vasp/simulations/avf.py:76-80), and robin_bc/k_s/c_s/ds_s_id
-(reference: src/vasp/simulations/aneurysm.py:73-76).
+(reference: src/vasp/simulations/avf.py:76-80), robin_bc/k_s/c_s/ds_s_id
+(reference: src/vasp/simulations/aneurysm.py:73-76), and the mesh lifting
+``extrapolation`` (laplace, elastic, no_extrapolation, or biharmonic with
+sub-type bc1/bc2 and ``biharmonic_beta``; SURVEY.md:160-163), ``p_stab``
+and ``gravity``.
 Blocks are built on the device named by the config key ``device``
 (default "cuda").
 
@@ -16,9 +19,9 @@ solver with the banded preconditioner (fem/timestepper.py), configured
 from the same keys and defaults as vasp_tpu's make_solver; any other value
 ("mumps", "lu") the host-LU Newton solver (fem/solver.py).
 
-Not ported yet, and refused with the ROADMAP item that will port them:
-biharmonic lifting (queue 1, item 10) and n_devices > 1 (item 13);
-fem/timestepper.py refuses the iterative options it does not cover.
+Not ported yet, and refused with the ROADMAP item that will port it:
+n_devices > 1 (queue 1, item 13); fem/timestepper.py refuses the
+iterative options it does not cover.
 """
 import dataclasses
 
@@ -32,6 +35,7 @@ from vasp_tpu_torch.fem.assembly import (
     FacetBlock,
     cell_geometry,
 )
+from vasp_tpu_torch.fem.biharmonic import build_biharmonic
 from vasp_tpu_torch.fem.dirichlet import BCSet, DirichletBC
 from vasp_tpu_torch.fem.forms import (
     interface_pressure_vector,
@@ -120,11 +124,22 @@ class FSISystem:
 
         lift = cfg.get("extrapolation", "laplace")
         lift_sub = cfg.get("extrapolation_sub_type", "constant")
-        if lift == "biharmonic":
-            _not_ported("extrapolation='biharmonic'", 10)
         lift_coeff = 1.0
         if lift == "laplace" and lift_sub == "small_constant":
             lift_coeff = 0.01 * mesh.hmin ** 2
+        self.lift = None
+        if lift == "biharmonic":
+            # the correction's tables first: the element kernels carry
+            # beta*gamma*L, the spectral surrogate of the true beta
+            # L M^-1 L block, so that the element-Jacobian preconditioners
+            # see the right d-block magnitude (fem/biharmonic.py); beta=1
+            # is vasp_tpu's validated default, tunable by biharmonic_beta
+            beta = float(cfg.get("biharmonic_beta", 1.0))
+            self.lift = build_biharmonic(
+                mesh, space, np.atleast_1d(cfg.get("dx_f_id", 1)).tolist(),
+                sub_type=lift_sub, quad_degree=min(qd, 3), beta=beta,
+                device=dev)
+            lift_coeff = float(self.lift["beta_gamma"])
 
         blocks = []
         self.fluid_props = normalize_fluid_properties(cfg)
@@ -275,7 +290,7 @@ class FSISystem:
         )
         for k, v in opts.items():
             setattr(options, k, v)
-        return NewtonSolver(self.assembler, bc_set, options)
+        return NewtonSolver(self.assembler, bc_set, options, lift=self.lift)
 
     def _make_iterative_solver(self, bc_set, **opts):
         cfg = self.cfg
