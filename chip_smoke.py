@@ -72,7 +72,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    accurate as the plain version: its distance to the float64
    correction of the same input at most twice the plain version's plus
    1e-14 of it), with cuSPARSE's SpMV of the correction's assembled CSR
-   as the yardstick.
+   as the yardstick. Then, on K9's factors at the 20,832-cell tube, K6 in
+   its hybrid (f32 Sinv, bf16 H/G) and all-bf16 storage instances and K12
+   (the folded apply of the Sinv-only layouts, bf16 C/B) with bf16 and
+   with f32 Sinv, each by K6's rule against the float64 scans on the same
+   widened factors, the probe of the bf16 factors, and K7's float64
+   sweep (exact; at 36 local dofs too).
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
    (plain versions) and on the card (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
@@ -101,9 +106,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the same Newton counts; counters reset just before the card's run and
    read just after: the f64 Mooney-Rivlin kernels' path), the tiny
    predeform of tests/test_driver_predeform.py (theta=1, lmbda=0.5, its
-   raise_on_fail=False) and the tiny AVF of tests/test_torch_driver_avf.py
-   (tests/test_driver_avf.py's cut to 2 steps and 1,536 cells, whose host
-   splu takes minutes at its own size). Then the lifting options of the
+   raise_on_fail=False; cut to 2 steps: its Newton work starts at step 2,
+   with the pressure ramp) and the tiny AVF of
+   tests/test_torch_driver_avf.py (tests/test_driver_avf.py's cut to 1
+   step and 1,536 cells, whose host splu takes minutes at its own size). Then the lifting options of the
    tiny cylinder, cut to one step, on the LU path (U within 1e-8, the
    same Newton counts):
    biharmonic lifting at its defaults (bc1, beta = 1); elastic lifting
@@ -112,7 +118,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    every fluid-only d dof at 0), also on the bench configuration (its 3
    steps, U within 3e-2); counters reset just before each card run and read just after
    (the f64 elastic and no-lifting instances' paths, and the float32
-   no-lifting ones').
+   no-lifting ones'). The LU run of the tiny cylinder takes one step.
+   Then IterativeStepper on the forced ladder's small tube, one ramped
+   step on the CPU and on the card with the tests' options (float64
+   residuals, gmres_tol 1e-8): the hybrid, bf16 and f32 Sinv-only layouts
+   (fem/banded.py device_free_bytes reading one byte short of the full
+   layout's peak on both), the full layout in bf16, and RAS with float64
+   inverses at vasp_tpu's other defaults; the same layout and storage,
+   Newton counts and tiers, U within 3e-5 relative; counters reset just
+   before each card run and read just after (the paths of K6's storage
+   instances, K12 and K18's float64 instance).
 4. The LU path: driver.main on -p cylinder at a 2,520-cell tube (a
    cylinder of 10 layers; its host splu takes under a minute on a
    CPU core, where the 11,088-cell tube's took 700 s), 5 steps of dt=1e-3,
@@ -213,7 +228,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    - 11c: -p cylinder at 20,832 cells with elastic lifting on the bench
      configuration, 5 steps (the float32 elastic instances of K1/K3).
 
-Phases 3-11 run with HDF5 output off (save_step=0, checkpoint_step=0),
+12. The banded layouts and RAS at full width, counters reset just before
+   each run and read just after, every step converged, the lines of
+   phase 5 or 7, the layout chosen with its bytes and the peak memory:
+   - 12a: phase 6's bench configuration with a ballast allocation made
+     before the system is built that leaves the card's free memory midway
+     between the hybrid layout's need and the full one's: the hybrid
+     layout (K6 hybrid in every apply); GMRES inner iterations beside
+     phase 6's;
+   - 12b: phase 7's bench tube through IterativeStepper with
+     banded_factor_dtype="bf16" and a ballast midway between the bf16
+     Sinv-only layout's need and the full bf16 one's: K12 in every apply;
+   - 12c: the same without a ballast: the full layout in bf16, probed
+     (the reactive escalation prints if it fires);
+   - 12d: RAS at vasp_tpu's defaults. At the 20,832-cell cylinder the
+     subdomain pattern alone (the float64 rebuild Jacobians, Ruiz and the
+     scaled CSR, then build_pattern at vasp_tpu's first try and at overlap
+     1 against its budget; the retries run on far past it) and K18 against
+     its plain version on the overlap-1 pattern with seeded inverses; then
+     two converging steps on the small tube of phase 3, the largest
+     generated tube on which RAS converges in either package.
+
+Phases 3-12 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -227,7 +263,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import redirect_stdout
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -274,17 +310,18 @@ TINY_ANEURYSM = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=2,
                      verbose=True, **NO_FILES)
 # the tiny predeform of tests/test_driver_predeform.py:21-56 (its
 # raise_on_fail=False and atol 5e-5 included: the theta=1 MR inflation's
-# slow tail at its squeezed increments)
+# slow tail at its squeezed increments), cut to 2 steps (step 1 is at rest,
+# step 2 starts the pressure ramp)
 TINY_PREDEFORM = dict(
-    T=0.03, dt=0.01, mesh_path=None, quadrature_degree=2, atol=5e-5,
+    T=0.02, dt=0.01, mesh_path=None, quadrature_degree=2, atol=5e-5,
     rtol=1e-4, raise_on_fail=False, recompute=1, recompute_tstep=1,
     t_start_v=0.0, t_end_v=0.01, t_start_p=0.01, t_end_p=0.05,
     v_max_final=0.05, P_final=400.0, verbose=True,
     generated_mesh_params=dict(n_theta=8, n_z=4), **NO_FILES)
 # the tiny AVF of tests/test_torch_driver_avf.py: tests/test_driver_avf.py's
-# cut to 2 steps and n_z=4 (1,536 cells), whose host splu takes minutes
+# cut to 1 step and n_z=4 (1,536 cells), whose host splu takes minutes
 # at n_z=8
-TINY_AVF = dict(T=0.0002, dt=0.0001, mesh_path=None, patient_data_path=None,
+TINY_AVF = dict(T=0.0001, dt=0.0001, mesh_path=None, patient_data_path=None,
                 quadrature_degree=2, atol=1e-6, rtol=1e-6, recompute=5,
                 recompute_tstep=1, vel_t_ramp=0.0002, p_t_ramp_start=0.0001,
                 p_t_ramp_end=0.0003,
@@ -328,8 +365,8 @@ P_STAB = 0.1
 GRAVITY = [0.0, 0.0, -9.81]
 ELASTIC = dict(extrapolation="elastic", p_stab=P_STAB, gravity=GRAVITY)
 BIHARMONIC = dict(extrapolation="biharmonic")
-# the tiny cylinder cut to 1 step for the lifting options' LU parity runs
-# (each LU step refactorizes on the host); the no-lifting Krylov run keeps
+# the tiny cylinder cut to 1 step for the LU parity runs (each LU step
+# refactorizes on the host); the Krylov runs keep
 # TINY's 3 steps, which the f32f bound was set on (after 2 steps the state
 # is smaller and the same inexact directions differ by 1.7e-2 relative
 # between two CPU thread counts, after 3 by 6.9e-3)
@@ -363,6 +400,28 @@ def create_bcs(space, mesh, dx_s_id, **namespace):
     out["bcs"].append(DirichletBC(space.field_dofs("d", fluid_only), 0.0))
     return out
 '''
+# phase 3's and 12d's IterativeStepper runs on the small tube (one ramped
+# step in phase 3, two in 12d): (path, StepOptions, the free bytes the stepper reads: "full" one
+# byte short of the full layout's peak for its banded_factor_dtype, None
+# the card's own, the layout it must take or None for RAS). The banded
+# layouts on the tests' options (float64 residuals, gmres_tol 1e-8); RAS at
+# vasp_tpu's defaults, with float64 Jacobians (so float64 inverses) in
+# phase 3, float32 in 12d: the largest generated tube on which it
+# converges there (from 11,489 dofs on, GMRES spends its 300 iterations
+# and Newton stalls, in the port and in vasp_tpu; tests/diag_ras_cylinder.py)
+_LAYOUT_STEP = dict(atol=1e-9, rtol=1e-9, max_it=10, gmres_tol=1e-8,
+                    gmres_restart=60, gmres_maxiter=600, jac_dtype="f32")
+STEPPER_RUNS = (
+    ("hybrid_tiny", _LAYOUT_STEP, "full", "hybrid"),
+    ("sinv_bf16_tiny", dict(_LAYOUT_STEP, banded_factor_dtype="bf16"), "full",
+     "bf16"),
+    ("sinv_f32_tiny", dict(_LAYOUT_STEP, banded_factor_dtype="f32"), "full",
+     "f32"),
+    ("full_bf16_tiny", dict(_LAYOUT_STEP, banded_factor_dtype="bf16"), None,
+     "full"),
+    ("ras_f64_tiny", dict(precond="ras", jac_dtype="f64"), None, None),
+)
+RAS_SMALL = ("ras_small", dict(precond="ras", jac_dtype="f32"), None, None)
 # a small tube (bench.py's physics) for the forced ladder runs
 LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
                    n_r_fluid=2, n_r_solid=1, n_z=5)
@@ -488,6 +547,25 @@ REPLACES = {
     "lift_correction_f32": (CSRC + "lifting.cu",
                             "vasp_tpu/fem/biharmonic.py:135 (float32 "
                             "Krylov matvec)", "biharmonic_krylov"),
+    "banded_apply_hybrid": (CSRC + "banded.cu",
+                            "vasp_tpu/fem/banded.py:651 with the hybrid "
+                            "factors of vasp_tpu/fem/timestepper.py:495",
+                            "hybrid"),
+    "banded_apply_bf16": (CSRC + "banded.cu",
+                          "vasp_tpu/fem/banded.py:651 and :344 (bf16 "
+                          "factors of :438)", "full_bf16"),
+    "banded_apply_lowmem_bf16": (CSRC + "banded.cu",
+                                 "vasp_tpu/fem/banded.py:617", "sinv_bf16"),
+    "banded_apply_lowmem_f32": (CSRC + "banded.cu",
+                                "vasp_tpu/fem/banded.py:617 (f32 Sinv)",
+                                "sinv_f32_tiny"),
+    "ruiz_sweep_f64": (CSRC + "ruiz.cu", "vasp_tpu/fem/scaling.py:31 "
+                       "(float64, vasp_tpu/fem/timestepper.py:355)",
+                       "ras_small"),
+    "ras_apply_f32": (CSRC + "ras.cu", "vasp_tpu/fem/ras.py:196",
+                      "ras_small"),
+    "ras_apply": (CSRC + "ras.cu", "vasp_tpu/fem/ras.py:196 (float64 "
+                  "inverses)", "ras_f64_tiny"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
@@ -497,6 +575,18 @@ _KRYLOV = _KRYLOV_FLUID | {"solid_jacobian_f32"}
 # block is an elastic or no-lifting one launches that instance's)
 _KRYLOV_SOLID = _KRYLOV - {"fluid_jacobian_f32"}
 _MEASURES = {"dg0_project_speed", "integrate_p2_dot_n"}
+# the banded Krylov path without its apply, on the bench configuration
+# through the driver (f32f residuals, measures), through IterativeStepper
+# (phase 7's tube, f32f residuals) and on phase 3's small tube (float64
+# residuals)
+_BANDED = _KRYLOV - {"banded_apply"}
+_F32F_BANDED = _BANDED | {"fluid_residual_f32", "solid_residual_f32"} \
+    | _MEASURES
+_STEPPER_BANDED = _BANDED | {"fluid_residual_f32", "solid_residual_f32"}
+_TINY_BANDED = _BANDED | {"fluid_residual", "solid_residual"}
+_RAS = {"fluid_residual", "solid_residual", "fluid_jacobian",
+        "solid_jacobian", "fluid_jacobian_f32", "solid_jacobian_f32",
+        "elem_matvec", "ruiz_sweep_f64", "ras_apply_f32"}
 _ROBIN_F32 = {"robin_residual_f32", "robin_jacobian_f32", "elem_matvec_36",
               "ruiz_sweep_36", "ruiz_scale_36"}
 _MR_LU = {"fluid_residual", "solid_residual_mr", "fluid_jacobian",
@@ -542,6 +632,20 @@ PATHS = {
                       "fluid_jacobian", "solid_jacobian"} | _MEASURES,
     "elastic": {"fluid_residual_elastic_f32", "solid_residual_f32",
                 "fluid_jacobian_elastic_f32"} | _KRYLOV_SOLID | _MEASURES,
+    # phase 12 and phase 3's layout runs: each banded layout's apply in
+    # place of the full float32 one
+    "hybrid": _F32F_BANDED | {"banded_apply_hybrid"},
+    "sinv_bf16": _STEPPER_BANDED | {"banded_apply_lowmem_bf16"},
+    "full_bf16": _STEPPER_BANDED | {"banded_apply_bf16"},
+    "hybrid_tiny": _TINY_BANDED | {"banded_apply_hybrid"},
+    "sinv_bf16_tiny": _TINY_BANDED | {"banded_apply_lowmem_bf16"},
+    "sinv_f32_tiny": _TINY_BANDED | {"banded_apply_lowmem_f32"},
+    "full_bf16_tiny": _TINY_BANDED | {"banded_apply_bf16"},
+    # the RAS preconditioner: float64 rebuild Jacobians and scales
+    "ras_small": _RAS,
+    "ras_f64_tiny": {"fluid_residual", "solid_residual", "fluid_jacobian",
+                     "solid_jacobian", "elem_matvec", "ruiz_sweep_f64",
+                     "ras_apply"},
 }
 
 
@@ -943,7 +1047,29 @@ def phase_iterative_kernels(records, system, bc):
         print(f"    elem_matvec {label}: rel {rel:.3e} max_abs {mx:.3e} "
               f"kernel {variants[label]['ms']:.4f} ms plain "
               f"{variants[label]['plain_ms']:.4f} ms")
-    del jacs64
+    # ---- K7's float64 sweep (the RAS rebuild's) on the float64
+    # Jacobians at seeded scales: exact
+    rng = np.random.default_rng(9)
+    dr64, dc64 = (torch.as_tensor(rng.uniform(0.5, 2.0, ndof), device="cuda")
+                  for _ in range(2))
+    o64 = [torch.zeros(ndof, dtype=torch.float64, device="cuda")
+           for _ in range(4)]
+
+    def sweep64(fn, a, b):
+        for blk, A in zip(blocks, jacs64):
+            fn(A, blk.dofs, dr64, dc64, mask, a, b)
+
+    sweep64(ks.ruiz_sweep_cuda, o64[0], o64[1])
+    sweep64(ks.ruiz_sweep_plain, o64[2], o64[3])
+    records.add("ruiz_sweep_f64", max(rel_err(o64[0], o64[2]),
+                                      rel_err(o64[1], o64[3])),
+                cuda_ms(lambda: sweep64(ks.ruiz_sweep_cuda, o64[0], o64[1]),
+                        20),
+                cuda_ms(lambda: sweep64(ks.ruiz_sweep_plain, o64[2], o64[3]),
+                        5),
+                (nbytes(*jacs64, dr64, dc64, mask) + dof_bytes + 16 * ndof,
+                 5 * 4096 * K_all, "f64"), 0.0, f"K={K_all}, one sweep f64")
+    del jacs64, o64
     # yardstick: cuSPARSE SpMV of the same (f32) matrix assembled as CSR
     rows = torch.cat([b.dofs[:, :, None].expand(-1, 64, 64).reshape(-1)
                       for b in blocks])
@@ -1087,7 +1213,6 @@ def phase_iterative_kernels(records, system, bc):
     require(math.isfinite(probe), "the probe of the banded factors is not "
                                   "finite")
     k11 = phase_k11(records, Ck, Dk, Bk, probe, pat)
-    del Ck, Dk, Bk
     perm = torch.as_tensor(pat.perm, device="cuda")
     r = torch.where(mask, 0.0, x64)
     xk = kb.apply_cuda(Sinv, H, G, perm, r)
@@ -1111,9 +1236,71 @@ def phase_iterative_kernels(records, system, bc):
                  6 * pat.nb * pat.c * pat.c, "f32"), math.inf,
                 f"3x({pat.nb},{pat.c},{pat.c}) f32, r f64",
                 f64_rel_kernel=dk, f64_rel_plain=dp)
+    storage = phase_storage_kernels(records, Ck, Dk, Bk, Sinv, perm, r, pat)
+    del Ck, Dk, Bk
     return dict(scan_ms=t_scan * 1e3, hg_ms=t_hg * 1e3,
                 probe_ms=t_probe * 1e3, probe_rel=probe, setup=setup,
-                c=pat.c, nb=pat.nb, **k11)
+                c=pat.c, nb=pat.nb, **k11, **storage)
+
+
+def phase_storage_kernels(records, Ck, Dk, Bk, Sinv, perm, r, pat):
+    """K6 in its hybrid (f32 Sinv, bf16 H/G) and all-bf16 instances and K12
+    (bf16 C/B) with bf16 and with f32 Sinv, on the factors of K9's scan as
+    each layout stores them (the bf16 scan stores the same polished
+    inverses rounded, so its Sinv is K9's rounded), against their plain
+    versions by K6's rule: the distance to the same scans in float64 on
+    the same widened factors at most twice the plain version's plus 1e-6.
+    Each bound reads every factor once (K12's scans read Sinv twice: the
+    bound with that second read is printed beside it)."""
+    import torch
+
+    from vasp_tpu_torch.fem import banded as fb
+    from vasp_tpu_torch.kernels import banded as kb
+
+    bf = torch.bfloat16
+    nb, c, ndof = pat.nb, pat.c, pat.ndof
+    rb = torch.zeros(pat.npad, dtype=torch.float64, device="cuda")
+    rb[:ndof] = r[perm].float().double()
+    out = {}
+
+    def check(name, cuda, plain, solve, F, ops, tag):
+        xk, xp = cuda(*F, perm, r), plain(*F, perm, r)
+        x_ref = solve(*F, rb.view(nb, c)).reshape(-1)  # float64 arithmetic
+        ref = torch.empty_like(r)
+        ref[perm] = x_ref[:ndof]
+        dk, dp = rel_err(xk, ref)[0], rel_err(xp, ref)[0]
+        print(f"    {name} vs the f64 scans: kernel {dk:.3e}, plain {dp:.3e}")
+        require(dk <= 2 * dp + 1e-6, f"{name} is less accurate than its "
+                                     f"plain version: {dk:.3e} vs {dp:.3e}")
+        records.add(name, rel_err(xk, xp),
+                    cuda_ms(lambda: cuda(*F, perm, r), 20),
+                    cuda_ms(lambda: plain(*F, perm, r), 3),
+                    (nbytes(*F, r, perm) + 8 * ndof, ops, "f32"), math.inf,
+                    f"({nb},{c},{c}) {tag}, r f64", f64_rel_kernel=dk,
+                    f64_rel_plain=dp)
+
+    k6 = (kb.apply_cuda, kb.apply_plain, kb.solve_blocks_plain)
+    k12 = (kb.apply_lowmem_cuda, kb.apply_lowmem_plain,
+           kb.solve_blocks_lowmem_plain)
+    F = (Sinv, fb.sinv_times(Sinv, Ck, bf), fb.sinv_times(Sinv, Bk, bf))
+    check("banded_apply_hybrid", *k6, F, 6 * nb * c * c, "f32 Sinv, bf16 H/G")
+    S16 = Sinv.to(bf)
+    F = (S16, fb.sinv_times(S16, Ck, bf), fb.sinv_times(S16, Bk, bf))
+    out["probe_rel_bf16"] = fb.probe_rel(Ck, Dk, Bk, *F)
+    print(f"    probe of the full layout's bf16 factors (K10 on K6 bf16): "
+          f"{out['probe_rel_bf16']:.3e}")
+    check("banded_apply_bf16", *k6, F, 6 * nb * c * c, "bf16 Sinv/H/G")
+    del F
+    C16, B16 = Ck.to(bf), Bk.to(bf)
+    for name, S in (("banded_apply_lowmem_bf16", S16),
+                    ("banded_apply_lowmem_f32", Sinv)):
+        check(name, *k12, (S, C16, B16), 8 * nb * c * c,
+              f"{str(S.dtype)[6:]} Sinv, bf16 C/B")
+        reread = (nbytes(S, S, C16, B16, r, perm) + 8 * ndof) \
+            / HBM_BYTES_PER_S * 1e3
+        records[name]["bound_ms_sinv_read_twice"] = reread
+        print(f"    {name}: bound with Sinv read twice {reread:.4f} ms")
+    return out
 
 
 def phase_k11(records, Ck, Dk, Bk, probe32, pat):
@@ -1286,6 +1473,20 @@ def phase_facet_kernels(records):
                                                     mask, outs[2], outs[3]),
                         20),
                 (sweep_bytes, 5 * 1296 * K, "f32"), 0.0, f"K={K}, one sweep")
+    # the float64 instance at 36 (RAS on a Robin model): exact
+    A64, dr64, dc64 = A32.double(), dr.double(), dc.double()
+    o64 = [torch.zeros(ndof, dtype=torch.float64, device="cuda")
+           for _ in range(4)]
+    ks.ruiz_sweep_cuda(A64, fb.dofs, dr64, dc64, mask, o64[0], o64[1])
+    ks.ruiz_sweep_plain(A64, fb.dofs, dr64, dc64, mask, o64[2], o64[3])
+    require(torch.equal(o64[0], o64[2]) and torch.equal(o64[1], o64[3]),
+            "ruiz_sweep_36_f64 disagrees with its plain version")
+    records["ruiz_sweep_36"]["variants"] = {"f64": dict(
+        rel_err=0.0, ms=cuda_ms(lambda: ks.ruiz_sweep_cuda(
+            A64, fb.dofs, dr64, dc64, mask, o64[0], o64[1]), 100))}
+    print(f"    ruiz_sweep_36_f64: exact, kernel "
+          f"{records['ruiz_sweep_36']['variants']['f64']['ms']:.4f} ms")
+    del A64, o64
     records.add("ruiz_scale_36",
                 rel_err(ks.ruiz_scale_cuda(A32, fb.dofs, dr, dc),
                         ks.ruiz_scale_plain(A32, fb.dofs, dr, dc)),
@@ -1475,7 +1676,7 @@ def _run_quiet(overrides, problem="cylinder"):
 # reports or None): the f64 Robin, MR, elastic and no-lifting kernels and
 # the float32 no-lifting ones launch on no other path
 PARITY = (
-    ("cylinder", TINY, "LU", {}, TOL_PATH_LU, None),
+    ("cylinder", TINY_LIFT, "LU", {}, TOL_PATH_LU, None),
     ("cylinder", TINY, "gmres", dict(linear_solver="gmres"), TOL_PATH_GMRES,
      None),
     ("cylinder", TINY, "f32f", BENCH_CFG, TOL_PATH_F32F, None),
@@ -1542,6 +1743,7 @@ def phase_parity(tmp):
         require(log.count("Solved for timestep") == steps,
                 f"{name}: tiny run missed steps")
     launches["ladder"] = phase_forced_ladder()
+    launches.update(phase_stepper_parity())
     return launches
 
 
@@ -1644,6 +1846,109 @@ def phase_forced_ladder():
     return launches
 
 
+def layout_needs(pattern, block_sizes):
+    """Peak bytes of each banded layout (fem/banded.py banded_layout) of a
+    pattern: the full float32 and bf16 layouts, the hybrid and the bf16
+    Sinv-only one."""
+    from vasp_tpu_torch.fem import banded as fb
+
+    full32 = fb.banded_layout(pattern, block_sizes, math.inf, None)
+    full16 = fb.banded_layout(pattern, block_sizes, math.inf, "bf16")
+    return dict(
+        full_f32=full32.bytes, full_bf16=full16.bytes,
+        hybrid=fb.banded_layout(pattern, block_sizes, full32.bytes - 1,
+                                None).bytes,
+        sinv_bf16=fb.banded_layout(pattern, block_sizes, full16.bytes - 1,
+                                   "bf16").bytes)
+
+
+@contextmanager
+def free_memory_reads(free):
+    """fem/banded.py device_free_bytes reads `free` bytes (None: the
+    device's own), on the CPU and on the card, inside the block."""
+    from vasp_tpu_torch.fem import banded as fb
+
+    real = fb.device_free_bytes
+    if free is not None:
+        fb.device_free_bytes = lambda device: free
+    try:
+        yield
+    finally:
+        fb.device_free_bytes = real
+
+
+def stepper_runs(device, runs, steps=1):
+    """IterativeStepper runs on the small tube (phase 3, 12d) on `device`,
+    `steps` ramped steps each: per run (layout or None, preconditioner
+    dtypes, Newton iterations per step, tiers per step, U on the host);
+    each step must converge."""
+    import torch
+
+    from vasp_tpu_torch.fem import banded as fb
+    from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
+
+    system, bc, load = bench_tube(LADDER_MESH, device, stenosis=False)
+    bcv = torch.as_tensor(bc.values_at(1e-3), device=device)
+    sizes = [tuple(b.dofs.shape) for b in system.assembler.blocks]
+    pat = fb.build_banded_pattern([b.dofs.cpu().numpy()
+                                   for b in system.assembler.blocks],
+                                  system.assembler.ndof)
+    out = []
+    for path, opts, free, _ in runs:
+        opt = StepOptions(**opts)
+        if free == "full":
+            free = fb.banded_layout(pat, sizes, math.inf,
+                                    opt.banded_factor_dtype).full_bytes - 1
+        with free_memory_reads(free), redirect_stdout(io.StringIO()):
+            st = IterativeStepper(system, bc, opt)
+            U, newton = system.zero_state(), []
+            for k in range(1, steps + 1):
+                U, stats = st.step(U, bcv, (0.5 + 0.5 * k) * load, k)
+                newton.append(stats["iterations"])
+                require(stats["residual"] <= opt.atol
+                        or stats["residual"] <= opt.rtol * stats["r0"],
+                        f"{path} on {device}: step {k} did not converge "
+                        f"({stats['residual']:.3e})")
+        out.append((None if st.layout is None else st.layout.layout,
+                    [F.dtype for F in st._pinv], newton,
+                    [h["tiers"] for h in st.history], U.cpu(),
+                    [h["gmres_inner"] for h in st.history]))
+    return out
+
+
+def phase_stepper_parity():
+    """Phase 3's IterativeStepper runs on the small tube, on the CPU and on
+    the card: the hybrid, bf16 and f32 Sinv-only layouts (device_free_bytes
+    reading one byte short of the full layout's peak on both), the full
+    one in bf16, and RAS with float64 inverses; the same layout and
+    storage, Newton counts and tiers, U within TOL_PATH_GMRES. Counters
+    reset just before each card run and read just after: the paths of K6's
+    storage instances, K12 and K18's float64 instance."""
+    from vasp_tpu_torch.kernels import build
+
+    cpu = stepper_runs("cpu", STEPPER_RUNS)
+    launches = {}
+    for run, spec in zip(cpu, STEPPER_RUNS):
+        path, opts, free, want = spec
+        build.reset_launch_counts()
+        (card,) = stepper_runs("cuda", [spec])
+        launches[path] = dict(build.LAUNCHES)
+        rel = float((card[4] - run[4]).norm() / run[4].norm())
+        print(f"[3] {path} ({opts}) on the {LADDER_MESH['n_z']}-layer tube: "
+              f"layout {run[0]}, storage cpu {[str(d)[6:] for d in run[1]]} "
+              f"cuda {[str(d)[6:] for d in card[1]]}; Newton cpu {run[2]} "
+              f"cuda {card[2]}; GMRES inner cpu {run[5]} cuda {card[5]}; "
+              f"tiers cpu {run[3]} cuda {card[3]}; U rel diff {rel:.3e}")
+        require(run[0] == card[0] == want, f"{path}: layout {run[0]} / "
+                                           f"{card[0]}, expected {want}")
+        require(run[1] == card[1] and run[2] == card[2]
+                and run[3] == card[3], f"{path}: storage, Newton counts or "
+                                       f"tiers differ")
+        require(rel <= TOL_PATH_GMRES, f"{path}: U differs by {rel:.3e}")
+        check_launches(path, launches[path])
+    return launches
+
+
 def run_main_path(tmp, label, mesh_params, problem="cylinder", T=0.005,
                   dt=0.001, floor=None, **cfg):
     """driver.main on -p `problem` (a model's name or a problem file) for
@@ -1704,8 +2009,10 @@ def check_launches(label, launches):
 
 
 def print_steps(secs, newton):
-    print(f"    s/step {', '.join(f'{x:.3f}' for x in secs)}; steps 2-"
-          f"{len(secs)} mean {sum(secs[1:]) / (len(secs) - 1):.3f} s")
+    mean = (f"; steps 2-{len(secs)} mean "
+            f"{sum(secs[1:]) / (len(secs) - 1):.3f} s" if len(secs) > 1
+            else "")
+    print(f"    s/step {', '.join(f'{x:.3f}' for x in secs)}{mean}")
     print(f"    Newton iterations {newton}")
 
 
@@ -1815,28 +2122,37 @@ def phase_krylov(tmp, records, label, title, **cfg):
     and 6): the main-path checks, the stepper's lines, a profiled step."""
     print(title)
     ns, launches = run_main_path(tmp, label, FULL_MESH, **cfg)
-    k5 = report_stepper(ns["solver"].stepper, records)
+    st = ns["solver"].stepper
+    k5 = report_stepper(st, records)
     profile_one_step(ns)
-    return launches, k5
+    return launches, k5, dict(layout_needs(st._bpat, st._block_sizes),
+                              gmres_inner=[h["gmres_inner"]
+                                           for h in st.history])
 
 
-def phase_bench(records):
+def phase_bench(records, label="bench", title=None, free=None, **opts):
     """bench.py's measure() on the port: the stenosed tube, 6 ramp steps
-    and 3 more through IterativeStepper.step."""
+    and 3 more through IterativeStepper.step with bench.py's options
+    (updated by `opts`), counters reset just before and read just after;
+    with `free`, a ballast allocation made after the system is built
+    leaves that many bytes free when the stepper reads them. Returns the
+    launches, GMRES's bound per direction and the stepper's layout needs
+    and GMRES inner iterations."""
     import torch
 
     from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
     from vasp_tpu_torch.kernels import build
 
-    print("[7] bench tube (bench.py: stenosed 20,832-cell tube, quadrature "
-          "degree 3, 150x interface load ramped over 6 steps), "
+    print(title or "[7] bench tube (bench.py: stenosed 20,832-cell tube, "
+          "quadrature degree 3, 150x interface load ramped over 6 steps), "
           "IterativeStepper with bench.py's options:")
     system, bc, load = bench_tube(FULL_MESH, "cuda")
     bcv = torch.as_tensor(bc.values_at(1e-3), device="cuda")
+    held = None if free is None else ballast(free, label)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     tic = time.perf_counter()
-    st = IterativeStepper(system, bc, StepOptions(**BENCH_STEP),
+    st = IterativeStepper(system, bc, StepOptions(**dict(BENCH_STEP, **opts)),
                           recompute_tstep=20)
     U = system.zero_state()
     secs, newton = [], []
@@ -1848,20 +2164,207 @@ def phase_bench(records):
         newton.append(stats["iterations"])
         require(stats["residual"] <= BENCH_STEP["atol"] or stats["residual"]
                 <= BENCH_STEP["rtol"] * stats["r0"],
-                f"bench tube: step {k} did not converge "
+                f"{label}: step {k} did not converge "
                 f"({stats['residual']:.3e})")
     wall = time.perf_counter() - tic
     launches = dict(build.LAUNCHES)
-    require(bool(torch.isfinite(U).all()), "bench tube: U is not finite")
-    check_launches("bench", launches)
+    require(bool(torch.isfinite(U).all()), f"{label}: U is not finite")
+    check_launches(label, launches)
     print(f"    {system.mesh.num_cells} cells, {system.space.ndof} dofs, 9 "
           f"steps in {wall:.2f} s (stepper setup included)")
     print_steps(secs, newton)
     print(f"    launches {launches}")
-    print(f"    peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    report_peak(held)
     k5 = report_stepper(st, records)
-    return launches, k5
+    return launches, k5, dict(layout_needs(st._bpat, st._block_sizes),
+                              gmres_inner=[h["gmres_inner"]
+                                           for h in st.history],
+                              layout=st.layout.layout)
+
+
+def ballast(free, label):
+    """A device allocation that leaves `free` bytes of the card free (the
+    caching allocator's idle blocks released first)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    now = torch.cuda.mem_get_info()[0]
+    require(now > free, f"{label}: {now / 2**30:.2f} GiB free, below the "
+                        f"budget of {free / 2**30:.2f} GiB")
+    held = torch.empty(now - free, dtype=torch.uint8, device="cuda")
+    print(f"    ballast {held.numel() / 2**30:.2f} GiB held: "
+          f"{free / 2**30:.2f} GiB of {now / 2**30:.2f} GiB left free")
+    return held
+
+
+def report_peak(held):
+    """Peak device memory of the run, the ballast apart."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    extra = 0 if held is None else held.numel()
+    print(f"    peak device memory {(peak - extra) / 2**30:.2f} GiB"
+          + ("" if held is None else
+             f" beside the ballast ({peak / 2**30:.2f} GiB with it)"))
+
+
+def phase_lowmem(tmp, records, needs6, needs7):
+    """Phase 12: the low-memory banded layouts and RAS at full width; per
+    run its launches, GMRES's bound per direction and (12a-c) the layout
+    and bytes."""
+    import gc
+
+    import torch
+
+    out = {}
+    gib = 2 ** 30
+
+    def needs(n, a, b):
+        return f"{a} {n[a] / gib:.2f} GiB, {b} {n[b] / gib:.2f} GiB"
+
+    print("[12a] cylinder, bench configuration, 20,832 cells, 5 steps, the "
+          "card's free memory between the hybrid layout's need and the "
+          "full one's (" + needs(needs6, "full_f32", "hybrid") + "):")
+    held = ballast((needs6["full_f32"] + needs6["hybrid"]) // 2, "12a")
+    ns, out["hybrid"] = run_main_path(tmp, "hybrid", FULL_MESH, **BENCH_CFG)
+    st = ns["solver"].stepper
+    report_peak(held)
+    del held
+    require(st.layout.layout == "hybrid", f"12a: the {st.layout.layout} "
+                                          f"layout, expected the hybrid")
+    out["k5_hybrid"] = report_stepper(st, records)
+    print(f"    GMRES inner iterations per step "
+          f"{[h['gmres_inner'] for h in st.history]}, phase 6's (full "
+          f"float32 layout) {needs6['gmres_inner']}")
+    del ns, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, tag, free in (
+            ("sinv_bf16", "[12b] bench tube, banded_factor_dtype=\"bf16\", "
+             "the card's free memory between the bf16 Sinv-only layout's "
+             "need and the full bf16 one's (" + needs(
+                 needs7, "full_bf16", "sinv_bf16") + "):",
+             (needs7["full_bf16"] + needs7["sinv_bf16"]) // 2),
+            ("full_bf16", "[12c] bench tube, banded_factor_dtype=\"bf16\", "
+             "no ballast (full layout, bf16 factors, probed):", None)):
+        launches, k5, info = phase_bench(records, label, tag, free,
+                                         banded_factor_dtype="bf16")
+        require(info["layout"] == {"sinv_bf16": "bf16",
+                                   "full_bf16": "full"}[label],
+                f"{label}: the {info['layout']} layout")
+        print(f"    GMRES inner iterations per step {info['gmres_inner']}, "
+              f"phase 7's (full float32 layout) {needs7['gmres_inner']}")
+        out[label], out[f"k5_{label}"] = launches, k5
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[12d] precond=\"ras\" at vasp_tpu's defaults (jac_dtype f32, "
+          "gmres_tol 1e-6, gmres_maxiter 300, ~1,500 dofs a subdomain, "
+          "overlap 2), the 20,832-cell cylinder's subdomain pattern:")
+    ras_full_width(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12d] precond=\"ras\" at vasp_tpu's defaults on the "
+          f"{LADDER_MESH['n_z']}-layer small tube, the largest generated tube "
+          f"on which it converges (from 11,489 dofs on GMRES spends its 300 "
+          f"iterations and Newton stalls, in the port and in vasp_tpu: "
+          f"tests/diag_ras_cylinder.py), 2 steps:")
+    from vasp_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    tic = time.perf_counter()
+    ((_, _, newton, tiers, _, inner),) = stepper_runs("cuda", [RAS_SMALL],
+                                                        steps=2)
+    out["ras_small"] = dict(build.LAUNCHES)
+    check_launches("ras_small", out["ras_small"])
+    print(f"    converged; Newton iterations {newton}, GMRES inner "
+          f"{inner}, tiers {tiers}, {time.perf_counter() - tic:.2f} s")
+    return out
+
+
+def ras_full_width(records):
+    """The RAS rebuild's host pattern at the 20,832-cell cylinder: float64
+    Jacobians and Ruiz scales on the card (K3, K7 f64), the scaled CSR on
+    the host, then build_pattern at vasp_tpu's first try (its subdomain
+    count, overlap 2) and at overlap 1, each against build_pattern_auto's
+    budget (m <= 2,048, S m^2 <= 6e8); its retries run on to 12 (ending,
+    at this size, far over the budget: PERF.md). Then K18 against its
+    plain version on the overlap-1 pattern with seeded inverses."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from vasp_tpu_torch.fem import ras as fr
+    from vasp_tpu_torch.fem.scaling import ruiz_scales
+    from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
+
+    system, bc, _, _ = build_system(FULL_MESH, "cuda", seed=0)
+    asm, ndof = system.assembler, system.space.ndof
+    tic = time.perf_counter()
+    Z = system.zero_state()
+    jacs = asm.element_jacobians(bc.apply(Z, 1e-3), Z)
+    dr, dc = ruiz_scales(asm.blocks, jacs, bc.mask_on("cuda"), ndof,
+                         sweeps=4)
+    A = asm.to_csr(jacs, bc_mask=bc.mask)
+    del jacs
+    A_s = (sp.diags(dr.cpu().numpy()) @ A @ sp.diags(dc.cpu().numpy()))
+    adj = (abs(A_s) + abs(A_s.T)).tocsr()
+    del A, A_s
+    st = IterativeStepper(system, bc, StepOptions(precond="ras"))
+    coords = st._dof_coords()
+    print(f"    {ndof} dofs; float64 Jacobians, Ruiz and the scaled CSR "
+          f"({adj.nnz} nonzeros in |A| + |A^T|) {time.perf_counter() - tic:.1f}"
+          f" s")
+    for ov in (2, 1):
+        tic = time.perf_counter()
+        pat = fr.build_pattern(adj, ndof, st._n_sub, overlap=ov,
+                               coords=coords)
+        S, m = pat.idx.shape
+        print(f"    build_pattern(n_subdomains={st._n_sub}, overlap={ov}): "
+              f"S={S}, m={m}, S m^2 = {S * m * m:.3e} (budget 6e8, m <= "
+              f"2,048): the dense float64 blocks would take "
+              f"{S * m * m * 8 / 2**30:.1f} GiB; host "
+              f"{time.perf_counter() - tic:.1f} s")
+    del adj
+    ras_kernel_records(records, pat, ndof)
+
+
+def ras_kernel_records(records, pat, ndof):
+    """K18 against its plain version at the full-width RAS pattern `pat`
+    (every dof owned once), on seeded float32 inverses and on them in
+    float64: float64 1e-12, float32 1e-5 relative (m-term float32 sums in
+    another order). The bound reads the owned rows of the inverses once;
+    the yardstick is torch.bmm of the inverses by the gathered (S, m, 1)
+    vector."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.kernels import ras as kr
+
+    S, m = pat.idx.shape
+    idx = torch.as_tensor(pat.idx, device="cuda")
+    own = torch.as_tensor(pat.own, device="cuda")
+    n_own = int(pat.own.sum())
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    r = torch.as_tensor(np.random.default_rng(12).normal(size=ndof),
+                        device="cuda")
+    for name, dt, tol in (("ras_apply_f32", torch.float32, 1e-5),
+                          ("ras_apply", torch.float64, TOL_F64)):
+        P = torch.randn((S, m, m), generator=gen, dtype=dt, device="cuda")
+        rl = torch.cat([r, r.new_zeros(1)])[idx].to(dt)[..., None]
+        records.add(
+            name, rel_err(kr.apply_cuda(P, idx, own, r),
+                          kr.apply_plain(P, idx, own, r)),
+            cuda_ms(lambda: kr.apply_cuda(P, idx, own, r), 20),
+            cuda_ms(lambda: kr.apply_plain(P, idx, own, r), 3),
+            (n_own * m * P.element_size() + nbytes(idx, own, r) + 8 * ndof,
+             2 * n_own * m, "f64" if dt == torch.float64 else "f32"), tol,
+            f"S={S} m={m} {str(dt)[6:]}, r f64",
+            library_ms=cuda_ms(lambda: torch.bmm(P, rl), 10))
+        del P, rl
+        torch.cuda.empty_cache()
 
 
 def phase_models(tmp, records):
@@ -2471,13 +2974,13 @@ def main():
         elapsed("phase 3")
         launches["lu"], lu_splu_s = phase_lu(tmp)
         elapsed("phase 4")
-        launches["gmres"], extra["k5_bound_ms_gmres"] = phase_krylov(
+        launches["gmres"], extra["k5_bound_ms_gmres"], _ = phase_krylov(
             tmp, records, "gmres", "[5] cylinder, Newton-Krylov path "
             "(linear_solver=gmres):", linear_solver="gmres")
         elapsed("phase 5")
         gc.collect()
         torch.cuda.empty_cache()
-        launches["f32f"], extra["k5_bound_ms_f32f"] = phase_krylov(
+        launches["f32f"], extra["k5_bound_ms_f32f"], needs6 = phase_krylov(
             tmp, records, "f32f", "[6] cylinder, bench configuration "
             "(residual_dtype=f32f, krylov_dtype=f32, gmres_tol=1e-3, "
             "jac_recompute=2, atol=1e-6):", **BENCH_CFG)
@@ -2512,8 +3015,19 @@ def main():
     del series
     gc.collect()
     torch.cuda.empty_cache()
-    launches["bench"], extra["k5_bound_ms_bench"] = phase_bench(records)
+    launches["bench"], extra["k5_bound_ms_bench"], needs7 = phase_bench(
+        records)
     elapsed("phase 7")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
+        for key, val in phase_lowmem(Path(tmp), records, needs6,
+                                     needs7).items():
+            if key.startswith("k5_"):
+                extra[f"k5_bound_ms_{key[3:]}"] = val
+            else:
+                launches[key] = val
+    elapsed("phase 12")
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():
@@ -2528,7 +3042,8 @@ def main():
             bound_by=r["bound_by"], library_ms=r["library_ms"], path=path,
             **{k: r[k] for k in ("variants", "rfft_ms", "host_copy_ms",
                                  "host_splu_ms", "chunk_steps",
-                                 "one_launch_ms", "library_calls")
+                                 "one_launch_ms", "library_calls",
+                                 "bound_ms_sinv_read_twice")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))

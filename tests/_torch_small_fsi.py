@@ -19,6 +19,9 @@ import torch
 
 MESH = dict(r_inner=0.0015, r_outer=0.002, length=0.008, n_theta=8,
             n_r_fluid=2, n_r_solid=1, n_z=5)
+# its first 3 layers (3,838 dofs, 3 banded blocks): the preconditioner
+# layouts' and RAS's parity runs, each of which compiles vasp_tpu's stepper
+SHORT_MESH = dict(MESH, n_z=3, length=0.0048)
 _E, _NU = 1e6, 0.45
 _MU_S = _E / (2 * (1 + _NU))
 CFG = dict(dt=0.001, theta=0.501, rho_f=1.0e3, mu_f=3.5e-3, dx_f_id=1,
@@ -36,9 +39,9 @@ def _bcs(space, DirichletBC):
     return bcs
 
 
-def build_pair():
-    """((jax system, jax bc set), (torch system, torch bc set)); the torch
-    side on the CPU."""
+def build_pair(mesh=MESH):
+    """((jax system, jax bc set), (torch system, torch bc set)) on the tube
+    of `mesh`'s parameters; the torch side on the CPU."""
     from vasp_tpu.fem.dirichlet import DirichletBC as JBC
     from vasp_tpu.mesh.generate import fsi_tube_mesh as jax_tube
     from vasp_tpu.run.system import FSISystem as JaxSystem
@@ -47,21 +50,21 @@ def build_pair():
     from vasp_tpu_torch.mesh.generate import fsi_tube_mesh
     from vasp_tpu_torch.run.system import FSISystem
 
-    js = JaxSystem(jax_tube(**MESH), CFG)
-    ts = FSISystem(fsi_tube_mesh(**MESH), dict(CFG, device="cpu"))
+    js = JaxSystem(jax_tube(**mesh), CFG)
+    ts = FSISystem(fsi_tube_mesh(**mesh), dict(CFG, device="cpu"))
     jbc = js.make_bcset(_bcs(js.space, JBC))
     tbc = ts.make_bcset(_bcs(ts.space, DirichletBC))
     assert np.array_equal(np.asarray(jbc.mask), tbc.mask)
     return (js, jbc), (ts, tbc)
 
 
-def loaded_pair():
-    """build_pair() with each side's 150x interface pressure load and its bc
-    values at t = 1e-3: ((jax system, bc set, load, bc values), (torch
-    system, bc set, load, bc values))."""
+def loaded_pair(mesh=MESH):
+    """build_pair(mesh) with each side's 150x interface pressure load and
+    its bc values at t = 1e-3: ((jax system, bc set, load, bc values),
+    (torch system, bc set, load, bc values))."""
     import jax.numpy as jnp
 
-    (js, jbc), (ts, tbc) = build_pair()
+    (js, jbc), (ts, tbc) = build_pair(mesh)
     jload = 150.0 * jnp.asarray(js.interface_pressure_load())
     tload = 150.0 * ts.interface_pressure_load()
     jbcv = jnp.asarray(jbc.values_at(0.001))

@@ -216,9 +216,8 @@ def test_iterative_solvers_raise(tiny_tube, lin):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (dict(residual_dtype="f32"), 14), (dict(precond="ras"), 14),
-    (dict(chain_anchor=True), 14),
-], ids=["f32", "ras", "chain_anchor"])
+    (dict(residual_dtype="f32"), 14), (dict(chain_anchor=True), 14),
+], ids=["f32", "chain_anchor"])
 def test_unported_iterative_options_raise(tiny_tube, extra, item):
     """residual_dtype="f32" from a config keeps vasp_tpu's delta_endgame
     default (True), the jet Taylor-delta endgame, which is not ported."""
@@ -229,9 +228,8 @@ def test_unported_iterative_options_raise(tiny_tube, extra, item):
 
 @pytest.mark.parametrize("extra,item", [
     (dict(residual_dtype="f32", delta_endgame=True), 14),
-    (dict(chain_anchor=True), 14), (dict(banded_factor_dtype="bf16"), 9),
-    (dict(banded_factor_dtype="hybrid"), 9),
-], ids=["f32_delta_endgame", "chain_anchor", "bf16", "hybrid"])
+    (dict(chain_anchor=True), 14),
+], ids=["f32_delta_endgame", "chain_anchor"])
 def test_unported_step_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         StepOptions(**extra)
@@ -240,22 +238,31 @@ def test_unported_step_options_raise(extra, item):
 @pytest.mark.parametrize("extra", [
     dict(residual_dtype="f32f"), dict(residual_dtype="mixed"),
     dict(residual_dtype="f32", delta_endgame=False),
-    dict(jac_carry=True, recompute=2),
-], ids=["f32f", "mixed", "f32_raw_endgame", "jac_carry"])
+    dict(jac_carry=True, recompute=2), dict(precond="ras"),
+    dict(banded_factor_dtype="bf16"), dict(banded_factor_dtype="hybrid"),
+], ids=["f32f", "mixed", "f32_raw_endgame", "jac_carry", "ras", "bf16",
+        "hybrid"])
 def test_ported_step_options_build(tiny_tube, extra):
-    """The hybrid residual precisions and jac_carry build, as StepOptions
-    and through a config (endgame_factor and chain_reanchor mapped as
-    vasp_tpu maps them)."""
+    """The hybrid residual precisions, jac_carry, the RAS preconditioner
+    and the bf16/hybrid banded factor storage build, as StepOptions and
+    through a config (residual_dtype and precond as config keys,
+    endgame_factor and chain_reanchor mapped as vasp_tpu maps them); with
+    the host's free memory the banded ones take the full layout."""
     assert StepOptions(**extra)
     cfg = dict(CFG, linear_solver="gmres", endgame_factor=3.0,
                chain_reanchor=2, **{k: v for k, v in extra.items()
-                                    if k == "residual_dtype"})
+                                    if k in ("residual_dtype", "precond")})
     system = FSISystem(tiny_tube, cfg)
-    solver = system.make_solver(system.make_bcset([]), **extra)
+    solver = system.make_solver(
+        system.make_bcset([]), **{k: v for k, v in extra.items()
+                                  if k != "precond"})
     assert isinstance(solver, IterativeNewtonSolver)
     assert (solver.opt.endgame_factor, solver.opt.chain_reanchor) == (3.0, 2)
     for k, v in extra.items():
         assert getattr(solver.opt, k) == v
+    layout = solver.stepper.layout
+    assert (layout is None) == (solver.opt.precond == "ras")
+    assert layout is None or layout.layout == "full"
 
 
 def test_unknown_residual_dtype_is_refused():
@@ -283,7 +290,9 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "fluid_jacobian_elastic_f32", "fluid_residual_nolift",
         "fluid_residual_nolift_f32", "fluid_jacobian_nolift",
         "fluid_jacobian_nolift_f32", "lift_correction",
-        "lift_correction_f32"}
+        "lift_correction_f32", "banded_apply_hybrid", "banded_apply_bf16",
+        "banded_apply_lowmem_bf16", "banded_apply_lowmem_f32",
+        "ruiz_sweep_f64", "ruiz_sweep_36_f64", "ras_apply", "ras_apply_f32"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

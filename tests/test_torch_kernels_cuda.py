@@ -31,7 +31,13 @@ each with its reason:
   order than torch's, and the scans carry the difference through 2 nb - 1
   steps, amplified by the factors' norms. The kernel must be as accurate
   as the plain version: its distance to the same scans in float64 at most
-  twice the plain version's (plus 1e-6).
+  twice the plain version's (plus 1e-6). The same rule for K6's hybrid
+  and bf16 storage instances and for K12 (the folded apply of the
+  low-memory layouts), against the float64 scans on the same widened
+  factors;
+- K18 (the RAS apply): float64 1e-12; with float32 inverses or a float32
+  vector 1e-5 (1e-6 when only r is float32): m-term float32 sums in
+  another order than torch's; K7's float64 sweep: exact.
 
 Marked `cuda`: they need a CUDA device and nvcc, and skip without them.
 The module imports no jax and builds its own mesh, so on a GPU machine
@@ -233,6 +239,110 @@ def test_banded_kernels(banded_inputs):
         xp = kb.apply_plain(Sinv, H, G, perm, r.to(dt))
         assert xk.dtype == dt
         assert _rel(xk.double(), ref) <= 2 * _rel(xp.double(), ref) + 1e-6
+
+
+# the K6 storage instances and K12 (Sinv's storage), factored as the
+# layouts store them
+LOWMEM_INSTANCES = ("hybrid", "bf16", "lowmem_bf16", "lowmem_f32")
+
+
+def _layout_factors(layout, Ck, Dk, Bk):
+    """(apply, factors) of a layout from C/D/B: the full bf16 factors, the
+    hybrid ones (f32 Sinv, bf16 H/G), or Sinv with bf16 C/B."""
+    bf = torch.bfloat16
+    if layout == "bf16":
+        return kb.apply, fb.factorize_banded(Ck, Dk, Bk, bf)[:3]
+    if layout == "hybrid":
+        Sinv = fb.schur_scan(Ck, Dk, Bk)
+        return kb.apply, (Sinv, fb.sinv_times(Sinv, Ck, bf),
+                          fb.sinv_times(Sinv, Bk, bf))
+    Sinv = fb.schur_scan(Ck, Dk, Bk, bf if layout == "lowmem_bf16"
+                         else torch.float32)
+    return kb.apply_lowmem, (Sinv, Ck.to(bf), Bk.to(bf))
+
+
+@pytest.mark.parametrize("layout", LOWMEM_INSTANCES)
+def test_banded_storage_kernels(banded_inputs, layout):
+    """K6 in its hybrid and bf16 instances and K12 with bf16 and f32 Sinv:
+    as accurate as the plain version (K6's rule), each counted under its
+    instance."""
+    sysm, _, _, _, _, jf, pat, plans, diag = banded_inputs
+    Ck, Dk, Bk = kb.assemble_cuda(jf, fb.plans_to_device(plans, "cuda"),
+                                  pat.nb, pat.c, diag.cuda())
+    apply, F = _layout_factors(layout, Ck, Dk, Bk)
+    perm = torch.as_tensor(pat.perm, device="cuda")
+    r = torch.as_tensor(np.random.default_rng(5).normal(size=pat.ndof),
+                        device="cuda")
+    rb = torch.zeros(pat.npad, dtype=torch.float64, device="cuda")
+    rb[:pat.ndof] = r[perm].float().double()
+    solve = (kb.solve_blocks_plain if apply is kb.apply
+             else kb.solve_blocks_lowmem_plain)
+    x64 = solve(*(M.double() for M in F), rb.view(pat.nb, pat.c))
+    ref = torch.empty_like(r)
+    ref[perm] = x64.reshape(-1)[:pat.ndof]
+    cuda = kb.apply_cuda if apply is kb.apply else kb.apply_lowmem_cuda
+    plain = kb.apply_plain if apply is kb.apply else kb.apply_lowmem_plain
+    instances = (kb.K6_INSTANCES if apply is kb.apply
+                 else kb.K12_INSTANCES)
+    name = instances[F[0].dtype, F[1].dtype]
+    for dt in (torch.float64, torch.float32):
+        build.reset_launch_counts()
+        xk = cuda(*F, perm, r.to(dt))
+        assert build.LAUNCHES[name] == 1
+        xp = plain(*F, perm, r.to(dt))
+        assert xk.dtype == dt
+        assert _rel(xk.double(), ref) <= 2 * _rel(xp.double(), ref) + 1e-6
+
+
+def test_ruiz_sweep_kernel_f64(banded_inputs):
+    """K7's float64 sweep (the RAS rebuild's): exact, as the float32 one."""
+    sysm, jacs, mask, dr, dc, *_ = banded_inputs
+    n = sysm.assembler.ndof
+    for b, A in zip(sysm.assembler.blocks, jacs):
+        A, dr64, dc64 = A.double(), dr.double(), dc.double()
+        out = [torch.zeros(n, dtype=torch.float64, device="cuda")
+               for _ in range(4)]
+        ks.ruiz_sweep_cuda(A, b.dofs, dr64, dc64, mask, out[0], out[1])
+        ks.ruiz_sweep_plain(A, b.dofs, dr64, dc64, mask, out[2], out[3])
+        assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+
+
+@pytest.mark.parametrize("p_dt,r_dt,tol", [
+    (torch.float64, torch.float64, RTOL), (torch.float64, torch.float32, 1e-6),
+    (torch.float32, torch.float64, 1e-5), (torch.float32, torch.float32, 1e-5),
+], ids=["f64_f64", "f64_f32", "f32_f64", "f32_f32"])
+def test_ras_apply_kernel(p_dt, r_dt, tol):
+    """K18 against its plain version on a seeded pattern (every dof owned
+    once) and seeded inverses: float64 1e-12; float32 sums (the inverses'
+    or r's type) 1e-5 and 1e-6, m-term sums in another order."""
+    from vasp_tpu_torch.kernels import ras as kr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(6)
+    ndof, S = 5000, 7
+    owner = rng.integers(0, S, ndof)
+    ext = [np.sort(np.concatenate([
+        np.nonzero(owner == s)[0],
+        rng.choice(np.nonzero(owner != s)[0], 300, replace=False)]))
+        for s in range(S)]
+    m = max(len(e) for e in ext)
+    idx = np.full((S, m), ndof, np.int64)
+    own = np.zeros((S, m), bool)
+    for s, e in enumerate(ext):
+        idx[s, :len(e)] = e
+        own[s, :len(e)] = owner[e] == s
+    assert np.all(np.bincount(idx[own], minlength=ndof) == 1)
+    idx_t = torch.as_tensor(idx, device="cuda")
+    own_t = torch.as_tensor(own, device="cuda")
+    pinv = torch.as_tensor(rng.normal(size=(S, m, m)), device="cuda").to(p_dt)
+    r = torch.as_tensor(rng.normal(size=ndof), device="cuda").to(r_dt)
+    build.reset_launch_counts()
+    yk = kr.apply_cuda(pinv, idx_t, own_t, r)
+    assert build.LAUNCHES[kr.counter(pinv)] == 1
+    yp = kr.apply_plain(pinv, idx_t, own_t, r)
+    assert yk.dtype == r_dt
+    assert _rel(yk.double(), yp.double()) <= tol
 
 
 @pytest.fixture(scope="module")

@@ -47,6 +47,7 @@ SLICE = [
     "vasp_tpu_torch.postprocessing.spectral.point_trace",
     "vasp_tpu_torch.postprocessing.log_plotter", "vasp_tpu_torch.cli",
     "vasp_tpu_torch.fem.biharmonic", "vasp_tpu_torch.kernels.lifting",
+    "vasp_tpu_torch.fem.ras", "vasp_tpu_torch.kernels.ras",
 ]
 
 

@@ -51,9 +51,9 @@ def shared_cdb(tmp_path_factory):
     saved = {}
     scan = torch_banded.schur_scan
 
-    def capture(Cm, D, Bm):
+    def capture(Cm, D, Bm, *storage):
         saved.setdefault("cdb", tuple(a.numpy().copy() for a in (Cm, D, Bm)))
-        return scan(Cm, D, Bm)
+        return scan(Cm, D, Bm, *storage)
 
     folder = tmp_path_factory.mktemp("predeform_probe")
     torch_banded.schur_scan = capture

@@ -19,16 +19,39 @@
 // t_k = Sinv_k r_k for all k, forward scan w_k = t_k - H_k w_{k-1},
 // backward scan x_k = w_k - G_k x_{k+1}, unpermute). Plain torch twin:
 // vasp_tpu_torch/kernels/banded.py solve_blocks_plain / apply_plain.
-//   Bound: the read of Sinv, H and G (3 nb c^2 f32, 10.15 GB), ~3.0 ms.
+//   Bound: the read of Sinv, H and G, 12 B per block slot in f32
+//   (10.15 GB at 20,832 cells, ~3.0 ms), 8 B in the hybrid layout (f32
+//   Sinv, bf16 H/G; ~2.0 ms), 6 B with all three in bf16 (~1.5 ms).
 //   Design (simple first): one GEMV kernel y = M v or y = a - M v on c x c
-//   f32 blocks, v staged in shared memory (c floats), one warp per row
-//   reading the row with coalesced 16-byte loads and a shuffle reduction.
-//   The batched t = Sinv r is one launch over all nb blocks; each scan
-//   step is one launch, issued in order from the host entry point
-//   (2 nb - 1 launches in all), in place in one (nb, c) buffer. A
-//   persistent single-launch scan is later work.
+//   blocks, templated on M's storage (float, or __nv_bfloat16 widened to
+//   float exactly; the vector is float32, as vasp_tpu's bgemv promotes
+//   bf16 * f32), v staged in shared memory as doubles (8 c bytes), one
+//   warp per row reading the row with coalesced 16-byte loads (4 floats or
+//   8 bf16; c is a multiple of 8) and a shuffle reduction. A float times a
+//   float is exact in double, so each row's dot product is summed in
+//   double and rounded to float once: every output is within a float's
+//   rounding of the exact one, whatever the summation order (the float64 arithmetic,
+//   one conversion and one multiply-add per matrix entry, stays under the
+//   memory bound). Sinv and H/G
+//   each pick their instance. The batched t = Sinv r is one launch over
+//   all nb blocks; each scan step is one launch, issued in order from the
+//   host entry point (2 nb - 1 launches in all), in place in one (nb, c)
+//   buffer. A persistent single-launch scan is later work.
+//
+// K12 replaces vasp_tpu/fem/banded.py make_banded_apply_lowmem: the same
+// solve with H = Sinv C and G = Sinv B folded in, from Sinv (bf16 or f32)
+// and the bf16 C/B of the low-memory layouts: w_k = Sinv_k (r_k - C_k
+// w_{k-1}), x_k = w_k - Sinv_k (B_k x_{k+1}). Plain torch twin:
+// solve_blocks_lowmem_plain / apply_lowmem_plain.
+//   Bound: each input read once, 6 B per slot with bf16 Sinv (~1.5 ms at
+//   20,832 cells) and 8 B with f32 Sinv (~2.0 ms); the scans below read
+//   Sinv twice (8 and 12 B). Design: two GEMVs of the same template per
+//   scan step (u = r_k - C_k w_{k-1}, then w_k = Sinv_k u; u = B_k
+//   x_{k+1}, then x_k = w_k - Sinv_k u), 4 nb - 3 launches, u a c-vector
+//   of scratch. A fused or persistent step is later work.
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,47 +74,113 @@ __global__ void banded_segsum_kernel(const float* __restrict__ v,
   *slot = acc;
 }
 
-// y[b] = M[b] v[b] (a == nullptr) or a[b] - M[b] v[b]; M (batch, c, c),
-// v/a/y (batch, c), c % 4 == 0. a and y may alias (in-place scan step).
+// The dot product of one 16-byte chunk of a row with 4 or 8 entries of v
+// (held in double): 4 float entries, or 8 bf16 entries widened exactly (a
+// bf16 is the high half of its float, as __bfloat162float gives it). Each
+// product of two floats is exact in double, and so is their sum here to
+// well below a float's rounding.
+__device__ __forceinline__ double dot16(const float*, const uint4 m,
+                                        const double* x) {
+  return (double)__uint_as_float(m.x) * x[0] + (double)__uint_as_float(m.y) * x[1] +
+         (double)__uint_as_float(m.z) * x[2] + (double)__uint_as_float(m.w) * x[3];
+}
+
+__device__ __forceinline__ double dot16(const __nv_bfloat16*, const uint4 m,
+                                        const double* x) {
+  const unsigned int w[4] = {m.x, m.y, m.z, m.w};
+  double s = 0.0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    s += (double)__uint_as_float(w[q] << 16) * x[2 * q] +
+         (double)__uint_as_float(w[q] & 0xffff0000u) * x[2 * q + 1];
+  }
+  return s;
+}
+
+// y[b] = M[b] v[b] (a == nullptr) or a[b] - M[b] v[b], each row's dot
+// product exact (float products summed in double) and rounded once to
+// float with the subtraction; M (batch, c, c) of TM, v/a/y (batch, c)
+// float, c a multiple of 16 / sizeof(TM). a and y may alias (in-place
+// scan step).
+template <class TM>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-gemv_kernel(const float* __restrict__ M, const float* __restrict__ v,
+gemv_kernel(const TM* __restrict__ M, const float* __restrict__ v,
             const float* a, float* y, int c) {
-  extern __shared__ float s_v[];
+  extern __shared__ double s_v[];
+  constexpr int kPer = 16 / sizeof(TM);  // entries per 16-byte load
   const int64_t b = blockIdx.y;
   const float* vb = v + b * c;
   for (int j = threadIdx.x; j < c; j += blockDim.x) s_v[j] = vb[j];
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float4* s_v4 = reinterpret_cast<const float4*>(s_v);
-  const int c4 = c >> 2;
+  const int cv = c / kPer;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int i = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp + r;
     if (i >= c) break;
-    const float4* row = reinterpret_cast<const float4*>(M + (b * c + i) * (int64_t)c);
-    float s = 0.f;
-    for (int j = lane; j < c4; j += 32) {
-      const float4 m = row[j];
-      const float4 x = s_v4[j];
-      s += m.x * x.x + m.y * x.y + m.z * x.z + m.w * x.w;
-    }
+    const uint4* row = reinterpret_cast<const uint4*>(M + (b * c + i) * (int64_t)c);
+    double s = 0.0;
+    for (int j = lane; j < cv; j += 32) s += dot16(M, row[j], s_v + j * kPer);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) y[b * c + i] = a ? a[b * c + i] - s : s;
+    if (lane == 0) y[b * c + i] = a ? (float)((double)a[b * c + i] - s) : (float)s;
   }
 }
 
-int gemv(const float* M, const float* v, const float* a, float* y, int batch,
+template <class TM>
+int gemv(const TM* M, const float* v, const float* a, float* y, int batch,
          int c, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)c;
+  const size_t smem = sizeof(double) * (size_t)c;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gemv_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((c + kRowsPerBlock - 1) / kRowsPerBlock, batch);
-  gemv_kernel<<<grid, kGemvWarps * 32, smem, stream>>>(M, v, a, y, c);
+  gemv_kernel<TM><<<grid, kGemvWarps * 32, smem, stream>>>(M, v, a, y, c);
   return (int)cudaGetLastError();
+}
+
+// The two scans of K6 in place: x (nb, c) holds r on entry and M r on
+// exit; w (nb, c) is scratch.
+template <class TS, class THG>
+int solve(const TS* Sinv, const THG* H, const THG* G, float* x, float* w,
+          int nb, int c, cudaStream_t s) {
+  const int64_t cc = (int64_t)c * c;
+  int e = gemv(Sinv, x, nullptr, w, nb, c, s);  // t_k = Sinv_k r_k
+  for (int k = 1; k < nb && !e; ++k)           // w_k = t_k - H_k w_{k-1}
+    e = gemv(H + k * cc, w + (int64_t)(k - 1) * c, w + (int64_t)k * c,
+             w + (int64_t)k * c, 1, c, s);
+  for (int k = nb - 2; k >= 0 && !e; --k)      // x_k = w_k - G_k x_{k+1}
+    e = gemv(G + k * cc, w + (int64_t)(k + 1) * c, w + (int64_t)k * c,
+             w + (int64_t)k * c, 1, c, s);
+  if (!e) e = (int)cudaMemcpyAsync(x, w, sizeof(float) * nb * (size_t)c,
+                                   cudaMemcpyDeviceToDevice, s);
+  return e;
+}
+
+// The folded scans of K12 in place: x (nb, c) holds r on entry and M r on
+// exit; w (nb, c) and u (c) are scratch.
+template <class TS, class TCB>
+int solve_lowmem(const TS* Sinv, const TCB* C, const TCB* B, float* x,
+                 float* w, float* u, int nb, int c, cudaStream_t s) {
+  const int64_t cc = (int64_t)c * c;
+  int e = gemv(Sinv, x, nullptr, w, 1, c, s);  // w_0 = Sinv_0 r_0
+  for (int k = 1; k < nb && !e; ++k) {
+    // u = r_k - C_k w_{k-1}, then w_k = Sinv_k u
+    e = gemv(C + k * cc, w + (int64_t)(k - 1) * c, x + (int64_t)k * c, u, 1,
+             c, s);
+    if (!e) e = gemv(Sinv + k * cc, u, nullptr, w + (int64_t)k * c, 1, c, s);
+  }
+  for (int k = nb - 2; k >= 0 && !e; --k) {
+    // u = B_k x_{k+1}, then x_k = w_k - Sinv_k u (x_k overwrites w_k)
+    e = gemv(B + k * cc, w + (int64_t)(k + 1) * c, nullptr, u, 1, c, s);
+    if (!e) e = gemv(Sinv + k * cc, u, w + (int64_t)k * c, w + (int64_t)k * c,
+                     1, c, s);
+  }
+  if (!e) e = (int)cudaMemcpyAsync(x, w, sizeof(float) * nb * (size_t)c,
+                                   cudaMemcpyDeviceToDevice, s);
+  return e;
 }
 
 template <class T>
@@ -126,22 +215,36 @@ int vt_banded_segsum(const float* v, const int32_t* src, const int32_t* udst,
   return (int)cudaGetLastError();
 }
 
-// The two scans in place: x (nb, c) f32 holds r on entry and M r on exit;
-// w (nb, c) is scratch.
-int vt_banded_solve(const float* Sinv, const float* H, const float* G,
-                    float* x, float* w, int nb, int c, void* stream) {
+// K6: the two scans in place, x (nb, c) f32 holds r on entry and M r on
+// exit, w (nb, c) f32 scratch. Storage: all f32, f32 Sinv with bf16 H/G
+// (hg_bf16), or all bf16 (s_bf16 and hg_bf16).
+int vt_banded_solve(const void* Sinv, const void* H, const void* G, float* x,
+                    float* w, int nb, int c, int s_bf16, int hg_bf16,
+                    void* stream) {
+  using bf = __nv_bfloat16;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t cc = (int64_t)c * c;
-  int e = gemv(Sinv, x, nullptr, w, nb, c, s);  // t_k = Sinv_k r_k
-  for (int k = 1; k < nb && !e; ++k)           // w_k = t_k - H_k w_{k-1}
-    e = gemv(H + k * cc, w + (int64_t)(k - 1) * c, w + (int64_t)k * c,
-             w + (int64_t)k * c, 1, c, s);
-  for (int k = nb - 2; k >= 0 && !e; --k)      // x_k = w_k - G_k x_{k+1}
-    e = gemv(G + k * cc, w + (int64_t)(k + 1) * c, w + (int64_t)k * c,
-             w + (int64_t)k * c, 1, c, s);
-  if (!e) e = (int)cudaMemcpyAsync(x, w, sizeof(float) * nb * (size_t)c,
-                                   cudaMemcpyDeviceToDevice, s);
-  return e;
+  if (s_bf16 && hg_bf16)
+    return solve((const bf*)Sinv, (const bf*)H, (const bf*)G, x, w, nb, c, s);
+  if (hg_bf16)
+    return solve((const float*)Sinv, (const bf*)H, (const bf*)G, x, w, nb, c, s);
+  if (s_bf16) return (int)cudaErrorInvalidValue;
+  return solve((const float*)Sinv, (const float*)H, (const float*)G, x, w, nb,
+               c, s);
+}
+
+// K12: the folded scans in place, x (nb, c) f32 holds r on entry and M r
+// on exit, w (nb, c) and u (c,) f32 scratch; Sinv in bf16 (s_bf16) or
+// f32, C and B in bf16.
+int vt_banded_solve_lowmem(const void* Sinv, const void* C, const void* B,
+                           float* x, float* w, float* u, int nb, int c,
+                           int s_bf16, void* stream) {
+  using bf = __nv_bfloat16;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (s_bf16)
+    return solve_lowmem((const bf*)Sinv, (const bf*)C, (const bf*)B, x, w, u,
+                        nb, c, s);
+  return solve_lowmem((const float*)Sinv, (const bf*)C, (const bf*)B, x, w, u,
+                      nb, c, s);
 }
 
 // out (npad,) f32 = r[perm] padded with zeros; r f64 (r_f64) or f32.

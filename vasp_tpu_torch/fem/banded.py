@@ -1,37 +1,48 @@
 """Block-tridiagonal (RCM-banded) direct preconditioner of the iterative
 Newton path.
 
-Counterpart of vasp_tpu.fem.banded, plain f32 layout. Under an RCM ordering
-the Ruiz-equilibrated FSI Jacobian is banded; cutting the ordered dofs into
+Counterpart of vasp_tpu.fem.banded. Under an RCM ordering the
+Ruiz-equilibrated FSI Jacobian is banded; cutting the ordered dofs into
 nb blocks of c = bandwidth makes it exactly block-tridiagonal, and the
 block-Thomas LU
 
     S_1 = D_1,   S_k = D_k - C_k S_{k-1}^{-1} B_{k-1}
 
 is a direct factorization. The factors are stored as explicit inverses
-(Sinv, H = Sinv C, G = Sinv B, all f32), so the solve is two scans of
+(Sinv, H = Sinv C, G = Sinv B), so the solve is two scans of
 matrix-vector products:
 
     w_k = Sinv_k r_k - H_k w_{k-1}      (forward)
     x_k = w_k - G_k x_{k+1}             (backward)
 
+Layouts (``banded_layout`` picks one from the device's free memory):
+"full" stores Sinv, H and G, all float32 or all bf16; "hybrid" a float32
+Sinv with bf16 H/G, formed after the scan once D is freed, without a
+probe; "bf16" and "f32" store only Sinv (in that type) beside bf16 copies
+of C and B, and the apply folds H w = Sinv (C w) and G x = Sinv (B x) in
+(``make_banded_apply_lowmem``, K12). vasp_tpu's functions map onto these:
+factorize_banded_lowmem and factorize_banded_sinv32 are ``schur_scan``
+with bf16 and float32 storage, factorize_banded_f64_lowmem is
+``schur_scan_f64``.
+
 Host (numpy, once per mesh): the ordering and block size
 (``build_banded_pattern``), the identity slots of bc and padding rows
 (``identity_diag_slots``) and the assembly plan
-(``build_banded_assembly_plan``). Device: the assembly (K8) and the apply
-(K6) are the hand-written kernels of kernels/banded.py; the Schur scan
-(K9) runs torch.matmul and torch.linalg.inv (cuBLAS/cuSOLVER on the card),
-with one Newton polish per block inverse, and the probe (K10) is the K6
-scans plus batched torch.matmul. The escalation tier's scan (K11,
-``factorize_banded_f64``) runs the same recursion in native float64.
+(``build_banded_assembly_plan``). Device: the assembly (K8) and the
+applies (K6, K12) are the hand-written kernels of kernels/banded.py; the
+Schur scan (K9) runs torch.matmul and torch.linalg.inv (cuBLAS/cuSOLVER
+on the card), with one Newton polish per block inverse, and the probe
+(K10) is the K6 scans plus batched torch.matmul. The escalation tier's
+scan (K11, ``schur_scan_f64``) runs the same recursion in native float64.
 
 Not ported: the spectral ordering, clip/qclip and their VASP_BANDED_*
 environment knobs, the blocked Schur inversion ``_inv_blocked`` and the
 f32-seeded float64 inverse ``_inv64`` (TPU workarounds: a matrix-unit
-inverse, and a float64 inverse on a chip without a float64 LU), and the
-lowmem layouts (ROADMAP.md queue 1, item 9).
+inverse, and a float64 inverse on a chip without a float64 LU).
 """
+import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -167,13 +178,15 @@ def assemble_banded_planned(jacs, plans, pattern: BandedPattern, diag_flat):
     return kb.assemble(jacs, plans, pattern.nb, pattern.c, diag_flat)
 
 
-def schur_scan(Cm, D, Bm):
-    """Sinv (nb, c, c) f32 of the block-Thomas recursion (K9):
+def schur_scan(Cm, D, Bm, factor_dtype=torch.float32):
+    """Sinv (nb, c, c) of the block-Thomas recursion (K9) in float32:
     S_k = D_k - C_k G_{k-1}, Sinv_k = S_k^{-1} with one Newton polish
-    X <- X (2I - S X), G_k = Sinv_k B_k."""
+    X <- X (2I - S X), G_k = Sinv_k B_k; each block's polished inverse is
+    stored in factor_dtype (float32, or bf16 rounded to nearest even,
+    while the recursion carries the exact float32 G_k)."""
     nb, c, _ = D.shape
     eye2 = 2.0 * torch.eye(c, dtype=torch.float32, device=D.device)
-    Sinv = torch.empty_like(D)
+    Sinv = torch.empty(D.shape, dtype=factor_dtype, device=D.device)
     Gprev = torch.zeros((c, c), dtype=torch.float32, device=D.device)
     for k in range(nb):
         S = D[k] - Cm[k] @ Gprev
@@ -184,9 +197,26 @@ def schur_scan(Cm, D, Bm):
     return Sinv
 
 
+# bytes of the float32 products Sinv_k X_k that sinv_times forms at once
+_CHUNK_BYTES = 2 ** 29
+
+
+def sinv_times(Sinv, X, dtype):
+    """(Sinv_k X_k) for every block, float32 products (a bf16 Sinv widened
+    exactly) stored in `dtype`, formed a chunk of blocks at a time into
+    preallocated storage: no full-size float32 temporary exists."""
+    nb, c, _ = X.shape
+    out = torch.empty(X.shape, dtype=dtype, device=X.device)
+    step = max(1, _CHUNK_BYTES // (4 * c * c))
+    for k in range(0, nb, step):
+        out[k:k + step] = torch.matmul(Sinv[k:k + step].float(),
+                                       X[k:k + step])
+    return out
+
+
 def hg_factors(Sinv, Cm, Bm):
-    """H = Sinv C and G = Sinv B as batched products."""
-    return torch.matmul(Sinv, Cm), torch.matmul(Sinv, Bm)
+    """H = Sinv C and G = Sinv B, stored in Sinv's dtype."""
+    return sinv_times(Sinv, Cm, Sinv.dtype), sinv_times(Sinv, Bm, Sinv.dtype)
 
 
 def probe_rel(Cm, D, Bm, Sinv, H, G):
@@ -203,10 +233,11 @@ def probe_rel(Cm, D, Bm, Sinv, H, G):
     return float(torch.linalg.norm(y - b) / torch.linalg.norm(b))
 
 
-def factorize_banded(Cm, D, Bm):
-    """(Sinv, H, G, probe rel) — vasp_tpu's factorize_banded with f32
-    factor storage and the LU inverse (inv_levels=0)."""
-    Sinv = schur_scan(Cm, D, Bm)
+def factorize_banded(Cm, D, Bm, factor_dtype=torch.float32):
+    """(Sinv, H, G, probe rel) — vasp_tpu's factorize_banded with the LU
+    inverse (inv_levels=0): the factors stored in factor_dtype (float32 or
+    bf16), the probe taken on the stored factors."""
+    Sinv = schur_scan(Cm, D, Bm, factor_dtype)
     H, G = hg_factors(Sinv, Cm, Bm)
     return Sinv, H, G, probe_rel(Cm, D, Bm, Sinv, H, G)
 
@@ -235,8 +266,8 @@ def factorize_banded_f64(Cm, D, Bm):
     """(Sinv, H, G) f32 — vasp_tpu's factorize_banded_f64 (K11), the
     escalation tier for Schur blocks too ill-conditioned for the float32
     recursion: the float64 scan, then H = Sinv C and G = Sinv B from the
-    stored float32 Sinv as in hg_factors. No probe: vasp_tpu takes none on
-    this tier."""
+    stored float32 Sinv as in hg_factors, whatever storage the layout
+    takes otherwise. No probe: vasp_tpu takes none on this tier."""
     Sinv = schur_scan_f64(Cm, D, Bm)
     return (Sinv, *hg_factors(Sinv, Cm, Bm))
 
@@ -250,3 +281,104 @@ def make_banded_apply(pattern: BandedPattern, device):
         return kb.apply(Sinv, H, G, perm, r)
 
     return apply
+
+
+def make_banded_apply_lowmem(pattern: BandedPattern, device):
+    """Returns apply(Sinv, C, B, r) -> M r (same dtype as r), the apply
+    with H = Sinv C and G = Sinv B folded in; the K12 kernels on a CUDA
+    r."""
+    perm = torch.as_tensor(pattern.perm, device=device)
+
+    def apply(Sinv, Cm, Bm, r):
+        return kb.apply_lowmem(Sinv, Cm, Bm, perm, r)
+
+    return apply
+
+
+class BandedLayout(NamedTuple):
+    """What banded_layout chose: the layout ("full", "hybrid", "bf16" or
+    "f32"), the full layout's and the chosen layout's peak bytes, and
+    whether the float64 factor tier (K11) fits beside the chosen one."""
+
+    layout: str
+    full_bytes: int
+    bytes: int
+    f64_fits: bool
+
+
+# the peak of each layout's rebuild in float32 (nb, c, c) arrays, F each:
+# full, C/D/B with Sinv/H/G (6 F, 4.5 F in bf16: all six live at the
+# probe); hybrid, C/D/B with the f32 Sinv (4 F; D, C and B are freed as the
+# bf16 H and G are formed); the Sinv-only layouts, C/D/B with Sinv (4 F
+# with f32 Sinv, 3.5 F with bf16), D then freed and C/B cast to bf16
+_PEAK_F = {("full", "f32"): 6.0, ("full", "bf16"): 4.5, ("hybrid", None): 4.0,
+           ("f32", None): 4.0, ("bf16", None): 3.5}
+# the low-memory layout each banded_factor_dtype falls back to (vasp_tpu's
+# lowmem mapping, vasp_tpu/fem/timestepper.py:431-434); None takes the
+# smallest one after the hybrid where the hybrid does not fit either
+_FALLBACK = {None: ("hybrid", "bf16"), "hybrid": ("hybrid",),
+             "bf16": ("bf16",), "f32": ("f32",)}
+
+
+def element_jacobian_bytes(block_sizes, itemsize=4):
+    """Bytes of one set of element Jacobians: block_sizes lists each
+    block's (K, n) (K cells of n local dofs)."""
+    return sum(itemsize * K * n * n for K, n in block_sizes)
+
+
+def banded_layout(pattern: BandedPattern, block_sizes, free_bytes,
+                  banded_factor_dtype=None):
+    """The factor layout that fits `free_bytes` of device memory
+    (vasp_tpu's 7 GiB lowmem switch and 11 GiB escalation gate, sized by
+    the device instead): the full layout (all float32, all bf16 for
+    banded_factor_dtype="bf16") where it fits, else the low-memory layout
+    of vasp_tpu's mapping (None and "hybrid": "hybrid", f32 Sinv with bf16
+    H/G; "bf16"/"f32": Sinv-only in that type), and for None the bf16
+    Sinv-only one where the hybrid does not fit either. Each peak counts
+    the layout's rebuild arrays, two float32 element Jacobian sets (the
+    Newton loop's and the rebuild's, which the equilibration copies),
+    sixteen c x c float32 temporaries of the scan and its inverses and two
+    of sinv_times' chunks (measured peaks on an H100 at c = 4,488, nb =
+    42 sit 1.0-1.7 GiB under these); the float64 tier fits where its six
+    c x c float64 temporaries fit beside the peak. Raises, naming the
+    bytes, where no layout fits."""
+    F = pattern.factor_bytes
+    c2 = pattern.c * pattern.c
+    chunk = min(max(1, _CHUNK_BYTES // (4 * c2)), pattern.nb) * 4 * c2
+    base = 2 * element_jacobian_bytes(block_sizes) + 16 * 4 * c2 + 2 * chunk
+    f64_temps = 6 * 8 * c2
+    full_dt = "bf16" if banded_factor_dtype == "bf16" else "f32"
+    full = int(_PEAK_F["full", full_dt] * F) + base
+    tried = [("full", full)]
+    if full <= free_bytes:
+        return BandedLayout("full", full, full,
+                            full + f64_temps <= free_bytes)
+    for layout in _FALLBACK[banded_factor_dtype]:
+        need = int(_PEAK_F[layout, None] * F) + base
+        tried.append((layout, need))
+        if need <= free_bytes:
+            return BandedLayout(layout, full, need,
+                                need + f64_temps <= free_bytes)
+    raise MemoryError(
+        f"the banded preconditioner at c={pattern.c}, nb={pattern.nb} needs "
+        + ", ".join(f"{b / 2**30:.2f} GiB in the {name} layout"
+                    for name, b in tried)
+        + f"; {free_bytes / 2**30:.2f} GiB of device memory are free")
+
+
+def device_free_bytes(device):
+    """Free memory of the device: torch.cuda.mem_get_info's on a card, the
+    host's available memory on the CPU (MemAvailable, which counts the
+    page cache the kernel can reclaim; the free pages where the kernel
+    does not report it)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

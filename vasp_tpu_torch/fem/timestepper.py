@@ -1,16 +1,30 @@
-"""Newton-Krylov timestepper of the iterative path (banded preconditioner).
+"""Newton-Krylov timestepper of the iterative path.
 
 Counterpart of vasp_tpu.fem.timestepper: ``StepOptions``,
-``IterativeStepper`` with precond="banded" in its full-f32 factor layout
-and its precision ladder, and ``IterativeNewtonSolver``. Each Newton
+``IterativeStepper`` with precond="banded" in each factor layout or
+precond="ras", its precision ladder, and ``IterativeNewtonSolver``. Each Newton
 iteration builds element Jacobians (float32 by default, K3), solves the
 Ruiz-equilibrated system (Dr J Dc) y = Dr R by right-preconditioned GMRES
 (K5) whose operator is the element matvec (K4) and whose preconditioner is
-the banded two-scan apply (K6), and takes a full-step-first line search on
-the residual (K1, K2). A rebuild (every ``recompute_tstep`` steps, or on a
-stall) refreshes the preconditioner: float32 Jacobians -> Ruiz scales and
-element rescale (K7) -> banded assembly (K8) -> Schur scan, H/G and probe
-(K9, K10), or the float64 Schur scan (K11) once a step has escalated.
+the banded two-scan apply (K6, or K12 in the Sinv-only layouts) or the
+RAS apply (K18), and takes a full-step-first line search on the residual
+(K1, K2). A rebuild (every ``recompute_tstep`` steps, or on a stall)
+refreshes the preconditioner. Banded: float32 Jacobians -> Ruiz scales and
+element rescale (K7) -> banded assembly (K8) -> Schur scan (K9, or the
+float64 one, K11, once a step has escalated) -> the layout's factors. RAS:
+float64 Jacobians and Ruiz scales (K7 in float64) -> the scaled CSR on the
+host -> the subdomain pattern (once) and local blocks on the host -> their
+float64 inverses on the device (fem/ras.py).
+
+Banded factor layouts (fem/banded.py banded_layout, read once at
+construction from the device's free memory, ``device_free_bytes``): the
+full layout (Sinv/H/G in float32, or bf16 with banded_factor_dtype="bf16";
+probed, K10), or where it does not fit vasp_tpu's low-memory layouts: the
+hybrid one (float32 Sinv, bf16 H/G; assemble, scan, free D, form H, free
+C, form G, free B; no probe) and the Sinv-only ones (Sinv in bf16 or
+float32 beside bf16 C/B, the folded apply K12; D freed after the scan).
+vasp_tpu donates buffers between these phases; the port frees them with
+``del``.
 
 Hybrid residual precisions (``residual_dtype``): "f32" evaluates the
 residual with float32 element work (K1/K2 f32) while the norm is above
@@ -36,14 +50,16 @@ on the host as they are needed. vasp_tpu's TPU workarounds are not ported:
 the 8-iteration dispatch chunking (so iteration counts and ``jac_carry``
 ages agree with vasp_tpu for Newton calls of at most 8 iterations), the
 block_until_ready barriers, the remote-worker gate on the last ladder tier
-(the port always takes it, as vasp_tpu does on the CPU) and the 7 GiB
-lowmem switch; the factor layout is checked against the card's free memory
-instead.
+(the port always takes it, as vasp_tpu does on the CPU), and the 7 GiB
+lowmem switch and 11 GiB escalation gate, which the device's free memory
+replaces: under a low-memory layout the exact-stall tier takes the float64
+factor tier where banded_layout found it fits, and the float64-Jacobian
+tier where those Jacobians fit in the memory free when it is reached
+(vasp_tpu skips that tier at low-memory scale).
 
-Refused, each with the ROADMAP.md item that will port it: the jet
+Refused, with the ROADMAP.md item that will port them: the jet
 Taylor-delta endgame (residual_dtype="f32" with delta_endgame=True) and
-chain_anchor (item 14), bf16/hybrid factor storage and the lowmem layouts
-(item 9), precond="ras" (item 14).
+chain_anchor (item 14).
 """
 import time
 from collections import defaultdict
@@ -55,6 +71,7 @@ import numpy as np
 import torch
 
 from vasp_tpu_torch.fem import banded as banded_mod
+from vasp_tpu_torch.fem import ras as ras_mod
 from vasp_tpu_torch.fem.biharmonic import correction_apply
 from vasp_tpu_torch.fem.krylov import gmres
 from vasp_tpu_torch.fem.scaling import ruiz_scales, scale_element_jacobians
@@ -93,10 +110,12 @@ class StepOptions:
     # None (float64), or the hybrid "f32", "mixed", "f32f" (module doc)
     residual_dtype: Optional[str] = None
     ruiz_sweeps: int = 4
+    # "banded" (fem/banded.py) or "ras" (fem/ras.py)
     precond: str = "banded"
+    # banded factor storage (fem/banded.py banded_layout): None (auto),
+    # "hybrid", "bf16" or "f32"
     banded_factor_dtype: Optional[str] = None
-    # accepted for vasp_tpu's configurations; the RAS preconditioner that
-    # reads them is not ported
+    # RAS: subdomains (default: ~1500 dofs each) and overlap layers
     n_subdomains: Optional[int] = None
     overlap: int = 2
     # hybrid residuals: fine (exact-grade) residuals once the norm is
@@ -132,25 +151,24 @@ class StepOptions:
         if self.residual_dtype == "f32" and self.delta_endgame:
             not_ported("residual_dtype='f32' with delta_endgame=True (the "
                        "jet Taylor-delta endgame)", 14)
-        if self.banded_factor_dtype in ("hybrid", "bf16"):
-            not_ported(f"banded_factor_dtype={self.banded_factor_dtype!r}", 9)
-        if self.precond == "ras":
-            not_ported("precond='ras'", 14)
-        if self.precond != "banded":
-            raise ValueError(f"precond={self.precond!r}: expected 'banded'")
+        if self.precond not in ("banded", "ras"):
+            raise ValueError(f"precond={self.precond!r}: expected 'banded' "
+                             "or 'ras'")
         if self.chain_anchor:
             not_ported("chain_anchor", 14)
 
 
 class IterativeStepper:
-    """Ruiz + banded-preconditioned GMRES Newton, one timestep per
+    """Ruiz + banded- or RAS-preconditioned GMRES Newton, one timestep per
     ``step`` call.
 
     ``timings`` accumulates wall seconds per phase, each ended by a device
-    synchronize on a card: rebuild phases (rebuild_jacobians, ruiz,
-    assemble, factorize, hg, probe) and per-iteration phases (jacobians,
-    residual, gmres, and inside gmres its matvec and precond shares).
-    ``setup`` holds the one-time host seconds (pattern, rcm, plan),
+    synchronize on a card: rebuild phases (rebuild_jacobians, ruiz; banded:
+    assemble, factorize, hg, cast, probe; RAS: ras_pattern, ras_extract,
+    ras_invert) and per-iteration phases (jacobians, residual, gmres, and
+    inside gmres its matvec and precond shares). ``setup`` holds the
+    one-time host seconds (banded: pattern, rcm, plan), ``layout`` the
+    banded layout chosen (fem/banded.py BandedLayout; None under RAS),
     ``rebuilds`` the rebuild count, ``gmres_inner`` and ``gmres_cycles``
     the GMRES inner iterations and restart cycles over the run and
     ``history`` one record per step (Newton iterations, GMRES inner
@@ -161,10 +179,11 @@ class IterativeStepper:
                  recompute_tstep=20):
         opt = options
         self.asm = system.assembler
+        self.space = system.space
         self.opt = opt
         self.device = system.device
         self.ndof = self.asm.ndof
-        mask_np = np.asarray(bc_set.mask)
+        self._mask_np = np.asarray(bc_set.mask)
         self.mask = bc_set.mask_on(self.device)
         self.recompute_tstep = int(recompute_tstep)
         self._lift = getattr(system, "lift", None)
@@ -174,7 +193,7 @@ class IterativeStepper:
         self._pinv = None
         self._dr = self._dc = None
         self._last_rel = 0.0
-        # set by the reactive escalation: every later rebuild runs K11
+        # set by an escalation: every later rebuild runs K11
         self._banded_f64 = False
         self._jac_carry = None  # (element Jacobians, iteration age)
         self._pred_prev = None
@@ -185,43 +204,48 @@ class IterativeStepper:
         self.gmres_inner = 0
         self.gmres_cycles = 0
         self.history = []
+        self.layout = None
+        self._block_sizes = [tuple(b.dofs.shape) for b in self.asm.blocks]
+        if opt.precond == "ras":
+            self._n_sub = opt.n_subdomains or max(2, self.ndof // 1500)
+            # the subdomain pattern and its apply, built at the first rebuild
+            self._apply = None
+            return
 
         block_dofs = [b.dofs.cpu().numpy() for b in self.asm.blocks]
         tic = time.perf_counter()
         self._bpat = banded_mod.build_banded_pattern(
             block_dofs, self.ndof, timings=self.setup)
         self.setup["pattern"] = time.perf_counter() - tic
-        self._check_memory()
+        free = banded_mod.device_free_bytes(self.device)
+        self.layout = banded_mod.banded_layout(
+            self._bpat, self._block_sizes, free, opt.banded_factor_dtype)
+        lay = self.layout
+        print(f"banded preconditioner: {lay.layout} layout at c="
+              f"{self._bpat.c}, nb={self._bpat.nb}: needs "
+              f"{lay.bytes / 2**30:.2f} GiB (the full layout "
+              f"{lay.full_bytes / 2**30:.2f} GiB) with "
+              f"{free / 2**30:.2f} GiB free; f64 factor tier "
+              f"{'fits' if lay.f64_fits else 'does not fit'}", flush=True)
         tic = time.perf_counter()
         plans = banded_mod.build_banded_assembly_plan(
-            block_dofs, self._bpat, mask_np)
+            block_dofs, self._bpat, self._mask_np)
         self.setup["plan"] = time.perf_counter() - tic
         self._plans = banded_mod.plans_to_device(plans, self.device)
         self._diag_flat = torch.as_tensor(
-            banded_mod.identity_diag_slots(self._bpat, mask_np),
+            banded_mod.identity_diag_slots(self._bpat, self._mask_np),
             device=self.device)
-        self._apply = banded_mod.make_banded_apply(self._bpat, self.device)
+        if lay.layout in ("bf16", "f32"):
+            self._apply = banded_mod.make_banded_apply_lowmem(self._bpat,
+                                                              self.device)
+        else:
+            self._apply = banded_mod.make_banded_apply(self._bpat,
+                                                       self.device)
 
-    def _check_memory(self):
-        """The full-f32 layout holds C/D/B and Sinv/H/G at once (the probe
-        reads all six), beside two sets of f32 element matrices, a few
-        c x c f32 temporaries of the scan and the four c x c f64 ones of
-        the escalation tier's scan (K11). Raise where the card cannot."""
-        if self.device.type != "cuda":
-            return
-        pat = self._bpat
-        # each block's (K, n, n) f32 matrices at its own local size n
-        jac = sum(4 * b.dofs.shape[1] ** 2 * b.dofs.shape[0]
-                  for b in self.asm.blocks)
-        need = (6 * pat.factor_bytes + 2 * jac + 8 * 4 * pat.c * pat.c
-                + 4 * 8 * pat.c * pat.c)
-        free, _ = torch.cuda.mem_get_info(self.device)
-        if need > free:
-            not_ported(
-                f"the banded preconditioner at c={pat.c}, nb={pat.nb} needs "
-                f"{need / 2**30:.1f} GiB of device memory with "
-                f"{free / 2**30:.1f} GiB free; its low-memory layouts are",
-                9)
+    @property
+    def lowmem(self):
+        """A low-memory banded layout holds the factors."""
+        return self.layout is not None and self.layout.layout != "full"
 
     @contextmanager
     def _timed(self, phase):
@@ -237,7 +261,17 @@ class IterativeStepper:
         # Jacobian goes too (vasp_tpu drops it at every rebuild)
         self._pinv = None
         self._jac_carry = None
-        asm, mask = self.asm, self.mask
+        if self.opt.precond == "ras":
+            self._pinv = self._rebuild_ras(U, U0)
+        else:
+            self._pinv = self._rebuild_banded(U, U0)
+        self._last_rebuild = tstep
+        self.rebuilds += 1
+
+    def _rebuild_banded(self, U, U0):
+        """The factors of the layout. The tensors each phase leaves behind
+        are freed with del as soon as the next phase is done with them."""
+        asm, mask, layout = self.asm, self.mask, self.layout.layout
         with self._timed("rebuild_jacobians"):
             jacs = asm.element_jacobians(U, U0, dtype=torch.float32)
         with self._timed("ruiz"):
@@ -245,24 +279,92 @@ class IterativeStepper:
                                  sweeps=self.opt.ruiz_sweeps)
             jf = scale_element_jacobians(asm.blocks, jacs, dr, dc)
             del jacs
+        self._dr, self._dc = dr.to(torch.float64), dc.to(torch.float64)
         with self._timed("assemble"):
             Cm, Dm, Bm = banded_mod.assemble_banded_planned(
                 jf, self._plans, self._bpat, self._diag_flat)
             del jf
         with self._timed("factorize"):
-            scan = (banded_mod.schur_scan_f64 if self._banded_f64
-                    else banded_mod.schur_scan)
-            Sinv = scan(Cm, Dm, Bm)
-        with self._timed("hg"):
-            H, G = banded_mod.hg_factors(Sinv, Cm, Bm)
-        if not self._banded_f64:
-            # vasp_tpu probes only the float32 recursion's factors
-            with self._timed("probe"):
-                self._last_rel = banded_mod.probe_rel(Cm, Dm, Bm, Sinv, H, G)
-        self._dr, self._dc = dr.to(torch.float64), dc.to(torch.float64)
-        self._pinv = (Sinv, H, G)
-        self._last_rebuild = tstep
-        self.rebuilds += 1
+            if self._banded_f64:
+                Sinv = banded_mod.schur_scan_f64(Cm, Dm, Bm)
+            else:
+                bf16 = (layout == "bf16"
+                        or self.opt.banded_factor_dtype == "bf16")
+                Sinv = banded_mod.schur_scan(
+                    Cm, Dm, Bm, torch.bfloat16 if bf16 else torch.float32)
+        if layout == "full":
+            with self._timed("hg"):
+                H, G = banded_mod.hg_factors(Sinv, Cm, Bm)
+            if not self._banded_f64:
+                # vasp_tpu probes only the float32 recursion's factors
+                with self._timed("probe"):
+                    self._last_rel = banded_mod.probe_rel(Cm, Dm, Bm, Sinv,
+                                                          H, G)
+            return Sinv, H, G
+        del Dm
+        if layout == "hybrid":
+            with self._timed("hg"):
+                H = banded_mod.sinv_times(Sinv, Cm, torch.bfloat16)
+                del Cm
+                G = banded_mod.sinv_times(Sinv, Bm, torch.bfloat16)
+                del Bm
+            return Sinv, H, G
+        # Sinv-only: C and B in bf16 for the folded apply (K12)
+        with self._timed("cast"):
+            Cm = Cm.to(torch.bfloat16)
+            Bm = Bm.to(torch.bfloat16)
+        return Sinv, Cm, Bm
+
+    def _rebuild_ras(self, U, U0):
+        """float64 element Jacobians and Ruiz scales, the scaled CSR on the
+        host, the pattern (at the first rebuild), the local blocks and
+        their inverses in the Jacobian dtype."""
+        import scipy.sparse as sp
+
+        asm = self.asm
+        with self._timed("rebuild_jacobians"):
+            jacs = asm.element_jacobians(U, U0)
+        with self._timed("ruiz"):
+            dr, dc = ruiz_scales(asm.blocks, jacs, self.mask, self.ndof,
+                                 sweeps=self.opt.ruiz_sweeps)
+        self._dr, self._dc = dr, dc
+        with self._timed("ras_extract"):
+            A = asm.to_csr(jacs, bc_mask=self._mask_np)
+            del jacs
+            A_s = (sp.diags(dr.cpu().numpy()) @ A
+                   @ sp.diags(dc.cpu().numpy())).tocsr()
+        if self._apply is None:
+            with self._timed("ras_pattern"):
+                pat = ras_mod.build_pattern_auto(
+                    (abs(A_s) + abs(A_s.T)).tocsr(), self.ndof, self._n_sub,
+                    overlap=self.opt.overlap, coords=self._dof_coords())
+                self._ras_pattern = pat
+                self._apply = ras_mod.make_apply(pat, self.device)
+            print(f"RAS preconditioner: S={pat.n_subdomains} subdomains of "
+                  f"m={pat.local_size} local dofs ({self._n_sub} subdomains "
+                  f"at overlap {self.opt.overlap} asked)", flush=True)
+        with self._timed("ras_extract"):
+            blocks = ras_mod.extract_local_blocks(A_s, self._ras_pattern,
+                                                  self._mask_np)
+        with self._timed("ras_invert"):
+            return (ras_mod.invert_blocks(blocks, self._jdtype, self.device),)
+
+    def _dof_coords(self):
+        """(ndof, 3) coordinates of every mixed dof: d and v components at
+        their P2 node, p at its vertex (compact spatial subdomains keep
+        every field of a location together, which the saddle-point local
+        solves need)."""
+        sp_ = self.space
+        xy2 = np.asarray(sp_.p2_coords)
+        dv = np.repeat(xy2, 3, axis=0)  # dof = 3*node + comp layout
+        return np.concatenate([dv, dv, xy2[: sp_.n_p1]], axis=0)
+
+    def _f64_jacobians_fit(self):
+        """The exact tier's float64 element Jacobians and float64 Krylov
+        basis fit in the device memory free now."""
+        need = (banded_mod.element_jacobian_bytes(self._block_sizes, 8)
+                + 8 * (self.opt.gmres_restart + 1) * self.ndof)
+        return need <= banded_mod.device_free_bytes(self.device)
 
     # -------------- Newton --------------
     def _residual(self, U, U0, load, dtype=None):
@@ -457,10 +559,11 @@ class IterativeStepper:
             # a coarse exit claims convergence: certify it with fine
             # residuals (exits at once when the claim holds)
             U, stats = again("certify", True)
-        if (not converged() and not self._banded_f64
+        if (not converged() and not self.lowmem and not self._banded_f64
                 and self._last_rel > REL_MAX):
             # reactive factor escalation: Newton stalled under factors the
-            # probe had flagged; every later rebuild runs K11
+            # probe had flagged; every later rebuild runs K11 (banded only:
+            # RAS takes no probe; the low-memory layouts take none either)
             print("Newton: stall under probe-flagged banded factors "
                   f"(solve quality {self._last_rel:.1e}) - escalating to "
                   "f64 factorization", flush=True)
@@ -480,6 +583,31 @@ class IterativeStepper:
             res_pre = stats["residual"]
             U, stats = again("fine_retry", True)
             if not converged() and stats["residual"] > 0.9 * res_pre:
+                if self.lowmem:
+                    if self.layout.f64_fits and not self._banded_f64:
+                        # a stall that survives exact residuals is the
+                        # broken-float32-factor signature where no probe
+                        # was taken: the float64 factor tier first
+                        print("Newton: stall persists with exact residuals "
+                              f"({stats['residual']:.3e}) - escalating to "
+                              "f64 factorization (small-bandwidth lowmem)",
+                              flush=True)
+                        self._banded_f64 = True
+                        res_pre2 = stats["residual"]
+                        self._rebuild(U, U0, tstep)
+                        U, stats = again("f64_factors", True)
+                        if converged():
+                            return U, stats
+                        if stats["residual"] > 0.5 * res_pre2:
+                            # the factors were not the floor: no float64
+                            # rebuilds for the rest of the run
+                            self._banded_f64 = False
+                    if not self._f64_jacobians_fit():
+                        print("Newton: stall persists with exact residuals "
+                              f"({stats['residual']:.3e}); f64-Jacobian "
+                              "escalation skipped (problem too large for "
+                              "f64 jacfwd)", flush=True)
+                        return U, stats
                 # the float32 direction is the floor: float64 Jacobians
                 # and GMRES, then a fresh preconditioner at this state
                 print("Newton: stall persists with exact residuals "
@@ -503,8 +631,9 @@ class IterativeStepper:
 
 class IterativeNewtonSolver:
     """The Newton-Krylov solver the driver calls for linear_solver in
-    ("gmres", "iterative", "ras"), with NewtonSolver's solve() contract
-    and one contract line per step."""
+    ("gmres", "iterative", "ras"; the preconditioner is StepOptions.precond,
+    the config key "precond"), with NewtonSolver's solve() contract and one
+    contract line per step."""
 
     def __init__(self, system, bc_set, step_options: StepOptions,
                  recompute_tstep: int = 20, verbose: bool = True,

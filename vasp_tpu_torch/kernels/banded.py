@@ -1,15 +1,20 @@
-"""K8 (banded assembly) and K6 (banded apply, block-Thomas solve).
+"""K8 (banded assembly), K6 (banded apply, block-Thomas solve) and K12
+(the folded apply of the low-memory layouts).
 
 Plain torch versions (``assemble_plain``, ``solve_blocks_plain``,
-``apply_plain``), CUDA launches (csrc/banded.cu) and the dispatch
-fem/banded.py calls: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernels or raises.
+``apply_plain``, ``solve_blocks_lowmem_plain``, ``apply_lowmem_plain``),
+CUDA launches (csrc/banded.cu) and the dispatch fem/banded.py calls: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernels or
+raises.
 
-Replaces vasp_tpu/fem/banded.py assemble_banded_planned (scatter mode) and
-make_banded_apply with bgemv. Costs and design: see the head of
-csrc/banded.cu. ``solve_blocks`` is the two scans on an (nb, c) block
-vector; the apply wraps it in the permutation, and the probe
-(fem/banded.py probe_rel) calls it directly.
+Replaces vasp_tpu/fem/banded.py assemble_banded_planned (scatter mode),
+make_banded_apply and make_banded_apply_lowmem with bgemv. Each factor is
+stored in float32 or bfloat16 (K6: Sinv, and H/G together; K12: Sinv, and
+C/B together); bf16 entries are widened to float32 and the vector and the
+sums are float32, as vasp_tpu's bgemv promotes bf16 * f32. Costs and
+design: see the head of csrc/banded.cu. ``solve_blocks`` is the two scans
+on an (nb, c) block vector; the apply wraps it in the permutation, and the
+probe (fem/banded.py probe_rel) calls it directly.
 """
 import torch
 
@@ -34,8 +39,9 @@ def assemble_plain(jacs, plans, nb, c, diag_flat):
 
 
 def bgemv(M, v):
-    """Batched block GEMV: M (..., c, c) times v (..., c)."""
-    return torch.matmul(M, v[..., None])[..., 0]
+    """Batched block GEMV: M (..., c, c) times v (..., c), in v's dtype (a
+    bf16 M widened exactly)."""
+    return torch.matmul(M.to(v.dtype), v[..., None])[..., 0]
 
 
 def solve_blocks_plain(Sinv, H, G, rb):
@@ -51,15 +57,38 @@ def solve_blocks_plain(Sinv, H, G, rb):
     return torch.stack(x[::-1])
 
 
-def apply_plain(Sinv, H, G, perm, r):
-    nb, c, _ = Sinv.shape
+def solve_blocks_lowmem_plain(Sinv, C, B, rb):
+    """x (nb, c) with w_k = Sinv_k (r_k - C_k w_{k-1}) and x_k = w_k -
+    Sinv_k (B_k x_{k+1}): the K6 scans with H = Sinv C and G = Sinv B
+    folded in."""
+    w = [bgemv(Sinv[0], rb[0])]
+    for k in range(1, rb.shape[0]):
+        w.append(bgemv(Sinv[k], rb[k] - bgemv(C[k], w[-1])))
+    x = [w[-1]]
+    for k in range(rb.shape[0] - 2, -1, -1):
+        x.append(w[k] - bgemv(Sinv[k], bgemv(B[k], x[-1])))
+    return torch.stack(x[::-1])
+
+
+def _permuted_solve(solve, F1, F2, F3, perm, r):
+    """solve on r permuted into float32 blocks (zero padding), unpermuted
+    into r's dtype."""
+    nb, c, _ = F1.shape
     ndof = perm.shape[0]
     rp = torch.zeros(nb * c, dtype=torch.float32, device=r.device)
     rp[:ndof] = r[perm].to(torch.float32)
-    x = solve_blocks_plain(Sinv, H, G, rp.view(nb, c)).reshape(-1)[:ndof]
+    x = solve(F1, F2, F3, rp.view(nb, c)).reshape(-1)[:ndof]
     out = torch.empty(ndof, dtype=r.dtype, device=r.device)
     out[perm] = x.to(r.dtype)
     return out
+
+
+def apply_plain(Sinv, H, G, perm, r):
+    return _permuted_solve(solve_blocks_plain, Sinv, H, G, perm, r)
+
+
+def apply_lowmem_plain(Sinv, C, B, perm, r):
+    return _permuted_solve(solve_blocks_lowmem_plain, Sinv, C, B, perm, r)
 
 
 # ------------------------------------------------------------- cuda ----
@@ -85,33 +114,69 @@ def assemble_cuda(jacs, plans, nb, c, diag_flat):
     return tuple(b.view(nb, c, c) for b in bufs)
 
 
-def _check_factors(Sinv, H, G):
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (Sinv's storage, the other pair's) -> the instance's launch counter: K6
+# in the full f32 layout, the hybrid one (f32 Sinv, bf16 H/G) and all
+# bf16; K12 with bf16 C/B and bf16 or f32 Sinv
+K6_INSTANCES = {(_F32, _F32): "banded_apply",
+                (_F32, _BF16): "banded_apply_hybrid",
+                (_BF16, _BF16): "banded_apply_bf16"}
+K12_INSTANCES = {(_BF16, _BF16): "banded_apply_lowmem_bf16",
+                 (_F32, _BF16): "banded_apply_lowmem_f32"}
+
+
+def _check_factors(Sinv, M1, M2, names, instances):
+    """(nb, c, counter): each factor contiguous (nb, c, c), M1 and M2 of one
+    type, the storage pair one of `instances`, c a multiple of the entries
+    of a 16-byte load (4 float32, 8 bf16)."""
     nb, c, _ = Sinv.shape
-    if c % 4:
-        raise ValueError(f"K6 needs a block size divisible by 4, got {c}")
-    for name, M in (("Sinv", Sinv), ("H", H), ("G", G)):
-        build.require(M, name, torch.float32, (nb, c, c), Sinv.device)
-    return nb, c
+    name = instances.get((Sinv.dtype, M1.dtype))
+    if name is None or M2.dtype != M1.dtype:
+        raise ValueError(f"no banded kernel for Sinv {Sinv.dtype} with "
+                         f"{names} {M1.dtype}/{M2.dtype}; instances: "
+                         f"{sorted(instances.values())}")
+    for label, M in (("Sinv", Sinv), *zip(names, (M1, M2))):
+        build.require(M, label, M.dtype, (nb, c, c), Sinv.device)
+    lane = 4 if Sinv.dtype == M1.dtype == _F32 else 8
+    if c % lane:
+        raise ValueError(f"{name} needs a block size divisible by {lane}, "
+                         f"got {c}")
+    return nb, c, name
 
 
 def solve_blocks_cuda(Sinv, H, G, rb):
-    nb, c = _check_factors(Sinv, H, G)
+    nb, c, name = _check_factors(Sinv, H, G, ("H", "G"), K6_INSTANCES)
     build.require(rb, "rb", torch.float32, (nb, c), Sinv.device)
     x = rb.clone()
     w = torch.empty_like(x)
     build.check(build.library().vt_banded_solve(
         *map(build.ptr, (Sinv, H, G, x, w)), nb, c,
-        build.stream_handle(x.device)), "banded_apply")
-    build.LAUNCHES["banded_apply"] += 1
+        int(Sinv.dtype == _BF16), int(H.dtype == _BF16),
+        build.stream_handle(x.device)), name)
+    build.LAUNCHES[name] += 1
     return x
 
 
-def apply_cuda(Sinv, H, G, perm, r):
+def solve_blocks_lowmem_cuda(Sinv, C, B, rb):
+    nb, c, name = _check_factors(Sinv, C, B, ("C", "B"), K12_INSTANCES)
+    build.require(rb, "rb", torch.float32, (nb, c), Sinv.device)
+    x = rb.clone()
+    w = torch.empty_like(x)
+    u = torch.empty(c, dtype=torch.float32, device=x.device)
+    build.check(build.library().vt_banded_solve_lowmem(
+        *map(build.ptr, (Sinv, C, B, x, w, u)), nb, c,
+        int(Sinv.dtype == _BF16), build.stream_handle(x.device)), name)
+    build.LAUNCHES[name] += 1
+    return x
+
+
+def _permute_cuda(solve, F1, F2, F3, perm, r):
     lib = build.library()
-    nb, c = _check_factors(Sinv, H, G)
+    nb, c, _ = F1.shape
     dev, ndof = r.device, perm.shape[0]
     if r.dtype not in _FLOATS:
-        raise ValueError(f"K6 takes a float32/float64 vector, got {r.dtype}")
+        raise ValueError(f"the banded apply takes a float32/float64 vector, "
+                         f"got {r.dtype}")
     build.require(r, "r", r.dtype, (ndof,), dev)
     build.require(perm, "perm", torch.int64, (ndof,), dev)
     stream = build.stream_handle(dev)
@@ -120,12 +185,20 @@ def apply_cuda(Sinv, H, G, perm, r):
     build.check(lib.vt_banded_permute(build.ptr(r), f64, build.ptr(perm),
                                       ndof, nb * c, build.ptr(rp), stream),
                 "banded_permute")
-    x = solve_blocks_cuda(Sinv, H, G, rp.view(nb, c))
+    x = solve(F1, F2, F3, rp.view(nb, c))
     out = torch.empty_like(r)
     build.check(lib.vt_banded_unpermute(build.ptr(x), build.ptr(perm), ndof,
                                         build.ptr(out), f64, stream),
                 "banded_unpermute")
     return out
+
+
+def apply_cuda(Sinv, H, G, perm, r):
+    return _permute_cuda(solve_blocks_cuda, Sinv, H, G, perm, r)
+
+
+def apply_lowmem_cuda(Sinv, C, B, perm, r):
+    return _permute_cuda(solve_blocks_lowmem_cuda, Sinv, C, B, perm, r)
 
 
 # --------------------------------------------------------- dispatch ----
@@ -145,3 +218,9 @@ def apply(Sinv, H, G, perm, r):
     if build.on_cuda(r, "banded_apply"):
         return apply_cuda(Sinv, H, G, perm, r)
     return apply_plain(Sinv, H, G, perm, r)
+
+
+def apply_lowmem(Sinv, C, B, perm, r):
+    if build.on_cuda(r, "banded_apply_lowmem"):
+        return apply_lowmem_cuda(Sinv, C, B, perm, r)
+    return apply_lowmem_plain(Sinv, C, B, perm, r)

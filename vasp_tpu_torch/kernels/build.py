@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
-           "banded.cu", "facet_kernels.cu", "postproc.cu", "lifting.cu")
+           "banded.cu", "facet_kernels.cu", "postproc.cu", "lifting.cu",
+           "ras.cu")
 HEADERS = ("element_forms.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -32,7 +33,8 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # serve the Robin facet blocks; per material for the solid's K2/K3 and
 # for K20b: the _mr instances are the Mooney-Rivlin ones; per mesh
 # lifting for the fluid's K1/K3: the _elastic and _nolift instances; per
-# dtype for K16), bumped by its wrapper right where it launches
+# dtype for K16, K7's sweep and K18; per storage instance for K6 and K12),
+# bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
@@ -49,7 +51,10 @@ LAUNCHES = dict.fromkeys(
      "banded_factorize_f64", "robin_residual", "robin_residual_f32",
      "robin_jacobian", "robin_jacobian_f32", "elem_matvec_36",
      "ruiz_sweep_36", "ruiz_scale_36", "wss_load", "stress_strain_svk",
-     "stress_strain_mr", "max_eig", "spectral_power"), 0)
+     "stress_strain_mr", "max_eig", "spectral_power", "banded_apply_hybrid",
+     "banded_apply_bf16", "banded_apply_lowmem_bf16",
+     "banded_apply_lowmem_f32", "ruiz_sweep_f64", "ruiz_sweep_36_f64",
+     "ras_apply", "ras_apply_f32"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -128,12 +133,13 @@ def _bind(lib):
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
         "vt_dg0_project_jacobian": [P] * 5 + [I, P, I, P],
         "vt_elem_matvec": [P, I, P, P, P, I, I, I, P],
-        "vt_ruiz_sweep": [P] * 7 + [I, I, P],
+        "vt_ruiz_sweep": [P] * 7 + [I, I, I, P],
         "vt_ruiz_scale": [P] * 5 + [I, I, P],
         "vt_robin_residual": [P] * 5 + [I, P, I, I, D, D, P],
         "vt_robin_jacobian": [P] * 3 + [I, P, I, I, D, D, P],
         "vt_banded_segsum": [P, P, P, P, I, I, P, P],
-        "vt_banded_solve": [P] * 5 + [I, I, P],
+        "vt_banded_solve": [P] * 5 + [I, I, I, I, P],
+        "vt_banded_solve_lowmem": [P] * 6 + [I, I, I, P],
         "vt_banded_permute": [P, I, P, I, I, P, P],
         "vt_banded_unpermute": [P, P, I, P, I, P],
         "vt_wss_load": [P] * 9 + [I, I, I, L, I, D, P],
@@ -142,6 +148,7 @@ def _bind(lib):
         "vt_max_eig": [P, P, L, P],
         "vt_spectral_power": [P, P, I, I, I, D, I, P],
         "vt_lift_correction": [P] * 6 + [D, D, P, P, I, I, I, L, P],
+        "vt_ras_apply": [P] * 5 + [I, I, L, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

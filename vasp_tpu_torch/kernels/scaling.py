@@ -3,9 +3,10 @@
 Plain torch versions (``ruiz_sweep_plain``, ``ruiz_scale_plain``), CUDA
 launches (csrc/ruiz.cu) and the dispatch fem/scaling.py calls: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises. The
-kernels take float32 element matrices, the only ones the iterative path
+kernels take float32 element matrices, which the banded preconditioner
 equilibrates, of the cell blocks (64 local dofs) and the Robin facet
-blocks (36).
+blocks (36); the sweep also float64 ones, which the RAS preconditioner
+equilibrates (counted apart, suffixed _f64).
 
 Replaces the sweep body of vasp_tpu/fem/scaling.py ruiz_scales and
 scale_element_jacobians. Costs and design: see the head of csrc/ruiz.cu.
@@ -34,28 +35,32 @@ def ruiz_scale_plain(A, dofs, dr, dc):
 
 
 # ------------------------------------------------------------- cuda ----
-def _check(A, dofs, dr, dc):
-    dev, f32 = A.device, torch.float32
+def _check(A, dofs, dr, dc, dtypes=(torch.float32,)):
+    dev, dt = A.device, A.dtype
     K, n = dofs.shape
     if n not in NLOCS:
         raise ValueError(f"K7 takes {NLOCS} local dofs, got {n}")
-    build.require(A, "A", f32, (K, n, n), dev)
+    if dt not in dtypes:
+        raise ValueError(f"K7 takes {dtypes} element matrices, got {dt}")
+    build.require(A, "A", dt, (K, n, n), dev)
     build.require(dofs, "dofs", torch.int64, (K, n), dev)
-    build.require(dr, "dr", f32, dr.shape[:1], dev)
-    build.require(dc, "dc", f32, dr.shape, dev)
+    build.require(dr, "dr", dt, dr.shape[:1], dev)
+    build.require(dc, "dc", dt, dr.shape, dev)
     return build.library(), K, n, build.stream_handle(dev)
 
 
 def ruiz_sweep_cuda(A, dofs, dr, dc, mask, rmax, cmax):
-    lib, K, n, stream = _check(A, dofs, dr, dc)
+    lib, K, n, stream = _check(A, dofs, dr, dc,
+                               (torch.float32, torch.float64))
+    f64 = A.dtype == torch.float64
     build.require(mask, "mask", torch.bool, dr.shape, A.device)
-    build.require(rmax, "rmax", torch.float32, dr.shape, A.device)
-    build.require(cmax, "cmax", torch.float32, dr.shape, A.device)
+    build.require(rmax, "rmax", A.dtype, dr.shape, A.device)
+    build.require(cmax, "cmax", A.dtype, dr.shape, A.device)
+    name = launch_name("ruiz_sweep", n) + ("_f64" if f64 else "")
     build.check(lib.vt_ruiz_sweep(*map(build.ptr, (A, dofs, dr, dc, mask,
                                                    rmax, cmax)), K, n,
-                                  stream),
-                "ruiz_sweep")
-    build.LAUNCHES[launch_name("ruiz_sweep", n)] += 1
+                                  int(f64), stream), name)
+    build.LAUNCHES[name] += 1
 
 
 def ruiz_scale_cuda(A, dofs, dr, dc):
