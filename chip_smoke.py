@@ -106,10 +106,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the same Newton counts; counters reset just before the card's run and
    read just after: the f64 Mooney-Rivlin kernels' path), the tiny
    predeform of tests/test_driver_predeform.py (theta=1, lmbda=0.5, its
-   raise_on_fail=False; cut to 2 steps: its Newton work starts at step 2,
-   with the pressure ramp) and the tiny AVF of
-   tests/test_torch_driver_avf.py (tests/test_driver_avf.py's cut to 1
-   step and 1,536 cells, whose host splu takes minutes at its own size). Then the lifting options of the
+   raise_on_fail=False) and the tiny AVF of tests/test_torch_driver_avf.py
+   (tests/test_driver_avf.py's cut to 2 steps and 1,536 cells, whose host
+   splu takes minutes at its own size). Then the lifting options of the
    tiny cylinder, cut to one step, on the LU path (U within 1e-8, the
    same Newton counts):
    biharmonic lifting at its defaults (bc1, beta = 1); elastic lifting
@@ -118,7 +117,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    every fluid-only d dof at 0), also on the bench configuration (its 3
    steps, U within 3e-2); counters reset just before each card run and read just after
    (the f64 elastic and no-lifting instances' paths, and the float32
-   no-lifting ones'). The LU run of the tiny cylinder takes one step.
+   no-lifting ones').
    Then IterativeStepper on the forced ladder's small tube, one ramped
    step on the CPU and on the card with the tests' options (float64
    residuals, gmres_tol 1e-8): the hybrid, bf16 and f32 Sinv-only layouts
@@ -244,10 +243,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    - 12d: RAS at vasp_tpu's defaults. At the 20,832-cell cylinder the
      subdomain pattern alone (the float64 rebuild Jacobians, Ruiz and the
      scaled CSR, then build_pattern at vasp_tpu's first try and at overlap
-     1 against its budget; the retries run on far past it) and K18 against
-     its plain version on the overlap-1 pattern with seeded inverses; then
-     two converging steps on the small tube of phase 3, the largest
-     generated tube on which RAS converges in either package.
+     1 against its budget; the retries run on far past it) and, as an
+     extra measurement, K18 against its plain version on the overlap-1
+     pattern with seeded inverses; then two converging steps on the small
+     tube of phase 3, the largest generated tube on which RAS converges in
+     either package, and K18 (f32, and f64 on the same inverses widened)
+     against its plain version at that run's pattern and inverses: the
+     kernels line's K18 records.
 
 Phases 3-12 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
@@ -310,18 +312,17 @@ TINY_ANEURYSM = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=2,
                      verbose=True, **NO_FILES)
 # the tiny predeform of tests/test_driver_predeform.py:21-56 (its
 # raise_on_fail=False and atol 5e-5 included: the theta=1 MR inflation's
-# slow tail at its squeezed increments), cut to 2 steps (step 1 is at rest,
-# step 2 starts the pressure ramp)
+# slow tail at its squeezed increments)
 TINY_PREDEFORM = dict(
-    T=0.02, dt=0.01, mesh_path=None, quadrature_degree=2, atol=5e-5,
+    T=0.03, dt=0.01, mesh_path=None, quadrature_degree=2, atol=5e-5,
     rtol=1e-4, raise_on_fail=False, recompute=1, recompute_tstep=1,
     t_start_v=0.0, t_end_v=0.01, t_start_p=0.01, t_end_p=0.05,
     v_max_final=0.05, P_final=400.0, verbose=True,
     generated_mesh_params=dict(n_theta=8, n_z=4), **NO_FILES)
 # the tiny AVF of tests/test_torch_driver_avf.py: tests/test_driver_avf.py's
-# cut to 1 step and n_z=4 (1,536 cells), whose host splu takes minutes
+# cut to 2 steps and n_z=4 (1,536 cells), whose host splu takes minutes
 # at n_z=8
-TINY_AVF = dict(T=0.0001, dt=0.0001, mesh_path=None, patient_data_path=None,
+TINY_AVF = dict(T=0.0002, dt=0.0001, mesh_path=None, patient_data_path=None,
                 quadrature_degree=2, atol=1e-6, rtol=1e-6, recompute=5,
                 recompute_tstep=1, vel_t_ramp=0.0002, p_t_ramp_start=0.0001,
                 p_t_ramp_end=0.0003,
@@ -365,8 +366,8 @@ P_STAB = 0.1
 GRAVITY = [0.0, 0.0, -9.81]
 ELASTIC = dict(extrapolation="elastic", p_stab=P_STAB, gravity=GRAVITY)
 BIHARMONIC = dict(extrapolation="biharmonic")
-# the tiny cylinder cut to 1 step for the LU parity runs (each LU step
-# refactorizes on the host); the Krylov runs keep
+# the tiny cylinder cut to 1 step for the lifting options' LU parity runs
+# (each LU step refactorizes on the host); the no-lifting Krylov run keeps
 # TINY's 3 steps, which the f32f bound was set on (after 2 steps the state
 # is smaller and the same inexact directions differ by 1.7e-2 relative
 # between two CPU thread counts, after 3 by 6.9e-3)
@@ -676,6 +677,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def cuda_ms_once(fn):
+    """(fn's result, the milliseconds of that one call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def bound(nbytes, ops, kind):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over
     the HBM rate and the operations over the peak of their type."""
@@ -945,7 +960,11 @@ def element_block_records(records, b, U, U0, shape_tag=""):
                 kernel_rel_to_f64=float((Rk32 - Rp).norm() / Rp.norm()))
     del Rk, Rp, Rk32, Rp32
 
-    Ap = element.jacobian_plain(b, U, U0, chunk=128)
+    # the plain Jacobian (seconds at full width) is timed once, in the
+    # call that makes the reference (count_ops ran it on 32 cells first);
+    # its float32 record adds the cast
+    Ap, plain_ms = cuda_ms_once(
+        lambda: element.jacobian_plain(b, U, U0, chunk=128))
     for dt, f32_out, tol in ((torch.float64, False, TOL_F64),
                              (torch.float32, True, TOL_JAC_F32)):
         Ak = element.jacobian_cuda(b, U, U0, dt)
@@ -954,8 +973,7 @@ def element_block_records(records, b, U, U0, shape_tag=""):
         records.add(
             name("jacobian", f32_out), err,
             cuda_ms(lambda: element.jacobian_cuda(b, U, U0, dt), 5),
-            cuda_ms(lambda: element.jacobian_plain(
-                b, U, U0, chunk=128).to(dt), 1),
+            plain_ms + (cuda_ms(lambda: Ap.to(dt), 3) if f32_out else 0.0),
             (inputs + K * 4096 * (4 if f32_out else 8), jac_ops, "f64"), tol,
             f"{shape} -> ({K},64,64) {dt}".replace("torch.", ""))
     del Ap
@@ -1676,7 +1694,7 @@ def _run_quiet(overrides, problem="cylinder"):
 # reports or None): the f64 Robin, MR, elastic and no-lifting kernels and
 # the float32 no-lifting ones launch on no other path
 PARITY = (
-    ("cylinder", TINY_LIFT, "LU", {}, TOL_PATH_LU, None),
+    ("cylinder", TINY, "LU", {}, TOL_PATH_LU, None),
     ("cylinder", TINY, "gmres", dict(linear_solver="gmres"), TOL_PATH_GMRES,
      None),
     ("cylinder", TINY, "f32f", BENCH_CFG, TOL_PATH_F32F, None),
@@ -1912,7 +1930,7 @@ def stepper_runs(device, runs, steps=1):
         out.append((None if st.layout is None else st.layout.layout,
                     [F.dtype for F in st._pinv], newton,
                     [h["tiers"] for h in st.history], U.cpu(),
-                    [h["gmres_inner"] for h in st.history]))
+                    [h["gmres_inner"] for h in st.history], st))
     return out
 
 
@@ -2263,7 +2281,7 @@ def phase_lowmem(tmp, records, needs6, needs7):
     print("[12d] precond=\"ras\" at vasp_tpu's defaults (jac_dtype f32, "
           "gmres_tol 1e-6, gmres_maxiter 300, ~1,500 dofs a subdomain, "
           "overlap 2), the 20,832-cell cylinder's subdomain pattern:")
-    ras_full_width(records)
+    ras_full_width()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[12d] precond=\"ras\" at vasp_tpu's defaults on the "
@@ -2275,23 +2293,29 @@ def phase_lowmem(tmp, records, needs6, needs7):
 
     build.reset_launch_counts()
     tic = time.perf_counter()
-    ((_, _, newton, tiers, _, inner),) = stepper_runs("cuda", [RAS_SMALL],
-                                                        steps=2)
+    ((_, _, newton, tiers, _, inner, st),) = stepper_runs(
+        "cuda", [RAS_SMALL], steps=2)
     out["ras_small"] = dict(build.LAUNCHES)
     check_launches("ras_small", out["ras_small"])
     print(f"    converged; Newton iterations {newton}, GMRES inner "
           f"{inner}, tiers {tiers}, {time.perf_counter() - tic:.2f} s")
+    (pinv,) = st._pinv
+    print("    K18 at this run's pattern and float32 inverses (in float64 "
+          "widened from them), the shapes its apply took:")
+    ras_kernel_records(records, st._ras_pattern, st.ndof, pinv)
     return out
 
 
-def ras_full_width(records):
+def ras_full_width():
     """The RAS rebuild's host pattern at the 20,832-cell cylinder: float64
     Jacobians and Ruiz scales on the card (K3, K7 f64), the scaled CSR on
     the host, then build_pattern at vasp_tpu's first try (its subdomain
     count, overlap 2) and at overlap 1, each against build_pattern_auto's
     budget (m <= 2,048, S m^2 <= 6e8); its retries run on to 12 (ending,
-    at this size, far over the budget: PERF.md). Then K18 against its
-    plain version on the overlap-1 pattern with seeded inverses."""
+    at this size, far over the budget: PERF.md). Then, as an extra
+    measurement outside the kernels line (no RAS run reaches this shape),
+    K18 against its plain version on the overlap-1 pattern with seeded
+    inverses."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -2328,16 +2352,18 @@ def ras_full_width(records):
               f"{S * m * m * 8 / 2**30:.1f} GiB; host "
               f"{time.perf_counter() - tic:.1f} s")
     del adj
-    ras_kernel_records(records, pat, ndof)
+    print("    extra (not in the kernels line): K18 at the overlap-1 pattern "
+          "on seeded inverses")
+    ras_kernel_records(Records(), pat, ndof)
 
 
-def ras_kernel_records(records, pat, ndof):
-    """K18 against its plain version at the full-width RAS pattern `pat`
-    (every dof owned once), on seeded float32 inverses and on them in
-    float64: float64 1e-12, float32 1e-5 relative (m-term float32 sums in
-    another order). The bound reads the owned rows of the inverses once;
-    the yardstick is torch.bmm of the inverses by the gathered (S, m, 1)
-    vector."""
+def ras_kernel_records(records, pat, ndof, pinv=None):
+    """K18 against its plain version at the RAS pattern `pat` (every dof
+    owned once) on a seeded r, on the float32 inverses `pinv` (seeded ones
+    where None) and on them in float64: float64 1e-12, float32 1e-5
+    relative (m-term float32 sums in another order). The bound reads the
+    owned rows of the inverses once; the yardstick is torch.bmm of the
+    inverses by the gathered (S, m, 1) vector."""
     import numpy as np
     import torch
 
@@ -2352,7 +2378,8 @@ def ras_kernel_records(records, pat, ndof):
                         device="cuda")
     for name, dt, tol in (("ras_apply_f32", torch.float32, 1e-5),
                           ("ras_apply", torch.float64, TOL_F64)):
-        P = torch.randn((S, m, m), generator=gen, dtype=dt, device="cuda")
+        P = (torch.randn((S, m, m), generator=gen, dtype=dt, device="cuda")
+             if pinv is None else pinv.to(dt))
         rl = torch.cat([r, r.new_zeros(1)])[idx].to(dt)[..., None]
         records.add(
             name, rel_err(kr.apply_cuda(P, idx, own, r),

@@ -193,21 +193,36 @@ def test_layout_matches_vasp_tpu_mapping(setup, monkeypatch, dtype, fits):
     assert got.full_bytes == full and got.bytes <= full
 
 
-def test_layout_fallback_and_refusal(setup):
-    """None falls back to the bf16 Sinv-only layout where the hybrid does
-    not fit; no layout fitting raises, naming the bytes; the float64 tier
-    fits where its temporaries do beside the chosen peak."""
+def test_layout_refusal_and_f64_tier(setup):
+    """Where the full layout and the one vasp_tpu's mapping falls back to
+    both do not fit, banded_layout raises, naming the bytes (None goes no
+    further than the hybrid, as in vasp_tpu). The float64 factor tier
+    counts the float32 factors its scan stores whatever the layout's
+    storage: under the bf16 full layout the float32 full one's peak, under
+    the bf16 Sinv-only layout the float32 Sinv-only one's."""
     ts, tpat = setup[2], setup[5]
     sizes = [tuple(b.dofs.shape) for b in ts.assembler.blocks]
-    full = tb.banded_layout(tpat, sizes, float("inf"), None)
+
+    def lay(free, dtype):
+        return tb.banded_layout(tpat, sizes, free, dtype)
+
+    full = lay(float("inf"), None)
     assert full.layout == "full" and full.f64_fits
-    hybrid = tb.banded_layout(tpat, sizes, full.bytes - 1, None)
+    assert full.f64_bytes > full.bytes
+    hybrid = lay(full.bytes - 1, None)
     assert hybrid.layout == "hybrid" and hybrid.bytes < full.bytes
-    low = tb.banded_layout(tpat, sizes, hybrid.bytes - 1, None)
-    assert low.layout == "bf16" and low.bytes < hybrid.bytes
-    assert not low.f64_fits
-    with pytest.raises(MemoryError, match="GiB"):
-        tb.banded_layout(tpat, sizes, low.bytes - 1, None)
-    with pytest.raises(MemoryError, match="hybrid layout"):
-        tb.banded_layout(tpat, sizes, hybrid.bytes - 1, "hybrid")
+    for dtype in (None, "hybrid"):
+        with pytest.raises(MemoryError, match="GiB in the hybrid layout"):
+            lay(hybrid.bytes - 1, dtype)
+    full16 = lay(float("inf"), "bf16")
+    sinv16 = lay(full16.bytes - 1, "bf16")
+    sinv32 = lay(full.bytes - 1, "f32")
+    assert (full16.layout, sinv16.layout, sinv32.layout) == (
+        "full", "bf16", "f32")
+    assert full16.f64_bytes == full.f64_bytes
+    assert sinv16.f64_bytes == sinv32.f64_bytes == hybrid.f64_bytes
+    assert sinv16.f64_bytes > sinv16.bytes and not sinv16.f64_fits
+    assert lay(full.f64_bytes - 1, "bf16").f64_fits is False
+    with pytest.raises(MemoryError, match="GiB in the bf16 layout"):
+        lay(sinv16.bytes - 1, "bf16")
     assert tb.device_free_bytes("cpu") > 0

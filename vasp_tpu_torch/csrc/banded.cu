@@ -24,19 +24,19 @@
 //   Sinv, bf16 H/G; ~2.0 ms), 6 B with all three in bf16 (~1.5 ms).
 //   Design (simple first): one GEMV kernel y = M v or y = a - M v on c x c
 //   blocks, templated on M's storage (float, or __nv_bfloat16 widened to
-//   float exactly; the vector is float32, as vasp_tpu's bgemv promotes
-//   bf16 * f32), v staged in shared memory as doubles (8 c bytes), one
+//   float exactly; the vector and the sums are float32, as vasp_tpu's
+//   bgemv promotes bf16 * f32), v staged in shared memory (c floats), one
 //   warp per row reading the row with coalesced 16-byte loads (4 floats or
-//   8 bf16; c is a multiple of 8) and a shuffle reduction. A float times a
-//   float is exact in double, so each row's dot product is summed in
-//   double and rounded to float once: every output is within a float's
-//   rounding of the exact one, whatever the summation order (the float64 arithmetic,
-//   one conversion and one multiply-add per matrix entry, stays under the
-//   memory bound). Sinv and H/G
-//   each pick their instance. The batched t = Sinv r is one launch over
-//   all nb blocks; each scan step is one launch, issued in order from the
-//   host entry point (2 nb - 1 launches in all), in place in one (nb, c)
-//   buffer. A persistent single-launch scan is later work.
+//   8 bf16; c is a multiple of 8) and a shuffle reduction. In the f32
+//   instance each lane chains a chunk's products by FMA and adds the chunk
+//   to its running sum; the hybrid and bf16 instances sum in
+//   compensated float32 as K12 does (below): with plain sums the hybrid
+//   ended farther from the float64 scans than twice the plain version's
+//   distance on the small tube of tests/test_torch_kernels_cuda.py. Sinv
+//   and H/G each pick their storage. The batched t = Sinv r is one launch
+//   over all nb blocks; each scan step is one launch, issued in order from
+//   the host entry point (2 nb - 1 launches in all), in place in one
+//   (nb, c) buffer. A persistent single-launch scan is later work.
 //
 // K12 replaces vasp_tpu/fem/banded.py make_banded_apply_lowmem: the same
 // solve with H = Sinv C and G = Sinv B folded in, from Sinv (bf16 or f32)
@@ -48,7 +48,13 @@
 //   Sinv twice (8 and 12 B). Design: two GEMVs of the same template per
 //   scan step (u = r_k - C_k w_{k-1}, then w_k = Sinv_k u; u = B_k
 //   x_{k+1}, then x_k = w_k - Sinv_k u), 4 nb - 3 launches, u a c-vector
-//   of scratch. A fused or persistent step is later work.
+//   of scratch. Its sums are compensated (Dot2: each product split by an
+//   FMA, each addition by TwoSum, about 10 float32 operations per entry,
+//   under the memory bound): over twice K6's GEMVs a solve, plain float32
+//   sums ended 2.4x as far from the float64 scans as the plain version on
+//   the small tube of tests/test_torch_kernels_cuda.py (an H100), while
+//   these are as accurate as sums in twice float32's precision. A fused
+//   or persistent step is later work.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -74,42 +80,89 @@ __global__ void banded_segsum_kernel(const float* __restrict__ v,
   *slot = acc;
 }
 
-// The dot product of one 16-byte chunk of a row with 4 or 8 entries of v
-// (held in double): 4 float entries, or 8 bf16 entries widened exactly (a
-// bf16 is the high half of its float, as __bfloat162float gives it). Each
-// product of two floats is exact in double, and so is their sum here to
-// well below a float's rounding.
-__device__ __forceinline__ double dot16(const float*, const uint4 m,
-                                        const double* x) {
-  return (double)__uint_as_float(m.x) * x[0] + (double)__uint_as_float(m.y) * x[1] +
-         (double)__uint_as_float(m.z) * x[2] + (double)__uint_as_float(m.w) * x[3];
+// Entry q of a 16-byte chunk of M widened to float exactly: 4 floats, or 8
+// bf16 (a bf16 is the high half of its float, as __bfloat162float gives
+// it).
+__device__ __forceinline__ float entry(const float*, const uint4& m, int q) {
+  return __uint_as_float(q == 0 ? m.x : q == 1 ? m.y : q == 2 ? m.z : m.w);
 }
 
-__device__ __forceinline__ double dot16(const __nv_bfloat16*, const uint4 m,
-                                        const double* x) {
-  const unsigned int w[4] = {m.x, m.y, m.z, m.w};
-  double s = 0.0;
+__device__ __forceinline__ float entry(const __nv_bfloat16*, const uint4& m,
+                                       int q) {
+  const unsigned int u = (q >> 1) == 0 ? m.x : (q >> 1) == 1 ? m.y
+                         : (q >> 1) == 2 ? m.z : m.w;
+  return __uint_as_float((q & 1) ? (u & 0xffff0000u) : (u << 16));
+}
+
+// A float32 running sum with its compensation: Ogita, Rump and Oishi's
+// Dot2, every product split exactly by an FMA and every addition by
+// TwoSum, so the sum is as accurate as one in twice float32's precision.
+// The _rn intrinsics keep the compiler from contracting the error-free
+// transforms into FMAs.
+struct Comp {
+  float s, c;
+};
+
+__device__ __forceinline__ void two_sum(Comp& a, float p, float e) {
+  const float t = __fadd_rn(a.s, p);
+  const float z = __fsub_rn(t, a.s);
+  const float err = __fadd_rn(__fsub_rn(a.s, __fsub_rn(t, z)), __fsub_rn(p, z));
+  a.c = __fadd_rn(a.c, __fadd_rn(err, e));
+  a.s = t;
+}
+
+__device__ __forceinline__ void add_product(Comp& a, float m, float x) {
+  const float p = __fmul_rn(m, x);
+  two_sum(a, p, __fmaf_rn(m, x, -p));
+}
+
+__device__ __forceinline__ void add_product(float& a, float m, float x) {
+  a = __fmaf_rn(m, x, a);
+}
+
+__device__ __forceinline__ float shfl_down(float v, int off) {
+  return __shfl_down_sync(0xffffffffu, v, off);
+}
+
+__device__ __forceinline__ void warp_sum(float& s) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    s += (double)__uint_as_float(w[q] << 16) * x[2 * q] +
-         (double)__uint_as_float(w[q] & 0xffff0000u) * x[2 * q + 1];
-  }
-  return s;
+  for (int off = 16; off > 0; off >>= 1) s += shfl_down(s, off);
 }
 
-// y[b] = M[b] v[b] (a == nullptr) or a[b] - M[b] v[b], each row's dot
-// product exact (float products summed in double) and rounded once to
-// float with the subtraction; M (batch, c, c) of TM, v/a/y (batch, c)
-// float, c a multiple of 16 / sizeof(TM). a and y may alias (in-place
-// scan step).
-template <class TM>
+__device__ __forceinline__ void warp_sum(Comp& a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float c = shfl_down(a.c, off);
+    two_sum(a, shfl_down(a.s, off), c);
+  }
+}
+
+// a - s (a == nullptr: s) rounded to float.
+__device__ __forceinline__ float finish(const float* a, float s) {
+  return a ? *a - s : s;
+}
+
+__device__ __forceinline__ float finish(const float* a, Comp s) {
+  if (!a) return __fadd_rn(s.s, s.c);
+  Comp d{*a, 0.f};
+  two_sum(d, -s.s, 0.f);
+  return __fadd_rn(d.s, __fsub_rn(d.c, s.c));
+}
+
+// y[b] = M[b] v[b] (a == nullptr) or a[b] - M[b] v[b]; M (batch, c, c) of
+// TM, v/a/y (batch, c) float, c a multiple of 16 / sizeof(TM). a and y
+// may alias (in-place scan step). Acc is the lane's float32 sum: a plain
+// float (each 16-byte chunk's products chained by FMA, then added) or a
+// compensated Comp.
+template <class TM, class Acc>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 gemv_kernel(const TM* __restrict__ M, const float* __restrict__ v,
             const float* a, float* y, int c) {
-  extern __shared__ double s_v[];
+  extern __shared__ float4 s_v4[];
   constexpr int kPer = 16 / sizeof(TM);  // entries per 16-byte load
   const int64_t b = blockIdx.y;
   const float* vb = v + b * c;
+  float* s_v = reinterpret_cast<float*>(s_v4);
   for (int j = threadIdx.x; j < c; j += blockDim.x) s_v[j] = vb[j];
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -119,41 +172,58 @@ gemv_kernel(const TM* __restrict__ M, const float* __restrict__ v,
     const int i = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp + r;
     if (i >= c) break;
     const uint4* row = reinterpret_cast<const uint4*>(M + (b * c + i) * (int64_t)c);
-    double s = 0.0;
-    for (int j = lane; j < cv; j += 32) s += dot16(M, row[j], s_v + j * kPer);
+    Acc s{};
+    for (int j = lane; j < cv; j += 32) {
+      const uint4 m = row[j];
+      float x[kPer];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) y[b * c + i] = a ? (float)((double)a[b * c + i] - s) : (float)s;
+      for (int h = 0; h < kPer / 4; ++h) {
+        const float4 f = s_v4[j * (kPer / 4) + h];
+        x[4 * h] = f.x, x[4 * h + 1] = f.y, x[4 * h + 2] = f.z, x[4 * h + 3] = f.w;
+      }
+      if constexpr (sizeof(Acc) == sizeof(float)) {
+        float t = 0.f;
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) add_product(t, entry(M, m, q), x[q]);
+        s += t;
+      } else {
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) add_product(s, entry(M, m, q), x[q]);
+      }
+    }
+    warp_sum(s);
+    if (lane == 0) y[b * c + i] = finish(a ? a + b * c + i : nullptr, s);
   }
 }
 
-template <class TM>
+template <class Acc, class TM>
 int gemv(const TM* M, const float* v, const float* a, float* y, int batch,
          int c, cudaStream_t stream) {
-  const size_t smem = sizeof(double) * (size_t)c;
+  const size_t smem = sizeof(float) * (size_t)c;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gemv_kernel<TM, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((c + kRowsPerBlock - 1) / kRowsPerBlock, batch);
-  gemv_kernel<TM><<<grid, kGemvWarps * 32, smem, stream>>>(M, v, a, y, c);
+  gemv_kernel<TM, Acc><<<grid, kGemvWarps * 32, smem, stream>>>(M, v, a, y, c);
   return (int)cudaGetLastError();
 }
 
 // The two scans of K6 in place: x (nb, c) holds r on entry and M r on
-// exit; w (nb, c) is scratch.
-template <class TS, class THG>
+// exit; w (nb, c) is scratch; Acc the GEMVs' sums.
+template <class Acc, class TS, class THG>
 int solve(const TS* Sinv, const THG* H, const THG* G, float* x, float* w,
           int nb, int c, cudaStream_t s) {
   const int64_t cc = (int64_t)c * c;
-  int e = gemv(Sinv, x, nullptr, w, nb, c, s);  // t_k = Sinv_k r_k
-  for (int k = 1; k < nb && !e; ++k)           // w_k = t_k - H_k w_{k-1}
-    e = gemv(H + k * cc, w + (int64_t)(k - 1) * c, w + (int64_t)k * c,
-             w + (int64_t)k * c, 1, c, s);
-  for (int k = nb - 2; k >= 0 && !e; --k)      // x_k = w_k - G_k x_{k+1}
-    e = gemv(G + k * cc, w + (int64_t)(k + 1) * c, w + (int64_t)k * c,
-             w + (int64_t)k * c, 1, c, s);
+  int e = gemv<Acc>(Sinv, x, nullptr, w, nb, c, s);  // t_k = Sinv_k r_k
+  for (int k = 1; k < nb && !e; ++k)  // w_k = t_k - H_k w_{k-1}
+    e = gemv<Acc>(H + k * cc, w + (int64_t)(k - 1) * c, w + (int64_t)k * c,
+                  w + (int64_t)k * c, 1, c, s);
+  for (int k = nb - 2; k >= 0 && !e; --k)  // x_k = w_k - G_k x_{k+1}
+    e = gemv<Acc>(G + k * cc, w + (int64_t)(k + 1) * c, w + (int64_t)k * c,
+                  w + (int64_t)k * c, 1, c, s);
   if (!e) e = (int)cudaMemcpyAsync(x, w, sizeof(float) * nb * (size_t)c,
                                    cudaMemcpyDeviceToDevice, s);
   return e;
@@ -165,18 +235,20 @@ template <class TS, class TCB>
 int solve_lowmem(const TS* Sinv, const TCB* C, const TCB* B, float* x,
                  float* w, float* u, int nb, int c, cudaStream_t s) {
   const int64_t cc = (int64_t)c * c;
-  int e = gemv(Sinv, x, nullptr, w, 1, c, s);  // w_0 = Sinv_0 r_0
+  int e = gemv<Comp>(Sinv, x, nullptr, w, 1, c, s);  // w_0 = Sinv_0 r_0
   for (int k = 1; k < nb && !e; ++k) {
     // u = r_k - C_k w_{k-1}, then w_k = Sinv_k u
-    e = gemv(C + k * cc, w + (int64_t)(k - 1) * c, x + (int64_t)k * c, u, 1,
-             c, s);
-    if (!e) e = gemv(Sinv + k * cc, u, nullptr, w + (int64_t)k * c, 1, c, s);
+    e = gemv<Comp>(C + k * cc, w + (int64_t)(k - 1) * c, x + (int64_t)k * c,
+                   u, 1, c, s);
+    if (!e)
+      e = gemv<Comp>(Sinv + k * cc, u, nullptr, w + (int64_t)k * c, 1, c, s);
   }
   for (int k = nb - 2; k >= 0 && !e; --k) {
     // u = B_k x_{k+1}, then x_k = w_k - Sinv_k u (x_k overwrites w_k)
-    e = gemv(B + k * cc, w + (int64_t)(k + 1) * c, nullptr, u, 1, c, s);
-    if (!e) e = gemv(Sinv + k * cc, u, w + (int64_t)k * c, w + (int64_t)k * c,
-                     1, c, s);
+    e = gemv<Comp>(B + k * cc, w + (int64_t)(k + 1) * c, nullptr, u, 1, c, s);
+    if (!e)
+      e = gemv<Comp>(Sinv + k * cc, u, w + (int64_t)k * c,
+                     w + (int64_t)k * c, 1, c, s);
   }
   if (!e) e = (int)cudaMemcpyAsync(x, w, sizeof(float) * nb * (size_t)c,
                                    cudaMemcpyDeviceToDevice, s);
@@ -216,20 +288,23 @@ int vt_banded_segsum(const float* v, const int32_t* src, const int32_t* udst,
 }
 
 // K6: the two scans in place, x (nb, c) f32 holds r on entry and M r on
-// exit, w (nb, c) f32 scratch. Storage: all f32, f32 Sinv with bf16 H/G
-// (hg_bf16), or all bf16 (s_bf16 and hg_bf16).
+// exit, w (nb, c) f32 scratch. Storage: all f32 (plain float32 sums), f32
+// Sinv with bf16 H/G (hg_bf16), or all bf16 (s_bf16 and hg_bf16), these
+// two with compensated sums.
 int vt_banded_solve(const void* Sinv, const void* H, const void* G, float* x,
                     float* w, int nb, int c, int s_bf16, int hg_bf16,
                     void* stream) {
   using bf = __nv_bfloat16;
   cudaStream_t s = (cudaStream_t)stream;
   if (s_bf16 && hg_bf16)
-    return solve((const bf*)Sinv, (const bf*)H, (const bf*)G, x, w, nb, c, s);
+    return solve<Comp>((const bf*)Sinv, (const bf*)H, (const bf*)G, x, w, nb,
+                       c, s);
   if (hg_bf16)
-    return solve((const float*)Sinv, (const bf*)H, (const bf*)G, x, w, nb, c, s);
+    return solve<Comp>((const float*)Sinv, (const bf*)H, (const bf*)G, x, w,
+                       nb, c, s);
   if (s_bf16) return (int)cudaErrorInvalidValue;
-  return solve((const float*)Sinv, (const float*)H, (const float*)G, x, w, nb,
-               c, s);
+  return solve<float>((const float*)Sinv, (const float*)H, (const float*)G, x,
+                      w, nb, c, s);
 }
 
 // K12: the folded scans in place, x (nb, c) f32 holds r on entry and M r

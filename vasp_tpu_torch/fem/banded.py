@@ -297,12 +297,14 @@ def make_banded_apply_lowmem(pattern: BandedPattern, device):
 
 class BandedLayout(NamedTuple):
     """What banded_layout chose: the layout ("full", "hybrid", "bf16" or
-    "f32"), the full layout's and the chosen layout's peak bytes, and
-    whether the float64 factor tier (K11) fits beside the chosen one."""
+    "f32"), the full layout's and the chosen layout's peak bytes, the float64
+    factor tier's (K11) peak under the chosen layout, and whether that tier
+    fits."""
 
     layout: str
     full_bytes: int
     bytes: int
+    f64_bytes: int
     f64_fits: bool
 
 
@@ -313,11 +315,14 @@ class BandedLayout(NamedTuple):
 # with f32 Sinv, 3.5 F with bf16), D then freed and C/B cast to bf16
 _PEAK_F = {("full", "f32"): 6.0, ("full", "bf16"): 4.5, ("hybrid", None): 4.0,
            ("f32", None): 4.0, ("bf16", None): 3.5}
+# the float64 tier's peak under each layout: its scan stores a float32
+# Sinv whatever the layout's storage, and under the full layout hg_factors
+# then forms float32 H/G (6 F); the other layouts hold C/D/B with it (4 F)
+_F64_PEAK_F = {"full": 6.0, "hybrid": 4.0, "f32": 4.0, "bf16": 4.0}
 # the low-memory layout each banded_factor_dtype falls back to (vasp_tpu's
-# lowmem mapping, vasp_tpu/fem/timestepper.py:431-434); None takes the
-# smallest one after the hybrid where the hybrid does not fit either
-_FALLBACK = {None: ("hybrid", "bf16"), "hybrid": ("hybrid",),
-             "bf16": ("bf16",), "f32": ("f32",)}
+# lowmem mapping, vasp_tpu/fem/timestepper.py:431-434)
+_FALLBACK = {None: "hybrid", "hybrid": "hybrid", "bf16": "bf16",
+             "f32": "f32"}
 
 
 def element_jacobian_bytes(block_sizes, itemsize=4):
@@ -333,15 +338,15 @@ def banded_layout(pattern: BandedPattern, block_sizes, free_bytes,
     the device instead): the full layout (all float32, all bf16 for
     banded_factor_dtype="bf16") where it fits, else the low-memory layout
     of vasp_tpu's mapping (None and "hybrid": "hybrid", f32 Sinv with bf16
-    H/G; "bf16"/"f32": Sinv-only in that type), and for None the bf16
-    Sinv-only one where the hybrid does not fit either. Each peak counts
-    the layout's rebuild arrays, two float32 element Jacobian sets (the
-    Newton loop's and the rebuild's, which the equilibration copies),
-    sixteen c x c float32 temporaries of the scan and its inverses and two
-    of sinv_times' chunks (measured peaks on an H100 at c = 4,488, nb =
-    42 sit 1.0-1.7 GiB under these); the float64 tier fits where its six
-    c x c float64 temporaries fit beside the peak. Raises, naming the
-    bytes, where no layout fits."""
+    H/G; "bf16"/"f32": Sinv-only in that type). Each peak counts the
+    layout's rebuild arrays, two float32 element Jacobian sets (the Newton
+    loop's and the rebuild's, which the equilibration copies), sixteen
+    c x c float32 temporaries of the scan and its inverses and two of
+    sinv_times' chunks (measured peaks on an H100 at c = 4,488, nb = 42 sit
+    1.0-1.7 GiB under these); the float64 tier's counts the float32
+    factors it stores under the layout and its six c x c float64
+    temporaries. Raises, naming the bytes, where neither the full layout
+    nor the fallback fits."""
     F = pattern.factor_bytes
     c2 = pattern.c * pattern.c
     chunk = min(max(1, _CHUNK_BYTES // (4 * c2)), pattern.nb) * 4 * c2
@@ -349,21 +354,18 @@ def banded_layout(pattern: BandedPattern, block_sizes, free_bytes,
     f64_temps = 6 * 8 * c2
     full_dt = "bf16" if banded_factor_dtype == "bf16" else "f32"
     full = int(_PEAK_F["full", full_dt] * F) + base
-    tried = [("full", full)]
+    layout = _FALLBACK[banded_factor_dtype]
+    need = int(_PEAK_F[layout, None] * F) + base
     if full <= free_bytes:
-        return BandedLayout("full", full, full,
-                            full + f64_temps <= free_bytes)
-    for layout in _FALLBACK[banded_factor_dtype]:
-        need = int(_PEAK_F[layout, None] * F) + base
-        tried.append((layout, need))
-        if need <= free_bytes:
-            return BandedLayout(layout, full, need,
-                                need + f64_temps <= free_bytes)
-    raise MemoryError(
-        f"the banded preconditioner at c={pattern.c}, nb={pattern.nb} needs "
-        + ", ".join(f"{b / 2**30:.2f} GiB in the {name} layout"
-                    for name, b in tried)
-        + f"; {free_bytes / 2**30:.2f} GiB of device memory are free")
+        layout, need = "full", full
+    elif need > free_bytes:
+        raise MemoryError(
+            f"the banded preconditioner at c={pattern.c}, nb={pattern.nb} "
+            f"needs {full / 2**30:.2f} GiB in the full layout, "
+            f"{need / 2**30:.2f} GiB in the {layout} layout; "
+            f"{free_bytes / 2**30:.2f} GiB of device memory are free")
+    f64 = int(_F64_PEAK_F[layout] * F) + base + f64_temps
+    return BandedLayout(layout, full, need, f64, f64 <= free_bytes)
 
 
 def device_free_bytes(device):

@@ -52,8 +52,9 @@ ages agree with vasp_tpu for Newton calls of at most 8 iterations), the
 block_until_ready barriers, the remote-worker gate on the last ladder tier
 (the port always takes it, as vasp_tpu does on the CPU), and the 7 GiB
 lowmem switch and 11 GiB escalation gate, which the device's free memory
-replaces: under a low-memory layout the exact-stall tier takes the float64
-factor tier where banded_layout found it fits, and the float64-Jacobian
+replaces: the reactive escalation (under the full layouts) and, under a
+low-memory layout, the exact-stall tier take the float64 factor tier where
+banded_layout found it fits, and the float64-Jacobian
 tier where those Jacobians fit in the memory free when it is reached
 (vasp_tpu skips that tier at low-memory scale).
 
@@ -226,7 +227,8 @@ class IterativeStepper:
               f"{lay.bytes / 2**30:.2f} GiB (the full layout "
               f"{lay.full_bytes / 2**30:.2f} GiB) with "
               f"{free / 2**30:.2f} GiB free; f64 factor tier "
-              f"{'fits' if lay.f64_fits else 'does not fit'}", flush=True)
+              f"{'fits' if lay.f64_fits else 'does not fit'} "
+              f"({lay.f64_bytes / 2**30:.2f} GiB)", flush=True)
         tic = time.perf_counter()
         plans = banded_mod.build_banded_assembly_plan(
             block_dofs, self._bpat, self._mask_np)
@@ -560,10 +562,12 @@ class IterativeStepper:
             # residuals (exits at once when the claim holds)
             U, stats = again("certify", True)
         if (not converged() and not self.lowmem and not self._banded_f64
-                and self._last_rel > REL_MAX):
+                and self._last_rel > REL_MAX and self.layout.f64_fits):
             # reactive factor escalation: Newton stalled under factors the
             # probe had flagged; every later rebuild runs K11 (banded only:
-            # RAS takes no probe; the low-memory layouts take none either)
+            # RAS takes no probe; the low-memory layouts take none either),
+            # where its float32 factors fit (6 F, where the bf16 full
+            # layout holds 4.5 F)
             print("Newton: stall under probe-flagged banded factors "
                   f"(solve quality {self._last_rel:.1e}) - escalating to "
                   "f64 factorization", flush=True)

@@ -11,7 +11,8 @@ Replaces vasp_tpu/fem/banded.py assemble_banded_planned (scatter mode),
 make_banded_apply and make_banded_apply_lowmem with bgemv. Each factor is
 stored in float32 or bfloat16 (K6: Sinv, and H/G together; K12: Sinv, and
 C/B together); bf16 entries are widened to float32 and the vector and the
-sums are float32, as vasp_tpu's bgemv promotes bf16 * f32. Costs and
+sums are float32, as vasp_tpu's bgemv promotes bf16 * f32 (on the card
+the sums of K12 and of K6's bf16-storage instances are compensated). Costs and
 design: see the head of csrc/banded.cu. ``solve_blocks`` is the two scans
 on an (nb, c) block vector; the apply wraps it in the permutation, and the
 probe (fem/banded.py probe_rel) calls it directly.
