@@ -79,7 +79,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    widened factors, the probe of the bf16 factors, and K7's float64
    sweep (exact; at 36 local dofs too).
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
-   (plain versions) and on the card (kernels), on the LU path (U within
+   (plain versions; every CPU side of this phase runs in a process of its
+   own, started after phase 1 at CPU_REFERENCE_THREADS torch threads, so
+   that it overlaps phase 2 and this phase's card runs) and on the card
+   (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
    within 3e-5 relative: one inexact Newton step per time step, its
    direction solved to gmres_tol = 1e-6, with float32 sums in other
@@ -251,7 +254,43 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      against its plain version at that run's pattern and inverses: the
      kernels line's K18 records.
 
-Phases 3-12 run with HDF5 output off (save_step=0, checkpoint_step=0),
+13. NewtonSolver's Krylov branch (K22) and make_step_fn (K17), counters
+   reset just before each run and read just after:
+   - 13a: driver.main on -p cylinder at the 20,832-cell tube with
+     linear_solver="krylov" (element-block additive Schwarz and GMRES at
+     vasp_tpu's defaults: gmres_tol 1e-4, restart 50, 400 restarts), one
+     step, max_it=2 (each solve spends its 400 restarts, ~25 s),
+     raise_on_fail=False: Newton iterations, GMRES
+     restarts and Arnoldi iterations, the rebuild by phase (float64
+     Jacobians, K22's build, the inverses) and the per-iteration costs.
+     The branch may stall (its element blocks are singular where a
+     block's pressure rows or mesh lifting carry no equation, in vasp_tpu
+     too: tests/diag_newton_krylov.py); a stall is a finding, and the
+     phase fails only on non-finite values, a kernel mismatch or a
+     missing launch;
+   - 13b: make_step_fn at the 20,832-cell tube (bench.py's physics
+     without the stenosis, the 150x interface load), one step at
+     StepOptions' defaults: iterations, residual and r0 (the same rule on
+     stalls);
+   - 13c: at that tube's shapes (its float64 Jacobians at a seeded
+     state, both 64-wide cell blocks), K22's build, apply and divide,
+     K7's float64 scale and K17's extract, invert and apply against their
+     plain versions, float64 to 1e-12 relative (K7 exact; K17's inverse
+     per node, against its largest entry), each timed beside its bound
+     and plain version, with torch.linalg.inv of K22's modified blocks
+     (the branch's inverse) and of K17's node blocks, cuSPARSE's SpMV of
+     the assembled Schwarz operator and torch.bmm as yardsticks; and
+     fem/preconditioner.py's build (K22 at eps 1e-8, float32 inverses)
+     equal to the same on the plain K22, its float32 inverses' distance
+     from the float64 ones printed beside the share of blocks float32
+     resolves.
+   Phase 3 also runs, on the CPU and on the card, the Krylov branch on a
+   transient flow in a rigid pipe (tests/test_torch_schwarz.py's case
+   and GMRES options: gmres_tol 1e-8, 10 restarts; U within 1e-10) and
+   make_step_fn on its small tube at tests/test_sharded_step.py's step
+   options (U within 1e-8): the same Newton counts, each converged.
+
+Phases 3-13 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -276,6 +315,12 @@ TOL_PATH_LU = 1e-8
 TOL_PATH_GMRES = 3e-5
 TOL_PATH_F32F = 3e-2
 TOL_LADDER = 1e-5
+# phase 3's new cases: the Krylov branch on the rigid pipe, both sides
+# converged to atol 1e-10 of the discrete solution
+# (tests/test_torch_schwarz.py's bound); make_step_fn converged to 1e-10
+# with GMRES at 1e-9 (tests/test_torch_node_block.py's bound)
+TOL_PATH_PIPE = 1e-10
+TOL_PATH_STEP_FN = 1e-8
 # H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores, and the
 # f64 tensor-core peak that cuBLAS's DGEMM can reach (NVIDIA H100 SXM data
 # sheet)
@@ -423,6 +468,26 @@ STEPPER_RUNS = (
     ("ras_f64_tiny", dict(precond="ras", jac_dtype="f64"), None, None),
 )
 RAS_SMALL = ("ras_small", dict(precond="ras", jac_dtype="f32"), None, None)
+# phase 13a: NewtonSolver's Krylov branch at vasp_tpu's defaults (gmres_tol
+# 1e-4, restart 50, 400 restarts), one step; it may stall (its Schwarz
+# blocks are singular where a block's pressure rows or lifting carry no
+# equation; tests/diag_newton_krylov.py), which is a finding, not a failure
+# max_it=2: each Newton iteration's solve spends its 400 restarts (~25 s
+# at 20,832 cells), and the phase has to fit the smoke's clock
+NEWTON_KRYLOV = dict(linear_solver="krylov", max_it=2, raise_on_fail=False)
+# phase 3's Krylov-branch parity case: a transient flow in a rigid pipe
+# (tests/test_torch_schwarz.py), on which the branch converges, with that
+# test's GMRES options
+PIPE_SOLVE = dict(gmres_tol=1e-8, gmres_maxiter=10, max_it=8)
+# torch threads of the process that runs phase 3's CPU sides beside
+# phases 2 and 3 (the card's host keeps the other cores)
+CPU_REFERENCE_THREADS = 5
+# phase 3's make_step_fn parity case: tests/test_sharded_step.py's step
+# options (at StepOptions' defaults the node-block GMRES reaches 1e-6 in
+# none of its 300 iterations on the small tube and Newton stalls at
+# 0.73 r0 after 10 iterations; with these it converges in 4)
+STEP_FN_OPTS = dict(atol=1e-10, rtol=1e-10, max_it=6, gmres_tol=1e-9,
+                    gmres_restart=120, gmres_maxiter=1200)
 # a small tube (bench.py's physics) for the forced ladder runs
 LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
                    n_r_fluid=2, n_r_solid=1, n_z=5)
@@ -567,6 +632,27 @@ REPLACES = {
                       "ras_small"),
     "ras_apply": (CSRC + "ras.cu", "vasp_tpu/fem/ras.py:196 (float64 "
                   "inverses)", "ras_f64_tiny"),
+    "schwarz_build": (CSRC + "schwarz.cu",
+                      "vasp_tpu/fem/solver.py:153 (_build_schwarz)",
+                      "newton_krylov"),
+    "schwarz_apply": (CSRC + "schwarz.cu",
+                      "vasp_tpu/fem/solver.py:177 (_precond)",
+                      "newton_krylov"),
+    "schwarz_divide": (CSRC + "schwarz.cu",
+                       "vasp_tpu/fem/solver.py:185 (_precond's division by "
+                       "the multiplicity)", "newton_krylov"),
+    "ruiz_scale_f64": (CSRC + "ruiz.cu", "vasp_tpu/fem/scaling.py:71 "
+                       "(float64, vasp_tpu/fem/timestepper.py:237)",
+                       "step_fn"),
+    "node_block_extract": (CSRC + "nodeblock.cu",
+                           "vasp_tpu/fem/scaling.py:80 (build_node_block)",
+                           "step_fn"),
+    "node_block_invert": (CSRC + "nodeblock.cu",
+                          "vasp_tpu/fem/scaling.py:106-118 with "
+                          "vasp_tpu/fem/smallmat.py:42 (inv6)", "step_fn"),
+    "node_block_apply": (CSRC + "nodeblock.cu",
+                         "vasp_tpu/fem/scaling.py:121 (apply_node_block)",
+                         "step_fn"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
@@ -647,6 +733,17 @@ PATHS = {
     "ras_f64_tiny": {"fluid_residual", "solid_residual", "fluid_jacobian",
                      "solid_jacobian", "elem_matvec", "ruiz_sweep_f64",
                      "ras_apply"},
+    # NewtonSolver's Krylov branch (K22) and make_step_fn (K17)
+    "newton_krylov": {"fluid_residual", "solid_residual", "fluid_jacobian",
+                      "solid_jacobian", "elem_matvec", "schwarz_build",
+                      "schwarz_apply", "schwarz_divide"} | _MEASURES,
+    "krylov_pipe": {"fluid_residual_nolift", "fluid_jacobian_nolift",
+                    "elem_matvec", "schwarz_build", "schwarz_apply",
+                    "schwarz_divide"},
+    "step_fn": {"fluid_residual", "solid_residual", "fluid_jacobian",
+                "solid_jacobian", "elem_matvec", "ruiz_sweep_f64",
+                "ruiz_scale_f64", "node_block_extract", "node_block_invert",
+                "node_block_apply"},
 }
 
 
@@ -1711,24 +1808,80 @@ PARITY = (
 )
 
 
-def phase_parity(tmp):
-    """The path parity runs, then the forced ladder runs; returns the
-    launches of the forced ladder runs on the card and of the parity runs
-    on the card that name a path (counters reset just before each)."""
-    from vasp_tpu_torch.kernels import build
+def _parity_tag(problem, label):
+    return f"{problem}_{label}".replace(" ", "_").replace("+", "_")
 
+
+def cpu_references(tmp):
+    """Phase 3's CPU sides, run in a process of their own beside phases 2
+    and 3 (start_cpu_references): per PARITY run (U, Newton iterations per
+    step, ladder tiers per step, cells, wall seconds), the forced ladder
+    runs, the IterativeStepper runs, the Krylov branch's pipe solve and
+    make_step_fn's small-tube step."""
     (tmp / f"{NO_LIFT}.py").write_text(NO_LIFT_PROBLEM)
-    launches = {}
-    for problem, tiny, label, extra, tol, path in PARITY:
-        name = f"tiny {problem}, {label} path"
-        tag = f"{problem}_{label}".replace(" ", "_").replace("+", "_")
+    ref = {}
+    for problem, tiny, label, extra, _, _ in PARITY:
+        tag = _parity_tag(problem, label)
         run_problem = str(tmp / f"{NO_LIFT}.py") if problem == NO_LIFT \
             else problem
         tic = time.perf_counter()
-        ns_c, it_c, _ = _run_quiet(dict(
+        ns, iters, _ = _run_quiet(dict(
             tiny, device="cpu", **extra,
             folder=str(tmp / f"tiny_cpu_{tag}")), run_problem)
-        t_cpu = time.perf_counter() - tic
+        tiers = ([h["tiers"] for h in ns["solver"].stepper.history]
+                 if "linear_solver" in extra else [])
+        ref[tag] = (ns["dvp_"]["n"], iters, tiers, ns["mesh"].num_cells,
+                    time.perf_counter() - tic)
+    ref["ladder"] = forced_ladder("cpu")
+    ref["stepper"] = [r[:6] for r in stepper_runs("cpu", STEPPER_RUNS)]
+    ref["pipe"] = krylov_pipe_solve("cpu")
+    U, stats, *_ = step_fn_run("cpu", LADDER_MESH, STEP_FN_OPTS)
+    ref["step_fn"] = (U, stats)
+    return ref
+
+
+def start_cpu_references(tmp):
+    """Start `python3 chip_smoke.py --cpu-reference <file>` (phase 3's CPU
+    sides, at CPU_REFERENCE_THREADS torch threads, so that the card's
+    host keeps cores) and return (process, result file, log file)."""
+    out, log = tmp / "cpu_reference.pt", tmp / "cpu_reference.log"
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--cpu-reference", str(out)],
+                                stdout=fh, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def wait_cpu_references(started):
+    """The CPU references, once their process has ended (it must end
+    with 0)."""
+    import torch
+
+    proc, out, log = started
+    tic = time.perf_counter()
+    rc = proc.wait()
+    if rc != 0:
+        require(False, f"the CPU reference runs failed ({rc}):\n"
+                       f"{log.read_text()[-4000:]}")
+    print(f"[3] waited {time.perf_counter() - tic:.1f} s for the CPU "
+          f"reference runs")
+    return torch.load(out, weights_only=False)
+
+
+def phase_parity(tmp, refs):
+    """The path parity runs, the forced ladder runs, the IterativeStepper
+    runs and the new paths' cases: every card run first, then each against
+    its CPU reference (cpu_references, whose process `refs` runs beside
+    them); returns the launches of the card runs that name a path
+    (counters reset just before each)."""
+    from vasp_tpu_torch.kernels import build
+
+    (tmp / f"{NO_LIFT}.py").write_text(NO_LIFT_PROBLEM)
+    launches, cards = {}, {}
+    for problem, tiny, label, extra, tol, path in PARITY:
+        tag = _parity_tag(problem, label)
+        run_problem = str(tmp / f"{NO_LIFT}.py") if problem == NO_LIFT \
+            else problem
         build.reset_launch_counts()
         tic = time.perf_counter()
         ns_g, it_g, log = _run_quiet(dict(
@@ -1738,30 +1891,52 @@ def phase_parity(tmp):
         if path is not None:
             launches[path] = dict(build.LAUNCHES)
             check_launches(path, launches[path])
-            print(f"[3] {name}: launches {launches[path]}")
+            print(f"[3] tiny {problem}, {label} path: launches "
+                  f"{launches[path]}")
         if (problem, label) == ("aneurysm", "LU"):
             check_robin_f64_at_path(ns_g)
-        Uc = ns_c["dvp_"]["n"]
-        Ug = ns_g["dvp_"]["n"].cpu()
+        tiers = ([h["tiers"] for h in ns_g["solver"].stepper.history]
+                 if "linear_solver" in extra else [])
+        cards[tag] = (ns_g["dvp_"]["n"].cpu(), it_g, tiers,
+                      log.count("Solved for timestep"), t_gpu)
+        del ns_g
+    build.reset_launch_counts()
+    ladder = forced_ladder("cuda")
+    launches["ladder"] = dict(build.LAUNCHES)
+    steppers = []
+    for spec in STEPPER_RUNS:
+        build.reset_launch_counts()
+        steppers.append(stepper_runs("cuda", [spec])[0][:6])
+        launches[spec[0]] = dict(build.LAUNCHES)
+    build.reset_launch_counts()
+    pipe = krylov_pipe_solve("cuda")
+    launches["krylov_pipe"] = dict(build.LAUNCHES)
+    build.reset_launch_counts()
+    step_fn = step_fn_run("cuda", LADDER_MESH, STEP_FN_OPTS)[:2]
+    launches["step_fn_tiny"] = dict(build.LAUNCHES)
+
+    ref = wait_cpu_references(refs)
+    for problem, tiny, label, extra, tol, path in PARITY:
+        name = f"tiny {problem}, {label} path"
+        tag = _parity_tag(problem, label)
+        Uc, it_c, tiers_c, cells, t_cpu = ref[tag]
+        Ug, it_g, tiers_g, solved, t_gpu = cards[tag]
         rel = float((Ug - Uc).norm() / Uc.norm())
-        krylov = "linear_solver" in extra
-        tiers = [[h["tiers"] for h in ns["solver"].stepper.history]
-                 if krylov else [] for ns in (ns_c, ns_g)]
         steps = round(tiny["T"] / tiny["dt"])
-        print(f"[3] {name} ({ns_c['mesh'].num_cells} cells, {steps} steps): "
+        print(f"[3] {name} ({cells} cells, {steps} steps): "
               f"Newton iterations cpu {it_c} cuda {it_g}; ladder tiers cpu "
-              f"{tiers[0]} cuda {tiers[1]}; U rel diff {rel:.3e}; wall cpu "
-              f"{t_cpu:.1f} s, cuda {t_gpu:.1f} s")
+              f"{tiers_c} cuda {tiers_g}; U rel diff {rel:.3e}; wall cpu "
+              f"{t_cpu:.1f} s (its own process), cuda {t_gpu:.1f} s")
         require(it_c == it_g, f"{name}: Newton iteration counts differ "
                               f"between the CPU plain path and the CUDA "
                               f"kernel path")
-        require(tiers[0] == tiers[1], f"{name}: ladder tiers differ")
+        require(tiers_c == tiers_g, f"{name}: ladder tiers differ")
         require(rel <= tol, f"{name}: U differs by {rel:.3e} relative "
                             f"(> {tol:.0e})")
-        require(log.count("Solved for timestep") == steps,
-                f"{name}: tiny run missed steps")
-    launches["ladder"] = phase_forced_ladder()
-    launches.update(phase_stepper_parity())
+        require(solved == steps, f"{name}: tiny run missed steps")
+    check_forced_ladder(ref["ladder"], ladder, launches["ladder"])
+    check_stepper_parity(ref["stepper"], steppers, launches)
+    check_new_paths(ref, pipe, step_fn, launches)
     return launches
 
 
@@ -1836,16 +2011,9 @@ def forced_ladder(device):
     return out
 
 
-def phase_forced_ladder():
-    """The forced ladder runs on the CPU and the card, the launch counters
-    reset just before the card's and read just after: the ladder path's
-    launches."""
-    from vasp_tpu_torch.kernels import build
-
-    cpu = forced_ladder("cpu")
-    build.reset_launch_counts()
-    cuda = forced_ladder("cuda")
-    launches = dict(build.LAUNCHES)
+def check_forced_ladder(cpu, cuda, launches):
+    """The forced ladder runs on the card (`cuda`, their launches) against
+    their CPU references."""
     for (label, opts, _, want), c, g in zip(LADDER_RUNS, cpu, cuda):
         rel = float((g[3] - c[3]).norm() / c[3].norm())
         print(f"[3] forced ladder, {label}: tiers cpu {c[0]} cuda {g[0]}; "
@@ -1861,7 +2029,6 @@ def phase_forced_ladder():
                                    f"{rel:.3e} relative")
     missing = [k for k in PATHS["ladder"] if launches[k] == 0]
     require(not missing, f"ladder: kernels never launched: {missing}")
-    return launches
 
 
 def layout_needs(pattern, block_sizes):
@@ -1934,23 +2101,17 @@ def stepper_runs(device, runs, steps=1):
     return out
 
 
-def phase_stepper_parity():
-    """Phase 3's IterativeStepper runs on the small tube, on the CPU and on
-    the card: the hybrid, bf16 and f32 Sinv-only layouts (device_free_bytes
-    reading one byte short of the full layout's peak on both), the full
-    one in bf16, and RAS with float64 inverses; the same layout and
-    storage, Newton counts and tiers, U within TOL_PATH_GMRES. Counters
-    reset just before each card run and read just after: the paths of K6's
+def check_stepper_parity(cpu, cards, launches):
+    """Phase 3's IterativeStepper runs on the small tube (`cards`, one per
+    STEPPER_RUNS entry) against their CPU references: the hybrid, bf16 and
+    f32 Sinv-only layouts (device_free_bytes reading one byte short of
+    the full layout's peak on both), the full one in bf16, and RAS with
+    float64 inverses; the same layout and storage, Newton counts and
+    tiers, U within TOL_PATH_GMRES. The launches (counters reset just
+    before each card run and read just after) cover the paths of K6's
     storage instances, K12 and K18's float64 instance."""
-    from vasp_tpu_torch.kernels import build
-
-    cpu = stepper_runs("cpu", STEPPER_RUNS)
-    launches = {}
-    for run, spec in zip(cpu, STEPPER_RUNS):
+    for run, card, spec in zip(cpu, cards, STEPPER_RUNS):
         path, opts, free, want = spec
-        build.reset_launch_counts()
-        (card,) = stepper_runs("cuda", [spec])
-        launches[path] = dict(build.LAUNCHES)
         rel = float((card[4] - run[4]).norm() / run[4].norm())
         print(f"[3] {path} ({opts}) on the {LADDER_MESH['n_z']}-layer tube: "
               f"layout {run[0]}, storage cpu {[str(d)[6:] for d in run[1]]} "
@@ -1964,7 +2125,6 @@ def phase_stepper_parity():
                                        f"tiers differ")
         require(rel <= TOL_PATH_GMRES, f"{path}: U differs by {rel:.3e}")
         check_launches(path, launches[path])
-    return launches
 
 
 def run_main_path(tmp, label, mesh_params, problem="cylinder", T=0.005,
@@ -2979,6 +3139,340 @@ def phase_postproc(records, series):
     return launches
 
 
+def pipe_system(device):
+    """A transient flow in a rigid pipe on NewtonSolver's Krylov branch
+    (tests/test_torch_schwarz.py's _pipe_system, no mesh lifting): (system,
+    bc set)."""
+    import numpy as np
+
+    from vasp_tpu_torch.fem.dirichlet import DirichletBC
+    from vasp_tpu_torch.mesh.generate import poiseuille_pipe_mesh
+    from vasp_tpu_torch.run.system import FSISystem
+
+    mesh = poiseuille_pipe_mesh(radius=1.0, length=3.0, n_theta=6, n_r=2,
+                                n_z=3)
+    system = FSISystem(mesh, dict(
+        dt=1e-3, theta=1.0, rho_f=1.0, mu_f=1.0, dx_f_id=1, solid="no_solid",
+        extrapolation="no_extrapolation", atol=1e-10, rtol=1e-12,
+        recompute=1, recompute_tstep=1, linear_solver="krylov",
+        quadrature_degree=4, verbose=False, device=device))
+    space = system.space
+    bcs = [DirichletBC(space.field_dofs("d", np.arange(space.n_p2)), 0.0)]
+    for marker in (2, 3, 22):
+        p2d = space.p2_dofs_on_facets(marker)
+        xyz = space.p2_coords[p2d]
+        u = np.zeros_like(xyz)
+        u[:, 2] = 1.0 - xyz[:, 0] ** 2 - xyz[:, 1] ** 2
+        bcs.append(DirichletBC(space.field_dofs("v", p2d), u.reshape(-1)))
+    bcs.append(DirichletBC(space.pressure_dofs(mesh.facet_vertices(3)),
+                           0.0))
+    return system, system.make_bcset(bcs)
+
+
+def krylov_pipe_solve(device):
+    """One solve of the pipe's first step on `device`: (U on the host,
+    Newton iterations, converged, GMRES restarts, Arnoldi iterations)."""
+    system, bc = pipe_system(device)
+    solver = system.make_solver(bc, **PIPE_SOLVE)
+    U0 = system.zero_state()
+    U, info = solver.solve(bc.apply(U0, 0.0), U0, t=0.0, tstep=0)
+    return (U.cpu(), info["iterations"], info["converged"],
+            solver.gmres_restarts, solver.gmres_iterations)
+
+
+def step_fn_run(device, mesh_params, opts=None):
+    """make_step_fn on the tube of `mesh_params` (bench.py's physics without
+    the stenosis, its Dirichlet sets and 150x interface load) on `device`:
+    one step from rest at t = 1e-3; (U, stats, wall seconds, system, bc)."""
+    import torch
+
+    from vasp_tpu_torch.fem.timestepper import StepOptions, make_step_fn
+
+    system, bc, load = bench_tube(mesh_params, device, stenosis=False)
+    sp = system.space
+    step = make_step_fn(system.assembler, bc.mask_on(device),
+                        StepOptions(**(opts or {})), layout=(sp.n_p2, sp.off_p))
+    bcv = torch.as_tensor(bc.values_at(1e-3), device=device)
+    tic = time.perf_counter()
+    U, stats = step(system.zero_state(), bcv, load)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return U, stats, time.perf_counter() - tic, system, bc
+
+
+def check_new_paths(ref, pipe, step_fn, launches):
+    """Phase 3's cases of NewtonSolver's Krylov branch (the rigid pipe, at
+    tests/test_torch_schwarz.py's options) and of make_step_fn (the small
+    tube of the forced ladder runs, at STEP_FN_OPTS), the card's runs
+    (`pipe`, `step_fn`) against their CPU references: the same Newton
+    counts, each converged, U within TOL_PATH_PIPE and TOL_PATH_STEP_FN
+    relative; the launches of the card runs."""
+    check_launches("krylov_pipe", launches["krylov_pipe"])
+    Uc, itc, convc, *gc_ = ref["pipe"]
+    Ug, itg, convg, *gg = pipe
+    rel = float((Ug - Uc).norm() / Uc.norm())
+    print(f"[3] NewtonSolver Krylov branch on the rigid pipe ({Uc.shape[0]} "
+          f"dofs, {PIPE_SOLVE}): Newton iterations cpu {itc} cuda {itg}, "
+          f"converged {convc} {convg}; GMRES restarts and Arnoldi iterations "
+          f"cpu {gc_} cuda {gg}; U rel diff {rel:.3e}")
+    require(convc and convg, "the rigid pipe's Krylov-branch solve did not "
+                             "converge")
+    require(itc == itg, "Krylov branch: Newton counts differ between the "
+                        "CPU and the card")
+    require(rel <= TOL_PATH_PIPE, f"Krylov branch: U differs by {rel:.3e}")
+    check_launches("step_fn", launches["step_fn_tiny"])
+    (Uc, sc), (Ug, sg) = ref["step_fn"], step_fn
+    rel = float((Ug.cpu() - Uc).norm() / Uc.norm())
+    print(f"[3] make_step_fn on the {LADDER_MESH['n_z']}-layer tube "
+          f"({Uc.shape[0]} dofs, {STEP_FN_OPTS}): Newton iterations "
+          f"cpu {sc['iterations']} cuda {sg['iterations']}; residual cpu "
+          f"{sc['residual']:.3e} cuda {sg['residual']:.3e} (r0 "
+          f"{sc['r0']:.3e}); U rel diff {rel:.3e}")
+    require(sc["iterations"] == sg["iterations"],
+            "make_step_fn: Newton counts differ between the CPU and the card")
+    require(max(sc["residual"], sg["residual"]) <= STEP_FN_OPTS["atol"],
+            "make_step_fn: the small tube's step did not converge")
+    require(rel <= TOL_PATH_STEP_FN, f"make_step_fn: U differs by {rel:.3e}")
+
+
+def phase_newton_krylov(tmp):
+    """Phase 13a: driver.main on -p cylinder at the 20,832-cell tube with
+    linear_solver="krylov", one step, max_it=2, raise_on_fail=False; the
+    launches, Newton iterations, GMRES restarts and Arnoldi iterations,
+    the rebuild by phase and the per-iteration costs."""
+    print("[13a] cylinder, NewtonSolver's Krylov branch (linear_solver="
+          "krylov: element-block Schwarz and GMRES at vasp_tpu's defaults), "
+          f"one step, max_it={NEWTON_KRYLOV['max_it']}:")
+    ns, launches = run_main_path(tmp, "newton_krylov", FULL_MESH, T=0.001,
+                                 floor=math.inf, **NEWTON_KRYLOV)
+    sol = ns["solver"]
+    t = sol.timings
+    its = max(sol.gmres_iterations, 1)
+    print(f"    GMRES restarts {sol.gmres_restarts}, Arnoldi iterations "
+          f"{sol.gmres_iterations}; rebuild split (s): jacobian "
+          f"{t['jacobian']:.3f}, schwarz_build {t['schwarz_build']:.3f}, "
+          f"schwarz_invert {t['schwarz_invert']:.3f}")
+    print(f"    per-iteration split, summed over the run (s): residual "
+          f"{t['residual']:.3f}, gmres {t['gmres']:.3f}; per Arnoldi "
+          f"iteration {t['gmres'] / its * 1e3:.3f} ms (its matvec and "
+          f"Schwarz apply: phase 13c's K4 and K22 times)")
+    return launches
+
+
+def phase_step_fn():
+    """Phase 13b: make_step_fn at the 20,832-cell tube (bench.py's physics
+    without the stenosis), one step at StepOptions' defaults, counters
+    reset just before and read just after. Returns the launches and the
+    run's system and bc set (for 13c)."""
+    import torch
+
+    from vasp_tpu_torch.fem.timestepper import StepOptions
+    from vasp_tpu_torch.kernels import build
+
+    print("[13b] make_step_fn (Ruiz + node-block GMRES Newton, float64 "
+          "Jacobians every iteration) at the 20,832-cell tube, one step at "
+          "StepOptions' defaults:")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    U, stats, wall, system, bc = step_fn_run("cuda", FULL_MESH)
+    launches = dict(build.LAUNCHES)
+    check_launches("step_fn", launches)
+    require(bool(torch.isfinite(U).all()) and math.isfinite(
+        stats["residual"]), "make_step_fn: non-finite state or residual")
+    opt = StepOptions()
+    converged = (stats["residual"] <= opt.atol
+                 or stats["residual"] <= opt.rtol * stats["r0"])
+    print(f"    {system.space.ndof} dofs: Newton iterations "
+          f"{stats['iterations']}, residual {stats['residual']:.3e}, r0 "
+          f"{stats['r0']:.3e}, converged {converged}; {wall:.2f} s")
+    print(f"    launches {dict((k, launches[k]) for k in PATHS['step_fn'])}")
+    print(f"    peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, system, bc
+
+
+def phase_new_kernels(records, system, bc):
+    """Phase 13c: K22 (build, apply, divide), K7's float64 scale and K17
+    (extract, invert, apply) against their plain versions at the
+    20,832-cell tube's shapes (its float64 Jacobians at a seeded state,
+    the two 64-wide cell blocks), f64 to TOL_F64; each timed with its
+    bound and plain version, and its one-call yardstick where there is
+    one: torch.linalg.inv of K22's modified blocks (its inverse) and of
+    K17's node blocks, cuSPARSE's SpMV of the assembled Schwarz operator
+    for K22's apply, torch.bmm for K17's apply. Then the float32-inverse
+    build of fem/preconditioner.py: equal to the same build on the plain
+    K22 (the same modified blocks, the same float32 inverse), and its
+    float32 inverses against the float64 ones of the same blocks, printed
+    beside the share of blocks float32 resolves (not held: most blocks are
+    beyond float32)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.fem.scaling import ruiz_scales
+    from vasp_tpu_torch.kernels import nodeblock as knb
+    from vasp_tpu_torch.kernels import scaling as ks
+    from vasp_tpu_torch.kernels import schwarz as kz
+
+    print("[13c] K22, K7's float64 scale and K17 at the 20,832-cell tube:")
+    sp, blocks = system.space, system.assembler.blocks
+    ndof = sp.ndof
+    rng = np.random.default_rng(13)
+    scale = np.concatenate([np.full(3 * sp.n_p2, 1e-6),
+                            np.full(3 * sp.n_p2, 1e-2),
+                            np.full(sp.n_p1, 1e2)])
+    U = torch.as_tensor(rng.normal(size=ndof) * scale, device="cuda")
+    U0 = torch.as_tensor(rng.normal(size=ndof) * scale, device="cuda")
+    jacs = system.assembler.element_jacobians(U, U0)
+    del U, U0
+    mask = bc.mask_on("cuda")
+    dofs = [b.dofs for b in blocks]
+    K_all = sum(d.shape[0] for d in dofs)
+    dof_bytes = nbytes(*dofs)
+    shape = f"K={K_all}, n=64, f64"
+
+    # ---- K22 build
+    def build_all(fn):
+        mult = torch.zeros(ndof, dtype=torch.float64, device="cuda")
+        return [fn(A, d, mask, 1e-12, mult) for A, d in zip(jacs, dofs)], mult
+
+    (Ak, mk), (Ap, mp) = build_all(kz.build_cuda), build_all(kz.build_plain)
+    err = max(max(rel_err(a, b) for a, b in zip(Ak, Ap)), rel_err(mk, mp))
+    del Ak, mk
+    ms = cuda_ms(lambda: build_all(kz.build_cuda), 10)
+    plain_ms = cuda_ms(lambda: build_all(kz.build_plain), 3)
+    inv_ms = cuda_ms(lambda: [torch.linalg.inv(A) for A in Ap], 3)
+    records.add("schwarz_build", err, ms, plain_ms,
+                (2 * nbytes(*jacs) + dof_bytes + nbytes(mask) + 8 * ndof,
+                 3 * K_all * 64, "f64"), TOL_F64, shape,
+                inverse_ms=inv_ms)
+    print(f"    torch.linalg.inv of the modified blocks (the branch's "
+          f"inverse): {inv_ms:.4f} ms")
+    # fem/preconditioner.py: its build (K22 at eps 1e-8, float32 inverses)
+    # equal to the same build on the plain K22, and the float32 inverses of
+    # the branch's blocks against their float64 ones
+    from vasp_tpu_torch.fem import preconditioner as tpre
+
+    Pk32, mk32 = tpre.build_schwarz(blocks, jacs, mask, ndof)
+    mp32 = torch.zeros(ndof, dtype=torch.float64, device="cuda")
+    Pp32 = [torch.linalg.inv(kz.build_plain(A, d, mask, 1e-8, mp32).float())
+            .double() for A, d in zip(jacs, dofs)]
+    require(torch.equal(mk32, mp32) and all(
+        torch.equal(a, b) for a, b in zip(Pk32, Pp32)),
+        "fem/preconditioner.py's build on K22 differs from the plain one")
+    del Pk32, Pp32
+    tic = time.perf_counter()
+    P32 = [torch.linalg.inv(A.float()) for A in Ap]
+    torch.cuda.synchronize()
+    inv32_ms = (time.perf_counter() - tic) * 1e3
+    pinv = [torch.linalg.inv(A).contiguous() for A in Ap]
+    # the condition numbers of 1,024 seeded blocks of each cell block
+    cond = torch.cat([torch.linalg.cond(A[torch.as_tensor(
+        rng.choice(A.shape[0], 1024, replace=False), device="cuda")])
+        for A in Ap]).cpu().numpy()
+    ok = cond * np.finfo(np.float32).eps <= 1e-2
+    errs = [float(((a.double() - b).abs().amax(dim=(1, 2))
+                   / b.abs().amax(dim=(1, 2))).max())
+            for a, b in zip(P32, pinv)]
+    print(f"    fem/preconditioner.py's float32 inverses: {inv32_ms:.1f} ms "
+          f"once; blocks resolved in float32 (cond eps32 <= 1e-2) "
+          f"{ok.mean():.3f} (of 2,048 sampled); float32 against float64 "
+          f"inverses, largest "
+          f"per-block difference over the largest entry {max(errs):.3e}; "
+          f"cond median {np.median(cond):.3g}, max {cond.max():.3g}")
+    del P32, Ap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K22 apply and divide
+    mult = torch.clamp(mp, min=1.0)
+    r = torch.as_tensor(rng.normal(size=ndof), device="cuda")
+    yk = kz.apply_cuda(pinv, dofs, r)
+    yp = kz.apply_plain(pinv, dofs, r)
+    rows = torch.cat([d[:, :, None].expand(-1, 64, 64).reshape(-1)
+                      for d in dofs])
+    cols = torch.cat([d[:, None, :].expand(-1, 64, 64).reshape(-1)
+                      for d in dofs])
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), torch.cat([P.reshape(-1) for P in pinv]),
+        (ndof, ndof)).coalesce().to_sparse_csr()
+    del rows, cols
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, r[:, None]), 20)
+    print(f"    cuSPARSE SpMV of the assembled Schwarz operator "
+          f"({csr._nnz()} nonzeros): {lib_ms:.4f} ms")
+    del csr
+    records.add("schwarz_apply", rel_err(yk, yp),
+                cuda_ms(lambda: kz.apply_cuda(pinv, dofs, r), 20),
+                cuda_ms(lambda: kz.apply_plain(pinv, dofs, r), 5),
+                (nbytes(*pinv, r) + dof_bytes + 8 * ndof, 2 * K_all * 4096,
+                 "f64"), TOL_F64, shape, library_ms=lib_ms)
+    # the timed divides run in place on a copy (mult >= 1: it shrinks)
+    ytmp = yk.clone()
+    records.add("schwarz_divide",
+                rel_err(kz.divide_cuda(yk.clone(), mult),
+                        kz.divide_plain(yp, mult)),
+                cuda_ms(lambda: kz.divide_cuda(ytmp, mult), 50),
+                cuda_ms(lambda: kz.divide_plain(yp, mult), 50),
+                (3 * 8 * ndof, ndof, "f64"), TOL_F64, f"ndof={ndof}")
+    del pinv, yk, yp, ytmp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K7's float64 scale, then K17 on the scaled blocks
+    dr, dc = ruiz_scales(blocks, jacs, mask, ndof, sweeps=4)
+    Sk = [ks.ruiz_scale_cuda(A, d, dr, dc) for A, d in zip(jacs, dofs)]
+    Sp = [ks.ruiz_scale_plain(A, d, dr, dc) for A, d in zip(jacs, dofs)]
+    records.add("ruiz_scale_f64", max(rel_err(a, b) for a, b in zip(Sk, Sp)),
+                cuda_ms(lambda: [ks.ruiz_scale_cuda(A, d, dr, dc)
+                                 for A, d in zip(jacs, dofs)], 10),
+                cuda_ms(lambda: [ks.ruiz_scale_plain(A, d, dr, dc)
+                                 for A, d in zip(jacs, dofs)], 3),
+                (2 * nbytes(*jacs) + dof_bytes + nbytes(dr, dc),
+                 2 * 4096 * K_all, "f64"), 0.0, shape)
+    del Sk, jacs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def extract(fn):
+        nb = torch.zeros((sp.n_p2, 6, 6), dtype=torch.float64, device="cuda")
+        for A, d in zip(Sp, dofs):
+            fn(A, d, nb)
+        return nb
+
+    nb = extract(knb.extract_plain)
+    records.add("node_block_extract", rel_err(extract(knb.extract_cuda), nb),
+                cuda_ms(lambda: extract(knb.extract_cuda), 20),
+                cuda_ms(lambda: extract(knb.extract_plain), 5),
+                (K_all * 10 * (36 + 1) * 8 + 36 * 8 * sp.n_p2,
+                 36 * 10 * K_all, "f64"), TOL_F64, f"K={K_all}, n_p2={sp.n_p2}")
+    Pp = knb.invert_plain(nb, mask)
+    scale_n = Pp.abs().amax(dim=(1, 2), keepdim=True)
+    Pk = knb.invert_cuda(nb, mask)
+    err = (float(((Pk - Pp).abs() / scale_n).max()),
+           float((Pk - Pp).abs().max()))
+    records.add("node_block_invert", err,
+                cuda_ms(lambda: knb.invert_cuda(nb, mask), 50),
+                cuda_ms(lambda: knb.invert_plain(nb, mask), 5),
+                (2 * nbytes(nb) + 6 * sp.n_p2,
+                 count_ops(lambda: knb.invert_plain(nb, mask)), "f64"),
+                TOL_F64, f"n_p2={sp.n_p2} (per-node scale)",
+                library_ms=cuda_ms(lambda: torch.linalg.inv(nb), 5))
+    r = torch.as_tensor(rng.normal(size=ndof), device="cuda")
+    rb = torch.cat([r[: 3 * sp.n_p2].reshape(-1, 3),
+                    r[3 * sp.n_p2: 6 * sp.n_p2].reshape(-1, 3)], dim=1)
+    records.add("node_block_apply",
+                rel_err(knb.apply_cuda(Pp, r, sp.n_p2, sp.off_p),
+                        knb.apply_plain(Pp, r, sp.n_p2, sp.off_p)),
+                cuda_ms(lambda: knb.apply_cuda(Pp, r, sp.n_p2, sp.off_p), 50),
+                cuda_ms(lambda: knb.apply_plain(Pp, r, sp.n_p2, sp.off_p), 10),
+                (nbytes(Pp, r) + 8 * ndof, 72 * sp.n_p2, "f64"), TOL_F64,
+                f"n_p2={sp.n_p2}",
+                library_ms=cuda_ms(lambda: torch.bmm(Pp, rb[:, :, None]), 20))
+    del Sp, nb, Pp, Pk
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main():
     start = time.perf_counter()
@@ -2993,11 +3487,17 @@ def main():
     import torch
 
     elapsed("phase 1")
-    records, extra = phase_kernels()
-    elapsed("phase 2")
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
-        launches = phase_parity(tmp)
+        refs = start_cpu_references(tmp)
+        try:
+            records, extra = phase_kernels()
+            elapsed("phase 2")
+            launches = phase_parity(tmp, refs)
+        finally:
+            if refs[0].poll() is None:
+                refs[0].kill()
+                refs[0].wait()
         elapsed("phase 3")
         launches["lu"], lu_splu_s = phase_lu(tmp)
         elapsed("phase 4")
@@ -3055,6 +3555,18 @@ def main():
             else:
                 launches[key] = val
     elapsed("phase 12")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
+        launches["newton_krylov"] = phase_newton_krylov(Path(tmp))
+    elapsed("phase 13a")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["step_fn"], system, bc = phase_step_fn()
+    elapsed("phase 13b")
+    phase_new_kernels(records, system, bc)
+    del system, bc
+    elapsed("phase 13c")
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():
@@ -3070,7 +3582,7 @@ def main():
             **{k: r[k] for k in ("variants", "rfft_ms", "host_copy_ms",
                                  "host_splu_ms", "chunk_steps",
                                  "one_launch_ms", "library_calls",
-                                 "bound_ms_sinv_read_twice")
+                                 "bound_ms_sinv_read_twice", "inverse_ms")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))
@@ -3079,5 +3591,17 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def cpu_reference_main(out):
+    """The --cpu-reference entry: phase 3's CPU sides into `out`."""
+    import torch
+
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    with tempfile.TemporaryDirectory(prefix="vasp_smoke_cpu_") as tmp:
+        torch.save(cpu_references(Path(tmp)), out)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-reference"]:
+        cpu_reference_main(sys.argv[2])
+    else:
+        main()

@@ -8,9 +8,13 @@ inputs each test hands to both sides are made with numpy.
 Also what the stepper parity tests share: both steppers driven through
 the same steps (run_steps), the same damage of both packages' banded
 factors (damage_sinv), the ladder tiers a step printed (printed_tiers),
-the torch thread count of the port's test modules (torch_threads), and a
-canonical order of a mesh's cells or facets (canonical_entities)."""
+the torch thread count of the port's test modules (torch_threads), a
+canonical order of a mesh's cells or facets (canonical_entities), and one
+RCM ordering for both packages in a test process (same_rcm)."""
+import fcntl
 import io
+import os
+import subprocess
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -39,9 +43,56 @@ def _bcs(space, DirichletBC):
     return bcs
 
 
+_SAME_RCM = []
+
+
+def same_rcm():
+    """Make vasp_tpu take its native RCM ordering in this process, as the
+    port does, or fail saying which package took which.
+
+    vasp_tpu builds vasp_tpu/native/libmeshcore.so in place at first use
+    (its Makefile writes the final name directly) and, where the build or
+    the load fails, keeps scipy's RCM for the life of the process. Under
+    pytest-xdist one worker can see another's half-written library; the
+    two orderings give banded patterns of different widths on the same
+    tube (c = 1,656 natively, 1,712 by scipy's RCM on MESH). So, once per
+    process and under a file lock, the library is built into a temporary
+    name and renamed into place, and vasp_tpu's cached failure, if any, is
+    reset. Nothing of vasp_tpu is edited."""
+    if _SAME_RCM:
+        return
+    from vasp_tpu import native as jnative
+    from vasp_tpu_torch import native as tnative
+
+    port_native = tnative._library() is not None
+    if port_native and jnative._LIB is None:
+        so = jnative._DIR / "libmeshcore.so"
+        tnative.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(tnative.BUILD_DIR / "libmeshcore.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            tmp = so.with_name(f"libmeshcore.{os.getpid()}.tmp")
+            build = subprocess.run(
+                ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17",
+                 "-shared", "-o", str(tmp),
+                 str(jnative._DIR / "meshcore.cpp")],
+                capture_output=True, text=True, timeout=600)
+            assert build.returncode == 0, (
+                f"g++ could not build vasp_tpu's libmeshcore.so: "
+                f"{build.stderr}")
+            os.replace(tmp, so)
+            jnative._TRIED, jnative._LIB = False, None
+            jnative._load()
+    assert jnative.available() == port_native, (
+        f"the two packages take different RCM orderings in this process: "
+        f"vasp_tpu {'native' if jnative.available() else 'scipy'}, the "
+        f"port {'native' if port_native else 'scipy'}")
+    _SAME_RCM.append(True)
+
+
 def build_pair(mesh=MESH):
     """((jax system, jax bc set), (torch system, torch bc set)) on the tube
     of `mesh`'s parameters; the torch side on the CPU."""
+    same_rcm()
     from vasp_tpu.fem.dirichlet import DirichletBC as JBC
     from vasp_tpu.mesh.generate import fsi_tube_mesh as jax_tube
     from vasp_tpu.run.system import FSISystem as JaxSystem
@@ -154,18 +205,28 @@ def canonical_entities(rows, markers=None):
     return rows[np.lexsort(rows.T[::-1])]
 
 
-def torch_threads(n):
+def torch_threads(n, blas=True):
     """An autouse module-scoped fixture that runs a test module's tests at
-    n torch threads and restores the count after them; bind it to a module
-    name (``_threads = torch_threads(2)``). A count set when a module is
+    n torch threads and, with blas, n BLAS threads for numpy and scipy,
+    after same_rcm(), and restores the counts after them (under pytest -n
+    6 on 8 cores, BLAS at its default of one thread per core in every
+    worker oversubscribes the host); bind it to a module name
+    (``_threads = torch_threads(2)``). A count set when a module is
     imported would not hold: a pytest-xdist worker imports every test
-    module at collection, so the last import's count would win for all."""
+    module at collection, so the last import's count would win for all.
+    blas=False leaves BLAS at its default, for a module whose vasp_tpu
+    side is held to counts that its float32 LAPACK factors' rounding
+    decides (vasp_tpu's CPU LAPACK calls go through the same BLAS)."""
 
     @pytest.fixture(autouse=True, scope="module")
     def _torch_threads():
+        from threadpoolctl import threadpool_limits
+
+        same_rcm()
         old = torch.get_num_threads()
         torch.set_num_threads(n)
-        yield
+        with threadpool_limits(limits=n if blas else None, user_api="blas"):
+            yield
         torch.set_num_threads(old)
 
     return _torch_threads

@@ -215,6 +215,33 @@ def test_iterative_solvers_raise(tiny_tube, lin):
     assert solver.stepper._bpat.nb >= 1
 
 
+@pytest.mark.parametrize("lin", ["krylov", "schwarz"])
+def test_newton_solver_krylov_branch_builds(tiny_tube, lin):
+    """A linear_solver outside lu, mumps, gmres, iterative and ras reaches
+    NewtonSolver's Krylov branch (element-block Schwarz and GMRES) with
+    vasp_tpu's defaults, from a config and from make_solver's keyword; its
+    preconditioner builds on the plain versions (no kernel launch)."""
+    from vasp_tpu_torch.fem.solver import NewtonSolver
+
+    system = FSISystem(tiny_tube, dict(CFG, linear_solver=lin))
+    bcs = system.make_bcset([])
+    for solver in (system.make_solver(bcs),
+                   FSISystem(tiny_tube, CFG).make_solver(
+                       bcs, linear_solver=lin)):
+        assert isinstance(solver, NewtonSolver)
+        opt = solver.opt
+        assert (opt.linear_solver, opt.gmres_tol, opt.gmres_restart,
+                opt.gmres_maxiter) == (lin, 1e-4, 50, 400)
+    build.reset_launch_counts()
+    U = system.zero_state()
+    solver._rebuild(U, U, 1)
+    assert solver.state.lu is None
+    assert [P.shape for P in solver.state.pinv] == [
+        b.dofs.shape + b.dofs.shape[1:] for b in solver.asm.blocks]
+    assert float(solver.state.multiplicity.min()) >= 1.0
+    assert not any(build.LAUNCHES.values())
+
+
 @pytest.mark.parametrize("extra,item", [
     (dict(residual_dtype="f32"), 14), (dict(chain_anchor=True), 14),
 ], ids=["f32", "chain_anchor"])
@@ -292,7 +319,11 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "fluid_jacobian_nolift_f32", "lift_correction",
         "lift_correction_f32", "banded_apply_hybrid", "banded_apply_bf16",
         "banded_apply_lowmem_bf16", "banded_apply_lowmem_f32",
-        "ruiz_sweep_f64", "ruiz_sweep_36_f64", "ras_apply", "ras_apply_f32"}
+        "ruiz_sweep_f64", "ruiz_sweep_36_f64", "ras_apply", "ras_apply_f32",
+        "schwarz_build", "schwarz_build_36", "schwarz_apply",
+        "schwarz_apply_36", "schwarz_divide", "node_block_extract",
+        "node_block_invert", "node_block_apply", "ruiz_scale_f64",
+        "ruiz_scale_36_f64"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

@@ -37,7 +37,13 @@ each with its reason:
   factors;
 - K18 (the RAS apply): float64 1e-12; with float32 inverses or a float32
   vector 1e-5 (1e-6 when only r is float32): m-term float32 sums in
-  another order than torch's; K7's float64 sweep: exact.
+  another order than torch's; K7's float64 sweep and scale: exact;
+- K22 (the element-block Schwarz build and apply): the build exact (the
+  same masks and one unfused product and sum on the diagonal), the
+  multiplicity exact, the apply (with its divide) 1e-12 relative;
+- K17 (the node blocks): extract and apply 1e-12 relative (atomics'
+  order), the closed-form inverse 1e-12 of each node's largest entry
+  (unfused float64 operations against torch's on blocks of cond ~10).
 
 Marked `cuda`: they need a CUDA device and nvcc, and skip without them.
 The module imports no jax and builds its own mesh, so on a GPU machine
@@ -305,6 +311,18 @@ def test_ruiz_sweep_kernel_f64(banded_inputs):
         ks.ruiz_sweep_cuda(A, b.dofs, dr64, dc64, mask, out[0], out[1])
         ks.ruiz_sweep_plain(A, b.dofs, dr64, dc64, mask, out[2], out[3])
         assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+
+
+def test_ruiz_scale_kernel_f64(banded_inputs):
+    """K7's float64 scale (make_step_fn's node blocks): exact, the same two
+    float64 multiplies."""
+    sysm, jacs, mask, dr, dc, *_ = banded_inputs
+    for b, A in zip(sysm.assembler.blocks, jacs):
+        A, dr64, dc64 = A.double(), dr.double(), dc.double()
+        n0 = build.LAUNCHES["ruiz_scale_f64"]
+        out = ks.ruiz_scale_cuda(A, b.dofs, dr64, dc64)
+        assert build.LAUNCHES["ruiz_scale_f64"] == n0 + 1
+        assert torch.equal(out, ks.ruiz_scale_plain(A, b.dofs, dr64, dc64))
 
 
 @pytest.mark.parametrize("p_dt,r_dt,tol", [
@@ -716,3 +734,69 @@ def test_lift_correction_kernel(system, sub_type, dtype):
     c64 = lifting.correction_plain(bih.lift, x.double())
     assert float((ck.double() - cp.double()).norm()) <= \
         2 * float((cp.double() - c64).norm()) + 1e-14 * float(c64.norm())
+
+
+@pytest.mark.parametrize("n", [64, 36], ids=["cells", "facets"])
+def test_schwarz_kernels(system, robin_system, n):
+    """K22 at the cells' 64 and the Robin facets' 36 local dofs, on the
+    element Jacobians of the tube and a seeded bc mask."""
+    from vasp_tpu_torch.kernels import schwarz as kz
+
+    sysm, U, U0 = system
+    if n == 64:
+        b = sysm.assembler.blocks[0]
+        A = element.block_jacobian(b, U, U0)
+    else:
+        _, b, U, _ = robin_system
+        A = facet.jacobian_plain(b, U)
+    ndof = U.shape[0]
+    rng = np.random.default_rng(8)
+    mask = torch.as_tensor(rng.random(ndof) < 0.05, device="cuda")
+    mk = torch.zeros(ndof, dtype=torch.float64, device="cuda")
+    mp = torch.zeros_like(mk)
+    build.reset_launch_counts()
+    Ak = kz.build_cuda(A, b.dofs, mask, 1e-12, mk)
+    assert build.LAUNCHES[km4.launch_name("schwarz_build", n)] == 1
+    Ap = kz.build_plain(A, b.dofs, mask, 1e-12, mp)
+    assert torch.equal(Ak, Ap) and torch.equal(mk, mp)
+    P = torch.linalg.inv(Ap).contiguous()
+    r = torch.as_tensor(rng.normal(size=ndof), device="cuda")
+    mult = torch.clamp(mp, min=1.0)
+    yk = kz.apply_cuda([P], [b.dofs], r, mult)
+    assert build.LAUNCHES[km4.launch_name("schwarz_apply", n)] == 1
+    assert build.LAUNCHES["schwarz_divide"] == 1
+    assert _rel(yk, kz.apply_plain([P], [b.dofs], r, mult)) <= RTOL
+    assert _rel(kz.apply_cuda([P], [b.dofs], r),
+                kz.apply_plain([P], [b.dofs], r)) <= RTOL
+
+
+def test_node_block_kernels(system):
+    """K17 on the tube's Ruiz-scaled float64 cell Jacobians and a seeded
+    bc mask."""
+    from vasp_tpu_torch.fem.scaling import scale_element_jacobians
+    from vasp_tpu_torch.kernels import nodeblock as knb
+
+    sysm, U, U0 = system
+    sp, blocks = sysm.space, sysm.assembler.blocks
+    rng = np.random.default_rng(9)
+    mask = torch.as_tensor(rng.random(sp.ndof) < 0.05, device="cuda")
+    jacs = [element.block_jacobian(b, U, U0) for b in blocks]
+    dr, dc = ruiz_scales(blocks, jacs, mask, sp.ndof, sweeps=4)
+    jacs = scale_element_jacobians(blocks, jacs, dr, dc)
+    nk = torch.zeros((sp.n_p2, 6, 6), dtype=torch.float64, device="cuda")
+    npl = torch.zeros_like(nk)
+    build.reset_launch_counts()
+    for b, A in zip(blocks, jacs):
+        knb.extract_cuda(A, b.dofs, nk)
+        knb.extract_plain(A, b.dofs, npl)
+    assert build.LAUNCHES["node_block_extract"] == len(blocks)
+    assert _rel(nk, npl) <= RTOL
+    Pk, Pp = knb.invert_cuda(npl, mask), knb.invert_plain(npl, mask)
+    assert build.LAUNCHES["node_block_invert"] == 1
+    scale = Pp.abs().amax(dim=(1, 2), keepdim=True)
+    assert float(((Pk - Pp).abs() / scale).max()) <= RTOL
+    r = torch.as_tensor(rng.normal(size=sp.ndof), device="cuda")
+    yk = knb.apply_cuda(Pp, r, sp.n_p2, sp.off_p)
+    assert build.LAUNCHES["node_block_apply"] == 1
+    assert _rel(yk, knb.apply_plain(Pp, r, sp.n_p2, sp.off_p)) <= RTOL
+    assert torch.equal(yk[sp.off_p:], r[sp.off_p:])

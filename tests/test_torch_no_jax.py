@@ -48,6 +48,8 @@ SLICE = [
     "vasp_tpu_torch.postprocessing.log_plotter", "vasp_tpu_torch.cli",
     "vasp_tpu_torch.fem.biharmonic", "vasp_tpu_torch.kernels.lifting",
     "vasp_tpu_torch.fem.ras", "vasp_tpu_torch.kernels.ras",
+    "vasp_tpu_torch.fem.preconditioner", "vasp_tpu_torch.kernels.schwarz",
+    "vasp_tpu_torch.kernels.nodeblock",
 ]
 
 

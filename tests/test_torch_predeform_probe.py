@@ -71,7 +71,7 @@ def shared_cdb(tmp_path_factory):
 def factors(shared_cdb):
     """Each package's K9 (vasp_tpu with its CPU inverse, the LU:
     inv_levels=0) and K10 on the same C/D/B, the port's f64 tier (K11),
-    and the exact float64 Schur blocks."""
+    and the exact float64 Schur blocks with their condition numbers."""
     C, D, B = shared_cdb
     fj = jax.jit(lambda c, d, b: jax_banded.factorize_banded(
         c, d, b, inv_levels=0))(C, D, B)
@@ -83,14 +83,13 @@ def factors(shared_cdb):
     for k in range(D.shape[0]):
         S.append(D[k].astype(np.float64) - C[k].astype(np.float64) @ G)
         G = np.linalg.solve(S[-1], B[k].astype(np.float64))
-    return jax_f, torch_f, f64_tier, S
+    return jax_f, torch_f, f64_tier, [np.linalg.cond(s) for s in S]
 
 
 def test_recursion_is_beyond_float32(factors):
     """The tube reproduces the gap because a Schur block is beyond float32:
     cond(S_k) eps32 > 1 (measured ~1.6e9 x 1.2e-7 on the last block)."""
-    *_, S = factors
-    conds = [np.linalg.cond(s) for s in S]
+    *_, conds = factors
     assert max(conds) * EPS32 > 1.0, conds
 
 
@@ -98,8 +97,8 @@ def test_k9_agree_where_float32_suffices(factors):
     """On the first block (cond ~1e5) the two float32 inverses agree to
     cond x eps32, the accuracy an LU inverse has there: the port's K9 is
     not at fault (measured ~1e-5 relative against a ~2e-2 bound)."""
-    (Sj, *_), (St, *_), _, S = factors
-    cond0 = np.linalg.cond(S[0])
+    (Sj, *_), (St, *_), _, conds = factors
+    cond0 = conds[0]
     diff = np.abs(Sj[0] - St[0].numpy()).max() / np.abs(Sj[0]).max()
     assert diff <= cond0 * EPS32, (diff, cond0)
 

@@ -27,7 +27,9 @@
 // unsigned long long, a shuffle reduction in the warp): the RAS
 // preconditioner's rebuild equilibrates float64 element Jacobians, as
 // vasp_tpu's _jac_and_ruiz does. It reads twice the bytes, ~0.2 ms a sweep
-// at 20,832 cells.
+// at 20,832 cells. So does the scale (its two multiplies rounded in
+// float64): make_step_fn's node-block preconditioner scales the float64
+// element Jacobians.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -108,14 +110,14 @@ ruiz_sweep_kernel(const T* __restrict__ A, const int64_t* __restrict__ dofs,
   }
 }
 
-template <int N>
+template <int N, class T>
 __global__ void __launch_bounds__(256)
-ruiz_scale_kernel(const float* __restrict__ A, const int64_t* __restrict__ dofs,
-                  const float* __restrict__ dr, const float* __restrict__ dc,
-                  float* __restrict__ out) {
+ruiz_scale_kernel(const T* __restrict__ A, const int64_t* __restrict__ dofs,
+                  const T* __restrict__ dr, const T* __restrict__ dc,
+                  T* __restrict__ out) {
   const int k = blockIdx.x;
   const int t = threadIdx.x;
-  __shared__ float s_dr[N], s_dc[N];
+  __shared__ T s_dr[N], s_dc[N];
   if (t < N) {
     const int64_t g = dofs[(int64_t)k * N + t];
     s_dr[t] = dr[g];
@@ -125,7 +127,7 @@ ruiz_scale_kernel(const float* __restrict__ A, const int64_t* __restrict__ dofs,
   const int64_t base = (int64_t)k * N * N;
 #pragma unroll 4
   for (int e = t; e < N * N; e += 256) {
-    out[base + e] = __fmul_rn(__fmul_rn(s_dr[e / N], A[base + e]), s_dc[e % N]);
+    out[base + e] = mul_rn(mul_rn(s_dr[e / N], A[base + e]), s_dc[e % N]);
   }
 }
 
@@ -150,10 +152,16 @@ int sweep_entry(const T* A, const int64_t* dofs, const T* dr, const T* dc,
   return (int)cudaGetLastError();
 }
 
-template <int N>
-void scale(const float* A, const int64_t* dofs, const float* dr, const float* dc,
-           float* out, int K, cudaStream_t s) {
-  ruiz_scale_kernel<N><<<K, 256, 0, s>>>(A, dofs, dr, dc, out);
+template <class T>
+int scale_entry(const T* A, const int64_t* dofs, const T* dr, const T* dc,
+                T* out, int K, int nloc, void* stream) {
+  if (nloc != 64 && nloc != 36) return (int)cudaErrorInvalidValue;
+  if (K > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (nloc == 64) ruiz_scale_kernel<64, T><<<K, 256, 0, s>>>(A, dofs, dr, dc, out);
+    else ruiz_scale_kernel<36, T><<<K, 256, 0, s>>>(A, dofs, dr, dc, out);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -175,16 +183,15 @@ int vt_ruiz_sweep(const void* A, const int64_t* dofs, const void* dr,
                      nloc, stream);
 }
 
-// out (K,nloc,nloc) f32 = dr[rows] A dc[cols].
-int vt_ruiz_scale(const float* A, const int64_t* dofs, const float* dr,
-                  const float* dc, float* out, int K, int nloc, void* stream) {
-  if (nloc != 64 && nloc != 36) return (int)cudaErrorInvalidValue;
-  if (K > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (nloc == 64) scale<64>(A, dofs, dr, dc, out, K, s);
-    else scale<36>(A, dofs, dr, dc, out, K, s);
-  }
-  return (int)cudaGetLastError();
+// out (K,nloc,nloc) = dr[rows] A dc[cols]; all f64 (f64) or all f32.
+int vt_ruiz_scale(const void* A, const int64_t* dofs, const void* dr,
+                  const void* dc, void* out, int K, int nloc, int f64,
+                  void* stream) {
+  if (f64)
+    return scale_entry((const double*)A, dofs, (const double*)dr,
+                       (const double*)dc, (double*)out, K, nloc, stream);
+  return scale_entry((const float*)A, dofs, (const float*)dr,
+                     (const float*)dc, (float*)out, K, nloc, stream);
 }
 
 }  // extern "C"

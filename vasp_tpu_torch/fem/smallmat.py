@@ -1,4 +1,5 @@
-"""Closed-form 3x3 determinant / inverse on torch tensors.
+"""Closed-form 3x3 determinant / inverse on torch tensors, and the 6x6
+inverse by block-Schur elimination on them.
 
 The same cofactor formulas as the CUDA element kernels (csrc/element_forms.cuh),
 so the plain path and the kernels round alike. Works under torch.func
@@ -41,3 +42,27 @@ def inv3(A, det=None):
     if det is None:
         det = det3(A)
     return adj3(A) / det[..., None, None]
+
+
+def inv6(M):
+    """Inverse of (..., 6, 6) via 2x2 block-Schur elimination with
+    closed-form 3x3 inverses, exact-grade in float64 (vasp_tpu's
+    fem/smallmat.py inv6, the node-block preconditioner's inverse).
+
+    M = [[A, B], [C, D]]; inv = [[A^-1 + A^-1 B S^-1 C A^-1, -A^-1 B S^-1],
+                                 [-S^-1 C A^-1, S^-1]], S = D - C A^-1 B."""
+    A = M[..., :3, :3]
+    B = M[..., :3, 3:]
+    C = M[..., 3:, :3]
+    D = M[..., 3:, 3:]
+    Ai = inv3(A)
+    AiB = Ai @ B
+    S = D - C @ AiB
+    Si = inv3(S)
+    CAi = C @ Ai
+    top_left = Ai + AiB @ Si @ CAi
+    top_right = -(AiB @ Si)
+    bot_left = -(Si @ CAi)
+    top = torch.cat([top_left, top_right], dim=-1)
+    bot = torch.cat([bot_left, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)

@@ -1,15 +1,27 @@
-"""Damped Newton solver with Jacobian reuse and a host sparse LU.
+"""Damped Newton solver with Jacobian reuse and pluggable linear solvers.
 
-Counterpart of vasp_tpu.fem.solver.NewtonSolver, LU branch: the residual
-and the element Jacobians are evaluated on the run's device (CUDA kernels
-on a GPU), the Jacobian is assembled into a host CSR, Ruiz-equilibrated
-and factorized with scipy's splu — the reference's MUMPS-equivalent path
-(reference: src/vasp/simulations/offset_stenosis.py:44-48). The control
-flow (Jacobian reuse knobs, stall rebuild, 8-candidate backtracking,
-Levenberg fallback) is the reference package's, unchanged. With
-biharmonic lifting (``lift``, the tables of fem/biharmonic.py) the
-correction term enters the residual through K16 (kernels/lifting.py) and
-the factorized matrix as its host CSR, bc rows and columns zeroed.
+Counterpart of vasp_tpu.fem.solver.NewtonSolver. The residual and the
+element Jacobians are evaluated on the run's device (CUDA kernels on a
+GPU). The linear solvers, chosen by ``NewtonOptions.linear_solver`` as in
+vasp_tpu:
+
+- "lu": the Jacobian is assembled into a host CSR, Ruiz-equilibrated and
+  factorized with scipy's splu, the reference's MUMPS-equivalent path
+  (reference: src/vasp/simulations/offset_stenosis.py:44-48);
+- any other value (the Krylov branch): element-block additive Schwarz
+  (K22, kernels/schwarz.py: the float64 element Jacobians with bc rows set
+  to identity and a regularized diagonal, their torch.linalg.inv inverses,
+  the multiplicity-weighted apply) and left-preconditioned GMRES with the
+  semantics of jax.scipy.sparse.linalg.gmres(solve_method="incremental")
+  (fem/krylov.py gmres_incremental) over the masked element matvec (K4) at
+  gmres_tol, gmres_restart and gmres_maxiter.
+
+The control flow (Jacobian reuse knobs, stall rebuild, 8-candidate
+backtracking, the Levenberg fallback of the LU branch) is the reference
+package's, unchanged. With biharmonic lifting (``lift``, the tables of
+fem/biharmonic.py) the correction term enters the residual through K16
+(kernels/lifting.py), the factorized matrix as its host CSR, bc rows and
+columns zeroed, and the Krylov branch's matvec on the masked vector.
 
 Stdout follows the reference solver's de-facto log API consumed by
 vasp-log-plotter and the regression tests
@@ -17,8 +29,12 @@ vasp-log-plotter and the regression tests
   "Newton iteration {i}: r (atol) = {...} (tol = {...}), r (rel) = {...} (tol = {...})"
 
 ``NewtonSolver.timings`` accumulates wall seconds per phase (residual,
-jacobian, to_csr, ruiz, splu, solve); the device phases end in a
-synchronize, so each is the time the phase holds the host.
+jacobian, to_csr, ruiz, splu, solve; on the Krylov branch schwarz_build,
+schwarz_invert and gmres); the device phases end in a synchronize, so
+each is the time the phase holds the host (GMRES synchronizes once an
+Arnoldi iteration, when its Hessenberg row comes to the host).
+``gmres_restarts`` and ``gmres_iterations`` count the Krylov branch's
+restart cycles and Arnoldi iterations over the run.
 """
 import time
 from collections import defaultdict
@@ -30,6 +46,8 @@ import numpy as np
 import torch
 
 from vasp_tpu_torch.fem.biharmonic import correction_apply, correction_csr
+from vasp_tpu_torch.fem.krylov import gmres_incremental
+from vasp_tpu_torch.kernels import schwarz as ks
 
 
 @dataclass
@@ -41,6 +59,9 @@ class NewtonOptions:
     recompute: int = 5
     recompute_tstep: int = 1
     linear_solver: str = "lu"
+    gmres_tol: float = 1e-4
+    gmres_restart: int = 50
+    gmres_maxiter: int = 400
     verbose: bool = True
     raise_on_fail: bool = True
 
@@ -52,6 +73,8 @@ class NewtonState:
     A_s = None
     lu_dr: Optional[np.ndarray] = None
     lu_dc: Optional[np.ndarray] = None
+    pinv: Optional[list] = None  # Schwarz block inverses
+    multiplicity: Optional[torch.Tensor] = None
     last_rebuild_tstep: int = -(10 ** 9)
     iters_since_rebuild: int = 0
 
@@ -79,17 +102,14 @@ def _host_ruiz(A, bc_mask, sweeps=4):
 class NewtonSolver:
     def __init__(self, assembler, bc_set, options: NewtonOptions,
                  lift=None):
-        if options.linear_solver != "lu":
-            raise NotImplementedError(
-                f"linear_solver={options.linear_solver!r}: NewtonSolver is "
-                f"the host LU path; the Krylov solvers are "
-                f"fem/timestepper.py IterativeNewtonSolver")
         self.asm = assembler
         self.bc = bc_set
         self.opt = options
         self.state = NewtonState()
         self.timings = defaultdict(float)
         self.factorizations = 0  # splu calls, Levenberg ones included
+        self.gmres_restarts = 0
+        self.gmres_iterations = 0
         # biharmonic lifting correction: the linear L M^-1 L - L term on
         # the fluid d-block, in the residual and in the factorized matrix
         self.lift = lift
@@ -117,13 +137,19 @@ class NewtonSolver:
 
     # ---------------- Jacobian management ----------------
     def _rebuild(self, U, U0, tstep):
-        import scipy.sparse as sp
-        import scipy.sparse.linalg as spla
-
         with self._timed("jacobian", U.device):
             self.state.jacs = self.asm.element_jacobians(U, U0)
         self.state.last_rebuild_tstep = tstep
         self.state.iters_since_rebuild = 0
+        if self.opt.linear_solver == "lu":
+            self._factorize()
+        else:
+            self._build_schwarz()
+
+    def _factorize(self):
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spla
+
         # factorize the RUIZ-EQUILIBRATED matrix: the raw monolithic FSI
         # Jacobian spans ~12 decades and can exceed f64 LU accuracy;
         # equilibration runs on the fully assembled host CSR, so that every
@@ -143,6 +169,27 @@ class NewtonSolver:
         self.state.lu_dr = drn
         self.state.lu_dc = dcn
 
+    def _build_schwarz(self):
+        """Element-block additive Schwarz (K22): each element Jacobian with
+        its bc rows set to identity, its bc columns zeroed off them and a
+        small diagonal regularization (the zero pressure diagonal of the
+        saddle blocks), inverted; the dofs' multiplicities for weighting."""
+        eps = 1e-12
+        dev = self.state.jacs[0].device
+        mask = self.bc.mask_on(dev)
+        mult = torch.zeros(self.asm.ndof, dtype=torch.float64, device=dev)
+        pinv = []
+        for b, A in zip(self.asm.blocks, self.state.jacs):
+            with self._timed("schwarz_build", dev):
+                Amod = ks.build(A, b.dofs, mask, eps, mult)
+            with self._timed("schwarz_invert", dev):
+                # row-major for K22's apply (torch.linalg.inv returns each
+                # matrix column-major)
+                pinv.append(torch.linalg.inv(Amod).contiguous())
+            del Amod
+        self.state.pinv = pinv
+        self.state.multiplicity = torch.clamp(mult, min=1.0)
+
     def _lift_matrix(self):
         """The correction's host CSR with its bc rows and columns zeroed,
         built once."""
@@ -154,8 +201,30 @@ class NewtonSolver:
             self._lift_csr = C.tocsr()
         return self._lift_csr
 
+    def _precond(self, r):
+        return ks.apply(self.state.pinv, [b.dofs for b in self.asm.blocks],
+                        r, self.state.multiplicity)
+
+    def _matvec(self, x):
+        """The Jacobian on the free dofs, identity on the constrained ones
+        (the biharmonic correction on the masked vector too)."""
+        mask = self.bc.mask_on(x.device)
+        y = self.asm.matvec(self.state.jacs, x)
+        if self.lift is not None:
+            y = y + correction_apply(self.lift, torch.where(mask, 0.0, x))
+        return torch.where(mask, x, y)
+
     # ---------------- linear solve ----------------
     def _linear_solve(self, R):
+        if self.opt.linear_solver != "lu":
+            with self._timed("gmres", R.device):
+                dx, (restarts, iters) = gmres_incremental(
+                    self._matvec, R, M=self._precond, tol=self.opt.gmres_tol,
+                    atol=0.0, restart=self.opt.gmres_restart,
+                    maxiter=self.opt.gmres_maxiter)
+            self.gmres_restarts += restarts
+            self.gmres_iterations += iters
+            return dx
         with self._timed("solve"):
             y = self.state.lu.solve(self.state.lu_dr * R.cpu().numpy())
             return torch.as_tensor(self.state.lu_dc * y, dtype=torch.float64,
@@ -247,6 +316,7 @@ class NewtonSolver:
                 dx = self._linear_solve(self._residual(U, U0, load))
                 cand_U, cand_r = backtrack(dx)
             if (cand_U is None or cand_r >= res) \
+                    and self.opt.linear_solver == "lu" \
                     and self.state.A_s is not None:
                 # Levenberg fallback: no descent along the EXACT Newton
                 # direction; solve (A_s + mu I) on the equilibrated system,

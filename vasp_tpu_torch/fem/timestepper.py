@@ -1,7 +1,9 @@
-"""Newton-Krylov timestepper of the iterative path.
+"""Newton-Krylov timesteppers of the iterative path.
 
-Counterpart of vasp_tpu.fem.timestepper: ``StepOptions``,
-``IterativeStepper`` with precond="banded" in each factor layout or
+Counterpart of vasp_tpu.fem.timestepper: ``StepOptions``, ``make_step_fn``
+(one Newton solve per call, preconditioned by Ruiz scales and the 6x6
+node-block inverses, K17; float64 element Jacobians every iteration; the
+single-device body of vasp_tpu's sharded step), ``IterativeStepper`` with precond="banded" in each factor layout or
 precond="ras", its precision ladder, and ``IterativeNewtonSolver``. Each Newton
 iteration builds element Jacobians (float32 by default, K3), solves the
 Ruiz-equilibrated system (Dr J Dc) y = Dr R by right-preconditioned GMRES
@@ -75,7 +77,12 @@ from vasp_tpu_torch.fem import banded as banded_mod
 from vasp_tpu_torch.fem import ras as ras_mod
 from vasp_tpu_torch.fem.biharmonic import correction_apply
 from vasp_tpu_torch.fem.krylov import gmres
-from vasp_tpu_torch.fem.scaling import ruiz_scales, scale_element_jacobians
+from vasp_tpu_torch.fem.scaling import (
+    apply_node_block,
+    build_node_block,
+    ruiz_scales,
+    scale_element_jacobians,
+)
 
 # probe solve quality above which a Newton stall takes the f64 factor
 # escalation (vasp_tpu's VASP_BANDED_RELMAX default)
@@ -157,6 +164,113 @@ class StepOptions:
                              "or 'ras'")
         if self.chain_anchor:
             not_ported("chain_anchor", 14)
+
+
+def _backtrack_update(U, dx, residual_norm_fn, lmbda, n_halvings=4):
+    """Damped Newton update: the candidates U - lmbda 2^-k dx, k < n_halvings,
+    and the one with the smallest residual norm (a NaN norm is rejected; the
+    first candidate where every norm is inf or NaN)."""
+    best_U, best_r = None, None
+    for k in range(n_halvings):
+        Ut = U - lmbda * (0.5 ** k) * dx
+        rt = residual_norm_fn(Ut)
+        rt = np.inf if np.isnan(rt) else rt
+        if best_r is None or rt < best_r:
+            best_U, best_r = Ut, rt
+    return best_U, best_r
+
+
+def _damped_update(U, dx, residual_norm_fn, rnorm_prev, lmbda,
+                   n_halvings=4):
+    """Full-step-first line search: the full step where its residual is
+    finite and below rnorm_prev, else the halving search."""
+    Ufull = U - lmbda * dx
+    rfull = residual_norm_fn(Ufull)
+    if np.isfinite(rfull) and rfull < rnorm_prev:
+        return Ufull, rfull
+    return _backtrack_update(U, dx, residual_norm_fn, lmbda, n_halvings)
+
+
+def make_step_fn(assembler, bc_mask, options: StepOptions, layout=None,
+                 reduce_fn=None, reduce_max_fn=None):
+    """step(U0, bc_values, load) -> (U, stats): one Newton solve from U0
+    with bc_values imposed, stats = iterations, residual (the final raw
+    residual norm) and r0 (the first one).
+
+    Counterpart of vasp_tpu.fem.timestepper.make_step_fn, its lax.while_loop
+    a host loop. Preconditioner: Ruiz scales (K7, options.ruiz_sweeps) of
+    the step-start float64 element Jacobians and the node-block inverses of
+    the scaled ones (K17); every Newton iteration builds fresh float64
+    Jacobians (K3, true Newton) and solves the equilibrated system with
+    right-preconditioned GMRES (K5; cycles = max(1, gmres_maxiter //
+    gmres_restart)) over the element matvec (K4), then takes the
+    full-step-first line search (K1/K2). Convergence is read on the raw
+    residual norm (atol, rtol), at most max_it iterations. layout: (n_p2,
+    off_p) of the DVP dof layout, inferred from the first cell block if
+    omitted; reduce_fn / reduce_max_fn: cross-rank sum and max for the
+    sharded path (None on one device)."""
+    opt = options
+    ndof = assembler.ndof
+    dev = assembler.blocks[0].dofs.device
+    mask = torch.as_tensor(np.asarray(bc_mask), dtype=torch.bool,
+                           device=dev) if not torch.is_tensor(bc_mask) \
+        else bc_mask.to(dev)
+    red = reduce_fn if reduce_fn is not None else (lambda x: x)
+    if layout is not None:
+        n_p2, off_p = layout
+    else:
+        # v-dof indices live in [3 n2, 6 n2): max local-v column = 6 n2 - 1
+        n_p2 = (int(assembler.blocks[0].dofs[:, 30:60].max()) + 1) // 6
+        off_p = 6 * n_p2
+
+    def step(U0, bc_values, load):
+        U1 = torch.where(mask, bc_values.to(U0), U0)
+        # the preconditioner from the step-start state; the matvecs' true
+        # Jacobian is recomputed every Newton iteration
+        jacs0 = assembler.element_jacobians(U1, U0)
+        dr, dc = ruiz_scales(assembler.blocks, jacs0, mask, ndof,
+                             sweeps=opt.ruiz_sweeps,
+                             reduce_max=reduce_max_fn)
+        jacs_s = scale_element_jacobians(assembler.blocks, jacs0, dr, dc)
+        del jacs0
+        pinv = build_node_block(assembler.blocks, jacs_s, mask, n_p2, off_p,
+                                ndof, reduce_fn=reduce_fn)
+        del jacs_s
+
+        def residual_raw(U):
+            R = red(assembler.residual(U, U0)) + load
+            return torch.where(mask, 0.0, R)
+
+        def rnorm(U):
+            return float(torch.linalg.norm(residual_raw(U)))
+
+        def precond(r):
+            return apply_node_block(pinv, r, n_p2, off_p)
+
+        def newton_update(U):
+            jacs = assembler.element_jacobians(U, U0)
+
+            def matvec(x):
+                t = dc * torch.where(mask, 0.0, x)
+                y = red(assembler.matvec(jacs, t))
+                return torch.where(mask, x, dr * y)
+
+            Rs = dr * residual_raw(U)
+            y, _ = gmres(matvec, Rs, M=precond, restart=opt.gmres_restart,
+                         cycles=max(1, opt.gmres_maxiter // opt.gmres_restart),
+                         tol=opt.gmres_tol)
+            return dc * y
+
+        r0 = rnorm(U1)
+        r0_safe = r0 if r0 > 0 else 1.0
+        U, it, rn = U1, 0, r0
+        while it < opt.max_it and rn > opt.atol and rn / r0_safe > opt.rtol:
+            dx = newton_update(U)
+            U, rn = _damped_update(U, dx, rnorm, rn, opt.lmbda)
+            it += 1
+        return U, dict(iterations=it, residual=rn, r0=r0)
+
+    return step
 
 
 class IterativeStepper:

@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
            "banded.cu", "facet_kernels.cu", "postproc.cu", "lifting.cu",
-           "ras.cu")
+           "ras.cu", "schwarz.cu", "nodeblock.cu")
 HEADERS = ("element_forms.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -33,8 +33,9 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # serve the Robin facet blocks; per material for the solid's K2/K3 and
 # for K20b: the _mr instances are the Mooney-Rivlin ones; per mesh
 # lifting for the fluid's K1/K3: the _elastic and _nolift instances; per
-# dtype for K16, K7's sweep and K18; per storage instance for K6 and K12),
-# bumped by its wrapper right where it launches
+# dtype for K16, K7's sweep and scale, and K18; per storage instance for K6 and K12;
+# per local size for K22's build and apply, with its divide apart; K17's
+# extract, invert and apply), bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
@@ -54,7 +55,10 @@ LAUNCHES = dict.fromkeys(
      "stress_strain_mr", "max_eig", "spectral_power", "banded_apply_hybrid",
      "banded_apply_bf16", "banded_apply_lowmem_bf16",
      "banded_apply_lowmem_f32", "ruiz_sweep_f64", "ruiz_sweep_36_f64",
-     "ras_apply", "ras_apply_f32"), 0)
+     "ras_apply", "ras_apply_f32", "schwarz_build", "schwarz_build_36",
+     "schwarz_apply", "schwarz_apply_36", "schwarz_divide",
+     "node_block_extract", "node_block_invert", "node_block_apply",
+     "ruiz_scale_f64", "ruiz_scale_36_f64"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -134,7 +138,7 @@ def _bind(lib):
         "vt_dg0_project_jacobian": [P] * 5 + [I, P, I, P],
         "vt_elem_matvec": [P, I, P, P, P, I, I, I, P],
         "vt_ruiz_sweep": [P] * 7 + [I, I, I, P],
-        "vt_ruiz_scale": [P] * 5 + [I, I, P],
+        "vt_ruiz_scale": [P] * 5 + [I, I, I, P],
         "vt_robin_residual": [P] * 5 + [I, P, I, I, D, D, P],
         "vt_robin_jacobian": [P] * 3 + [I, P, I, I, D, D, P],
         "vt_banded_segsum": [P, P, P, P, I, I, P, P],
@@ -149,6 +153,12 @@ def _bind(lib):
         "vt_spectral_power": [P, P, I, I, I, D, I, P],
         "vt_lift_correction": [P] * 6 + [D, D, P, P, I, I, I, L, P],
         "vt_ras_apply": [P] * 5 + [I, I, L, I, I, P],
+        "vt_schwarz_build": [P, P, P, D, P, P, I, I, P],
+        "vt_schwarz_apply": [P] * 4 + [I, I, P],
+        "vt_schwarz_divide": [P, P, L, P],
+        "vt_node_block_extract": [P, P, I, I, P, P],
+        "vt_node_block_invert": [P, P, L, P, P],
+        "vt_node_block_apply": [P, P, L, L, L, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

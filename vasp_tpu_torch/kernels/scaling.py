@@ -5,8 +5,8 @@ launches (csrc/ruiz.cu) and the dispatch fem/scaling.py calls: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises. The
 kernels take float32 element matrices, which the banded preconditioner
 equilibrates, of the cell blocks (64 local dofs) and the Robin facet
-blocks (36); the sweep also float64 ones, which the RAS preconditioner
-equilibrates (counted apart, suffixed _f64).
+blocks (36); both also float64 ones, which the RAS preconditioner
+equilibrates and make_step_fn scales (counted apart, suffixed _f64).
 
 Replaces the sweep body of vasp_tpu/fem/scaling.py ruiz_scales and
 scale_element_jacobians. Costs and design: see the head of csrc/ruiz.cu.
@@ -64,11 +64,14 @@ def ruiz_sweep_cuda(A, dofs, dr, dc, mask, rmax, cmax):
 
 
 def ruiz_scale_cuda(A, dofs, dr, dc):
-    lib, K, n, stream = _check(A, dofs, dr, dc)
+    lib, K, n, stream = _check(A, dofs, dr, dc,
+                               (torch.float32, torch.float64))
+    f64 = A.dtype == torch.float64
     out = torch.empty_like(A)
+    name = launch_name("ruiz_scale", n) + ("_f64" if f64 else "")
     build.check(lib.vt_ruiz_scale(*map(build.ptr, (A, dofs, dr, dc, out)), K,
-                                  n, stream), "ruiz_scale")
-    build.LAUNCHES[launch_name("ruiz_scale", n)] += 1
+                                  n, int(f64), stream), name)
+    build.LAUNCHES[name] += 1
     return out
 
 

@@ -5,7 +5,10 @@ first use, under a name that carries a hash of the source and flags. The
 flags are vasp_tpu/native/Makefile's without -march=native, so the built
 library runs on any x86-64 host that shares the checkout (the ordering
 does not depend on them). As in vasp_tpu/native, a host without g++ gets
-None back and the caller falls back to scipy's RCM.
+None back and the caller falls back to scipy's RCM; a build that was
+started and failed or timed out raises with the compiler's output, since
+a quiet fallback would give this process another ordering (and another
+band width) than every other.
 """
 import ctypes
 import functools
@@ -31,9 +34,18 @@ def _library():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         try:
             subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                           check=True, capture_output=True, timeout=120)
-        except (subprocess.SubprocessError, FileNotFoundError):
+                           check=True, capture_output=True, text=True,
+                           timeout=600)
+        except FileNotFoundError:
             return None
+        except subprocess.CalledProcessError as e:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed to build {_SRC.name} "
+                               f"(exit {e.returncode}):\n{e.stderr}") from e
+        except subprocess.TimeoutExpired as e:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ timed out after {e.timeout} s building "
+                               f"{_SRC.name}:\n{e.stderr or ''}") from e
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")

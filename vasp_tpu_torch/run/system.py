@@ -17,8 +17,10 @@ Blocks are built on the device named by the config key ``device``
 linear_solver "gmres", "iterative" and "ras" select the Newton-Krylov
 solver (fem/timestepper.py), configured from the same keys and defaults as
 vasp_tpu's make_solver, its preconditioner by the key "precond" ("banded",
-the default, or "ras", with "ras_overlap"); any other value ("mumps",
-"lu") the host-LU Newton solver (fem/solver.py).
+the default, or "ras", with "ras_overlap"); "mumps" and "lu" the host-LU
+Newton solver (fem/solver.py), and any other value (e.g. "krylov") that
+solver's Krylov branch (element-block additive Schwarz and GMRES), as in
+vasp_tpu.
 
 Not ported yet, and refused with the ROADMAP item that will port it:
 n_devices > 1 (queue 1, item 13); fem/timestepper.py refuses the
