@@ -79,9 +79,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    widened factors, the probe of the bf16 factors, and K7's float64
    sweep (exact; at 36 local dofs too).
 3. Path parity: the tiny cylinder of tests/conftest.py run on the CPU
-   (plain versions; every CPU side of this phase runs in a process of its
-   own, started after phase 1 at CPU_REFERENCE_THREADS torch threads, so
-   that it overlaps phase 2 and this phase's card runs) and on the card
+   (plain versions; the CPU sides of this phase run in
+   CPU_REFERENCE_PROCESSES processes of their own at CPU_REFERENCE_THREADS
+   torch threads each, started after phase 2, so that they overlap only
+   this phase's card runs and phase 2's times are taken on an idle host)
+   and on the card
    (kernels), on the LU path (U within
    1e-8 relative), on the Newton-Krylov path (linear_solver="gmres"; U
    within 3e-5 relative: one inexact Newton step per time step, its
@@ -279,11 +281,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      per node, against its largest entry), each timed beside its bound
      and plain version, with torch.linalg.inv of K22's modified blocks
      (the branch's inverse) and of K17's node blocks, cuSPARSE's SpMV of
-     the assembled Schwarz operator and torch.bmm as yardsticks; and
-     fem/preconditioner.py's build (K22 at eps 1e-8, float32 inverses)
-     equal to the same on the plain K22, its float32 inverses' distance
-     from the float64 ones printed beside the share of blocks float32
-     resolves.
+     the assembled Schwarz operator, torch.div (K22's divide, also timed
+     with the divide replayed from a CUDA graph) and torch.bmm as
+     yardsticks; and fem/preconditioner.py's build (K22 at eps 1e-8,
+     float32 inverses) equal to the same on the plain K22.
    Phase 3 also runs, on the CPU and on the card, the Krylov branch on a
    transient flow in a rigid pipe (tests/test_torch_schwarz.py's case
    and GMRES options: gmres_tol 1e-8, 10 restarts; U within 1e-10) and
@@ -479,9 +480,11 @@ NEWTON_KRYLOV = dict(linear_solver="krylov", max_it=2, raise_on_fail=False)
 # (tests/test_torch_schwarz.py), on which the branch converges, with that
 # test's GMRES options
 PIPE_SOLVE = dict(gmres_tol=1e-8, gmres_maxiter=10, max_it=8)
-# torch threads of the process that runs phase 3's CPU sides beside
-# phases 2 and 3 (the card's host keeps the other cores)
-CPU_REFERENCE_THREADS = 5
+# the processes that run phase 3's CPU sides beside its card runs, and
+# the torch threads of each (the card's host keeps the other cores); each
+# process takes the next unclaimed job of cpu_reference_jobs
+CPU_REFERENCE_PROCESSES = 3
+CPU_REFERENCE_THREADS = 2
 # phase 3's make_step_fn parity case: tests/test_sharded_step.py's step
 # options (at StepOptions' defaults the node-block GMRES reaches 1e-6 in
 # none of its 300 iterations on the small tube and Newton stalls at
@@ -772,6 +775,21 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_graph_ms(fn, reps):
+    """Mean milliseconds per call of `reps` calls captured in one CUDA
+    graph and replayed: the card's time for the work without the host's
+    cost of each launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
 
 
 def cuda_ms_once(fn):
@@ -1812,71 +1830,118 @@ def _parity_tag(problem, label):
     return f"{problem}_{label}".replace(" ", "_").replace("+", "_")
 
 
-def cpu_references(tmp):
-    """Phase 3's CPU sides, run in a process of their own beside phases 2
-    and 3 (start_cpu_references): per PARITY run (U, Newton iterations per
-    step, ladder tiers per step, cells, wall seconds), the forced ladder
-    runs, the IterativeStepper runs, the Krylov branch's pipe solve and
+def _parity_reference(tmp, problem, tiny, label, extra):
+    """One PARITY run on the CPU: (U, Newton iterations per step, ladder
+    tiers per step, cells, wall seconds)."""
+    run_problem = str(tmp / f"{NO_LIFT}.py") if problem == NO_LIFT \
+        else problem
+    tic = time.perf_counter()
+    ns, iters, _ = _run_quiet(dict(
+        tiny, device="cpu", **extra,
+        folder=str(tmp / f"tiny_cpu_{_parity_tag(problem, label)}")),
+        run_problem)
+    tiers = ([h["tiers"] for h in ns["solver"].stepper.history]
+             if "linear_solver" in extra else [])
+    return (ns["dvp_"]["n"], iters, tiers, ns["mesh"].num_cells,
+            time.perf_counter() - tic)
+
+
+def cpu_reference_jobs(tmp):
+    """Phase 3's CPU sides as (key, job), the longest first (the walls of
+    PR 11's runs): per PARITY run its _parity_reference, the forced ladder
+    runs, each IterativeStepper run, the Krylov branch's pipe solve and
     make_step_fn's small-tube step."""
-    (tmp / f"{NO_LIFT}.py").write_text(NO_LIFT_PROBLEM)
+    parity = {_parity_tag(problem, label): (
+        lambda p=problem, t=tiny, lb=label, e=extra:
+        _parity_reference(tmp, p, t, lb, e))
+        for problem, tiny, label, extra, _, _ in PARITY}
+    jobs = [(key, parity.pop(key)) for key in (
+        "cylinder_LU", "avf_LU", "predeform_LU", "cylinder_gmres",
+        "cylinder_f32f")]
+    jobs.append(("ladder", lambda: forced_ladder("cpu")))
+    jobs += list(parity.items())
+    jobs.append(("step_fn", lambda: step_fn_run("cpu", LADDER_MESH,
+                                                STEP_FN_OPTS)[:2]))
+    jobs += [(f"stepper_{i}", lambda spec=spec: stepper_runs(
+        "cpu", [spec])[0][:6]) for i, spec in enumerate(STEPPER_RUNS)]
+    jobs.append(("pipe", lambda: krylov_pipe_solve("cpu")))
+    return jobs
+
+
+def cpu_references(tmp):
+    """The jobs of cpu_reference_jobs that this process claims, in order:
+    a job is claimed by creating its claim file under `tmp`, which one
+    process only can do; {key: result}."""
+    import os
+
     ref = {}
-    for problem, tiny, label, extra, _, _ in PARITY:
-        tag = _parity_tag(problem, label)
-        run_problem = str(tmp / f"{NO_LIFT}.py") if problem == NO_LIFT \
-            else problem
-        tic = time.perf_counter()
-        ns, iters, _ = _run_quiet(dict(
-            tiny, device="cpu", **extra,
-            folder=str(tmp / f"tiny_cpu_{tag}")), run_problem)
-        tiers = ([h["tiers"] for h in ns["solver"].stepper.history]
-                 if "linear_solver" in extra else [])
-        ref[tag] = (ns["dvp_"]["n"], iters, tiers, ns["mesh"].num_cells,
-                    time.perf_counter() - tic)
-    ref["ladder"] = forced_ladder("cpu")
-    ref["stepper"] = [r[:6] for r in stepper_runs("cpu", STEPPER_RUNS)]
-    ref["pipe"] = krylov_pipe_solve("cpu")
-    U, stats, *_ = step_fn_run("cpu", LADDER_MESH, STEP_FN_OPTS)
-    ref["step_fn"] = (U, stats)
+    for key, job in cpu_reference_jobs(tmp):
+        try:
+            os.close(os.open(tmp / f"claim_{key}",
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        except FileExistsError:
+            continue
+        ref[key] = job()
     return ref
 
 
 def start_cpu_references(tmp):
-    """Start `python3 chip_smoke.py --cpu-reference <file>` (phase 3's CPU
-    sides, at CPU_REFERENCE_THREADS torch threads, so that the card's
-    host keeps cores) and return (process, result file, log file)."""
-    out, log = tmp / "cpu_reference.pt", tmp / "cpu_reference.log"
-    with open(log, "w") as fh:
-        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                 "--cpu-reference", str(out)],
-                                stdout=fh, stderr=subprocess.STDOUT)
-    return proc, out, log
+    """Start CPU_REFERENCE_PROCESSES processes of `python3 chip_smoke.py
+    --cpu-reference <dir> <result file>` (phase 3's CPU sides, which they
+    share out by claiming cpu_reference_jobs' jobs under <dir>); return
+    [(process, result file, log file)]."""
+    (tmp / f"{NO_LIFT}.py").write_text(NO_LIFT_PROBLEM)
+    started = []
+    for i in range(CPU_REFERENCE_PROCESSES):
+        out = tmp / f"cpu_reference_{i}.pt"
+        log = tmp / f"cpu_reference_{i}.log"
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--cpu-reference", str(tmp), str(out)],
+                stdout=fh, stderr=subprocess.STDOUT)
+        started.append((proc, out, log))
+    return started
+
+
+def stop_cpu_references(started):
+    """Kill the CPU reference processes that still run."""
+    for proc, _, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def wait_cpu_references(started):
-    """The CPU references, once their process has ended (it must end
-    with 0)."""
+    """The CPU references, once their processes have ended (each must end
+    with 0): {key: result}, the stepper runs as ref["stepper"]."""
     import torch
 
-    proc, out, log = started
     tic = time.perf_counter()
-    rc = proc.wait()
-    if rc != 0:
-        require(False, f"the CPU reference runs failed ({rc}):\n"
-                       f"{log.read_text()[-4000:]}")
+    ref = {}
+    for proc, out, log in started:
+        rc = proc.wait()
+        if rc != 0:
+            stop_cpu_references(started)
+            require(False, f"the CPU reference runs failed ({rc}):\n"
+                           f"{log.read_text()[-4000:]}")
+        ref.update(torch.load(out, weights_only=False))
     print(f"[3] waited {time.perf_counter() - tic:.1f} s for the CPU "
-          f"reference runs")
-    return torch.load(out, weights_only=False)
+          f"reference runs ({len(started)} processes)")
+    ref["stepper"] = [ref.pop(f"stepper_{i}")
+                      for i in range(len(STEPPER_RUNS))]
+    return ref
 
 
 def phase_parity(tmp, refs):
     """The path parity runs, the forced ladder runs, the IterativeStepper
     runs and the new paths' cases: every card run first, then each against
-    its CPU reference (cpu_references, whose process `refs` runs beside
+    its CPU reference (cpu_references, whose processes `refs` run beside
     them); returns the launches of the card runs that name a path
     (counters reset just before each)."""
     from vasp_tpu_torch.kernels import build
 
-    (tmp / f"{NO_LIFT}.py").write_text(NO_LIFT_PROBLEM)
+    # the no-lifting problem's file: start_cpu_references wrote it
     launches, cards = {}, {}
     for problem, tiny, label, extra, tol, path in PARITY:
         tag = _parity_tag(problem, label)
@@ -3299,12 +3364,12 @@ def phase_new_kernels(records, system, bc):
     bound and plain version, and its one-call yardstick where there is
     one: torch.linalg.inv of K22's modified blocks (its inverse) and of
     K17's node blocks, cuSPARSE's SpMV of the assembled Schwarz operator
-    for K22's apply, torch.bmm for K17's apply. Then the float32-inverse
-    build of fem/preconditioner.py: equal to the same build on the plain
-    K22 (the same modified blocks, the same float32 inverse), and its
-    float32 inverses against the float64 ones of the same blocks, printed
-    beside the share of blocks float32 resolves (not held: most blocks are
-    beyond float32)."""
+    for K22's apply, torch.div for K22's divide (whose launches are also
+    timed replayed from a CUDA graph, beside torch.div's, to part the
+    card's time from the host's launch cost), torch.bmm for K17's apply.
+    Then the float32-inverse build of fem/preconditioner.py: equal to the
+    same build on the plain K22 (the same modified blocks, the same
+    float32 inverse)."""
     import gc
 
     import numpy as np
@@ -3350,8 +3415,7 @@ def phase_new_kernels(records, system, bc):
     print(f"    torch.linalg.inv of the modified blocks (the branch's "
           f"inverse): {inv_ms:.4f} ms")
     # fem/preconditioner.py: its build (K22 at eps 1e-8, float32 inverses)
-    # equal to the same build on the plain K22, and the float32 inverses of
-    # the branch's blocks against their float64 ones
+    # equal to the same build on the plain K22
     from vasp_tpu_torch.fem import preconditioner as tpre
 
     Pk32, mk32 = tpre.build_schwarz(blocks, jacs, mask, ndof)
@@ -3362,26 +3426,8 @@ def phase_new_kernels(records, system, bc):
         torch.equal(a, b) for a, b in zip(Pk32, Pp32)),
         "fem/preconditioner.py's build on K22 differs from the plain one")
     del Pk32, Pp32
-    tic = time.perf_counter()
-    P32 = [torch.linalg.inv(A.float()) for A in Ap]
-    torch.cuda.synchronize()
-    inv32_ms = (time.perf_counter() - tic) * 1e3
     pinv = [torch.linalg.inv(A).contiguous() for A in Ap]
-    # the condition numbers of 1,024 seeded blocks of each cell block
-    cond = torch.cat([torch.linalg.cond(A[torch.as_tensor(
-        rng.choice(A.shape[0], 1024, replace=False), device="cuda")])
-        for A in Ap]).cpu().numpy()
-    ok = cond * np.finfo(np.float32).eps <= 1e-2
-    errs = [float(((a.double() - b).abs().amax(dim=(1, 2))
-                   / b.abs().amax(dim=(1, 2))).max())
-            for a, b in zip(P32, pinv)]
-    print(f"    fem/preconditioner.py's float32 inverses: {inv32_ms:.1f} ms "
-          f"once; blocks resolved in float32 (cond eps32 <= 1e-2) "
-          f"{ok.mean():.3f} (of 2,048 sampled); float32 against float64 "
-          f"inverses, largest "
-          f"per-block difference over the largest entry {max(errs):.3e}; "
-          f"cond median {np.median(cond):.3g}, max {cond.max():.3g}")
-    del P32, Ap
+    del Ap
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3409,12 +3455,19 @@ def phase_new_kernels(records, system, bc):
                  "f64"), TOL_F64, shape, library_ms=lib_ms)
     # the timed divides run in place on a copy (mult >= 1: it shrinks)
     ytmp = yk.clone()
+    graph_ms = cuda_graph_ms(lambda: kz.divide_cuda(ytmp, mult), 50)
+    graph_library_ms = cuda_graph_ms(lambda: torch.div(yp, mult), 50)
     records.add("schwarz_divide",
                 rel_err(kz.divide_cuda(yk.clone(), mult),
                         kz.divide_plain(yp, mult)),
                 cuda_ms(lambda: kz.divide_cuda(ytmp, mult), 50),
                 cuda_ms(lambda: kz.divide_plain(yp, mult), 50),
-                (3 * 8 * ndof, ndof, "f64"), TOL_F64, f"ndof={ndof}")
+                (3 * 8 * ndof, ndof, "f64"), TOL_F64, f"ndof={ndof}",
+                library_ms=cuda_ms(lambda: torch.div(yp, mult), 50),
+                graph_ms=graph_ms, graph_library_ms=graph_library_ms)
+    print(f"    schwarz_divide and torch.div replayed from a CUDA graph "
+          f"(no host launch cost): {graph_ms:.4f} ms, "
+          f"{graph_library_ms:.4f} ms")
     del pinv, yk, yp, ytmp
     gc.collect()
     torch.cuda.empty_cache()
@@ -3489,15 +3542,13 @@ def main():
     elapsed("phase 1")
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
+        records, extra = phase_kernels()
+        elapsed("phase 2")
         refs = start_cpu_references(tmp)
         try:
-            records, extra = phase_kernels()
-            elapsed("phase 2")
             launches = phase_parity(tmp, refs)
         finally:
-            if refs[0].poll() is None:
-                refs[0].kill()
-                refs[0].wait()
+            stop_cpu_references(refs)
         elapsed("phase 3")
         launches["lu"], lu_splu_s = phase_lu(tmp)
         elapsed("phase 4")
@@ -3582,7 +3633,8 @@ def main():
             **{k: r[k] for k in ("variants", "rfft_ms", "host_copy_ms",
                                  "host_splu_ms", "chunk_steps",
                                  "one_launch_ms", "library_calls",
-                                 "bound_ms_sinv_read_twice", "inverse_ms")
+                                 "bound_ms_sinv_read_twice", "inverse_ms",
+                                 "graph_ms", "graph_library_ms")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))
@@ -3591,17 +3643,17 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def cpu_reference_main(out):
-    """The --cpu-reference entry: phase 3's CPU sides into `out`."""
+def cpu_reference_main(tmp, out):
+    """The --cpu-reference entry: the phase-3 CPU sides that this process
+    claims under `tmp`, into `out`."""
     import torch
 
     torch.set_num_threads(CPU_REFERENCE_THREADS)
-    with tempfile.TemporaryDirectory(prefix="vasp_smoke_cpu_") as tmp:
-        torch.save(cpu_references(Path(tmp)), out)
+    torch.save(cpu_references(Path(tmp)), out)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-reference"]:
-        cpu_reference_main(sys.argv[2])
+        cpu_reference_main(sys.argv[2], sys.argv[3])
     else:
         main()

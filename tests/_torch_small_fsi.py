@@ -15,7 +15,10 @@ import fcntl
 import io
 import os
 import subprocess
+import sys
+import tempfile
 from contextlib import redirect_stdout
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -56,9 +59,12 @@ def same_rcm():
     pytest-xdist one worker can see another's half-written library; the
     two orderings give banded patterns of different widths on the same
     tube (c = 1,656 natively, 1,712 by scipy's RCM on MESH). So, once per
-    process and under a file lock, the library is built into a temporary
-    name and renamed into place, and vasp_tpu's cached failure, if any, is
-    reset. Nothing of vasp_tpu is edited."""
+    process and under a file lock, the library in place is kept where it
+    loads (tried in a child process: mapping a library that another
+    process is still writing can kill the process that maps it); else it
+    is built by its Makefile into a temporary directory and renamed into
+    place. Then vasp_tpu's cached failure, if any, is reset and the
+    library loaded. Nothing of vasp_tpu is edited."""
     if _SAME_RCM:
         return
     from vasp_tpu import native as jnative
@@ -70,16 +76,22 @@ def same_rcm():
         tnative.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with open(tnative.BUILD_DIR / "libmeshcore.lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            tmp = so.with_name(f"libmeshcore.{os.getpid()}.tmp")
-            build = subprocess.run(
-                ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17",
-                 "-shared", "-o", str(tmp),
-                 str(jnative._DIR / "meshcore.cpp")],
-                capture_output=True, text=True, timeout=600)
-            assert build.returncode == 0, (
-                f"g++ could not build vasp_tpu's libmeshcore.so: "
-                f"{build.stderr}")
-            os.replace(tmp, so)
+            loads = so.exists() and subprocess.run(
+                [sys.executable, "-c",
+                 "import ctypes, sys; ctypes.CDLL(sys.argv[1])", str(so)],
+                capture_output=True, timeout=60).returncode == 0
+            if not loads:
+                with tempfile.TemporaryDirectory(
+                        dir=tnative.BUILD_DIR) as tmp:
+                    build = subprocess.run(
+                        ["make", "-s", "-B", "-C", tmp, "-f",
+                         str(jnative._DIR / "Makefile"),
+                         f"VPATH={jnative._DIR}", so.name],
+                        capture_output=True, text=True, timeout=600)
+                    assert build.returncode == 0, (
+                        f"make could not build vasp_tpu's {so.name}: "
+                        f"{build.stderr}")
+                    os.replace(Path(tmp) / so.name, so)
             jnative._TRIED, jnative._LIB = False, None
             jnative._load()
     assert jnative.available() == port_native, (

@@ -4,7 +4,9 @@ CPU, in either package; and its Schwarz blocks' conditioning.
     JAX_PLATFORMS=cpu python tests/diag_newton_krylov.py vasp_tpu tube 3 400
     python tests/diag_newton_krylov.py vasp_tpu_torch tube 3 400
     python tests/diag_newton_krylov.py vasp_tpu_torch pipe 8 10 1e-4
+    python tests/diag_newton_krylov.py vasp_tpu_torch tube 3 20 1e-4 identity
     JAX_PLATFORMS=cpu python tests/diag_newton_krylov.py blocks
+    JAX_PLATFORMS=cpu python tests/diag_newton_krylov.py parity [shared]
 
 (from the root of a checkout; a script beside the tests that pytest does
 not collect)
@@ -13,7 +15,8 @@ Solve mode, arguments: the package; the case ("tube": the pressure-loaded
 small FSI tube of tests/_torch_small_fsi.py on its first layer, 1,652 dofs,
 linear_solver="krylov" at t = 1e-3 from rest; "pipe": the rigid pipe of
 tests/test_torch_schwarz.py, a transient flow, every d dof held); max_it;
-gmres_maxiter (restarts); optionally gmres_tol (default vasp_tpu's 1e-4).
+gmres_maxiter (restarts); optionally gmres_tol (default vasp_tpu's 1e-4)
+and, on the port, "identity": GMRES without the Schwarz preconditioner.
 Prints the dofs, |M R| / |R| at the start state (M the Schwarz apply,
 on a solver of its own), the printed Newton residuals, the solve's result
 and, on the port, the GMRES restarts and Arnoldi iterations.
@@ -24,6 +27,12 @@ tests/test_torch_schwarz.py builds them): per block the condition
 numbers' spread, and torch.linalg.inv against jnp.linalg.inv on the same
 blocks, relative to the largest entry, and that difference over
 cond x eps where float64 resolves the block.
+
+"parity": tests/test_torch_schwarz.py's tube case
+(_tube_newton: max_it=3, 20 restarts) in both packages, optionally with
+the port's torch.linalg.inv replaced by jnp.linalg.inv ("shared": both
+take the same inverses of their bitwise-equal blocks): each package's
+Newton residuals and GMRES counts, and U's difference over its norm.
 
 The questions it answers: does the Krylov branch converge on an FSI tube
 (in neither package), why (singular element blocks), and on what does it
@@ -60,7 +69,7 @@ def tube(pkg):
     return system, bc, 150.0 * system.interface_pressure_load(), 1e-3
 
 
-def solve(pkg, case, max_it, gmres_maxiter, gmres_tol):
+def solve(pkg, case, max_it, gmres_maxiter, gmres_tol, identity=False):
     if case == "tube":
         system, bc, load, t = tube(pkg)
         kw = dict(linear_solver="krylov", atol=1e-8, rtol=1e-8)
@@ -80,6 +89,8 @@ def solve(pkg, case, max_it, gmres_maxiter, gmres_tol):
                   / np.linalg.norm(np.asarray(R)))
     del probe
     solver = system.make_solver(bc, **opts)
+    if identity:
+        solver._precond = lambda r: r
     buf = io.StringIO()
     with redirect_stdout(buf):
         U, info = solver.solve(bc.apply(U0, t), U0, t, 1, load=load)
@@ -114,9 +125,31 @@ def blocks():
                  if ok.any() else ""))
 
 
+def parity(shared):
+    import jax.numpy as jnp
+    import torch
+    from test_torch_schwarz import _tube_newton
+
+    out = [_tube_newton("vasp_tpu")]
+    if shared:
+        torch.linalg.inv = lambda A: torch.as_tensor(
+            np.asarray(jnp.linalg.inv(jnp.asarray(A.numpy()))))
+    out.append(_tube_newton("vasp_tpu_torch"))
+    for pkg, (res, info, U, counts) in zip(("vasp_tpu", "vasp_tpu_torch"),
+                                           out):
+        print(f"{pkg}: Newton residuals {res}, {info}, GMRES {counts}")
+    Uj, Ut = out[0][2], out[1][2]
+    print(f"U difference over its norm "
+          f"{np.linalg.norm(Ut - Uj) / np.linalg.norm(Uj):.3g}"
+          f"{' (the same inverses)' if shared else ''}")
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "blocks":
         blocks()
+    elif sys.argv[1] == "parity":
+        parity(sys.argv[2:3] == ["shared"])
     else:
         solve(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
-              float(sys.argv[5]) if len(sys.argv) > 5 else 1e-4)
+              float(sys.argv[5]) if len(sys.argv) > 5 else 1e-4,
+              sys.argv[6:7] == ["identity"])
