@@ -1847,10 +1847,10 @@ def _parity_reference(tmp, problem, tiny, label, extra):
 
 
 def cpu_reference_jobs(tmp):
-    """Phase 3's CPU sides as (key, job), the longest first (the walls of
-    PR 11's runs): per PARITY run its _parity_reference, the forced ladder
-    runs, each IterativeStepper run, the Krylov branch's pipe solve and
-    make_step_fn's small-tube step."""
+    """Phase 3's CPU sides as (key, job), the longest first (by the CPU
+    walls that phase 3 prints): per PARITY run its _parity_reference, the
+    forced ladder runs, each IterativeStepper run, the Krylov branch's
+    pipe solve and make_step_fn's small-tube step."""
     parity = {_parity_tag(problem, label): (
         lambda p=problem, t=tiny, lb=label, e=extra:
         _parity_reference(tmp, p, t, lb, e))
