@@ -326,8 +326,8 @@ def test_krylov_newton_on_tube_matches_vasp_tpu():
     later one within 10% of vasp_tpu's (measured 1.6% and 6.2%: 2.782e-4
     against 2.827e-4, 2.778e-4 against 2.615e-4; unchanged at 1, 2 and 4
     threads; a copy of the port without the multiplicity division, or
-    without the bc mask in the matvec, takes 80 restarts and parts by 16%
-    and 22% at the last residual). U is not held: the directions are decided by rounding in the blocks'
+    without the bc mask in the matvec, fails the count check). U is not
+    held: the directions are decided by rounding in the blocks'
     1e16-1e27 inverse entries, and U parts by 1.87 of its norm (2.0 with
     vasp_tpu's own inverses handed to the port; tests/diag_newton_krylov.py
     parity [shared]), so that no bound on U would hold more than its
