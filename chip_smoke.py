@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    float32 residual instances (the fluid with Laplace, elastic and no mesh
    lifting, the solid in St.Venant-Kirchhoff and in Mooney-Rivlin, and
    the Robin facet term) and of the float32 biharmonic lifting correction
-   (K16) must hold no float64 arithmetic.
+   (K16) must hold no float64 arithmetic, and K13's Jet3 instances none
+   but the du (and du0) differences taken before their rounding.
 2. Kernel vs plain on the card at the 20,832-cell tube (184,845 dofs):
    every kernel against its plain torch version on the same inputs, each
    timed with CUDA events beside its plain version, its bound (bytes over
@@ -289,9 +290,45 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    transient flow in a rigid pipe (tests/test_torch_schwarz.py's case
    and GMRES options: gmres_tol 1e-8, 10 restarts; U within 1e-10) and
    make_step_fn on its small tube at tests/test_sharded_step.py's step
-   options (U within 1e-8): the same Newton counts, each converged.
+   options with atol and rtol 2e-11 (STEP_FN_OPTS; U within 1e-8): the
+   same Newton counts, each converged.
 
-Phases 3-13 run with HDF5 output off (save_step=0, checkpoint_step=0),
+14. The Taylor-delta endgame (K13) and the cross-step anchor chain,
+   counters reset just before each run and read just after, each step's
+   raw float64 residual norm at its exit state printed beside the
+   reported one (jet's derivative convention: the delta's second- and
+   third-order terms count 2x and 6x, so a fine residual built on it is
+   not R64 at its state; ROADMAP.md queue 3):
+   - 14a: -p cylinder at the 20,832-cell tube with bench.py's options and
+     residual_dtype="f32" (delta_endgame at its default), 5 steps: Newton
+     and GMRES counts, fine flags, tiers and K13's launches per step;
+     every step converged, and every Taylor-delta residual a step took
+     launched K13 on both cell blocks (so K13 ran on every step that went
+     on past its raw anchor, and on no other);
+   - 14b: the same with chain_anchor=True, 4 steps: K13's delta2 launched
+     once a cell block at each chained anchor and never at a raw one, at
+     least one chained step;
+   - 14c: K13 against its plain version (three nested torch.func.jvp) at
+     the 20,832-cell tube's fluid (Laplace) and SVK blocks, the predeform
+     tube's Mooney-Rivlin wall (strains ~1e-2) and the aneurysm tube's
+     Robin facets (K14's float32 residual of du), each as delta and
+     delta2, at seeded states with du and du0 at 1e-3 of their scales:
+     the float32 rule in the max norm, max|D_kernel - D_plain| <= 2
+     max|D_plain - D_f64| + 1e-12 max|D_f64| (D_f64 the same series in
+     float64). Each timed beside its plain version, the raw float64
+     residual of the same block at the same state (the work K13 stands in
+     for) and its bound: the bytes of the entries it touches, and the
+     operations of the kernel's own Taylor arithmetic, counted by
+     dispatching the float32 cell once and weighting each op by what
+     Jet3 does for it where a series flows through (count_ops; the
+     nested-jvp plain version does several times that work);
+   - 14d: the tiny aneurysm and tiny predeform of phase 3 on the anchor
+     chain, 3 steps each (the facet route's and the Mooney-Rivlin
+     instances' path; the predeform may stall, as on the bench options in
+     phase 9, and then fails only on non-finite values or a missing
+     launch).
+
+Phases 3-14 run with HDF5 output off (save_step=0, checkpoint_step=0),
 so the smoke needs no h5py on the GPU host; the CPU tests hold the output
 files.
 
@@ -488,8 +525,13 @@ CPU_REFERENCE_THREADS = 2
 # phase 3's make_step_fn parity case: tests/test_sharded_step.py's step
 # options (at StepOptions' defaults the node-block GMRES reaches 1e-6 in
 # none of its 300 iterations on the small tube and Newton stalls at
-# 0.73 r0 after 10 iterations; with these it converges in 4)
-STEP_FN_OPTS = dict(atol=1e-10, rtol=1e-10, max_it=6, gmres_tol=1e-9,
+# 0.73 r0 after 10 iterations; with these it converges in 4) with atol and
+# rtol at 2e-11, not 1e-10: the third Newton residual, which GMRES's
+# rounding (the atomics' order on the card) moves between 6.5e-11 and
+# 5.0e-10 from run to run, straddled 1e-10 and decided the count (the
+# CPU took 4, the card 3 in one run). The fourth lands on the float64
+# residual's floor, 1.2e-12 to 6.2e-12; 2e-11 sits 3x from both ranges
+STEP_FN_OPTS = dict(atol=2e-11, rtol=2e-11, max_it=6, gmres_tol=1e-9,
                     gmres_restart=120, gmres_maxiter=1200)
 # a small tube (bench.py's physics) for the forced ladder runs
 LADDER_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.008, n_theta=8,
@@ -656,6 +698,30 @@ REPLACES = {
     "node_block_apply": (CSRC + "nodeblock.cu",
                          "vasp_tpu/fem/scaling.py:121 (apply_node_block)",
                          "step_fn"),
+    "fluid_delta": (CSRC + "delta_kernels.cu",
+                    "vasp_tpu/fem/assembly.py:256 (residual_delta)",
+                    "chain_anchor"),
+    "solid_delta": (CSRC + "delta_kernels.cu",
+                    "vasp_tpu/fem/assembly.py:256 (residual_delta)",
+                    "chain_anchor"),
+    "fluid_delta2": (CSRC + "delta_kernels.cu",
+                     "vasp_tpu/fem/assembly.py:301 (residual_delta2)",
+                     "chain_anchor"),
+    "solid_delta2": (CSRC + "delta_kernels.cu",
+                     "vasp_tpu/fem/assembly.py:301 (residual_delta2)",
+                     "chain_anchor"),
+    "solid_delta_mr": (CSRC + "delta_kernels.cu",
+                       "vasp_tpu/fem/assembly.py:256 (residual_delta, "
+                       "MooneyRivlin)", "predeform_chain"),
+    "solid_delta2_mr": (CSRC + "delta_kernels.cu",
+                        "vasp_tpu/fem/assembly.py:301 (residual_delta2, "
+                        "MooneyRivlin)", "predeform_chain"),
+    "robin_delta": (CSRC + "facet_kernels.cu",
+                    "vasp_tpu/fem/assembly.py:256 (residual_delta, facet "
+                    "blocks)", "aneurysm_chain"),
+    "robin_delta2": (CSRC + "facet_kernels.cu",
+                     "vasp_tpu/fem/assembly.py:301 (residual_delta2, facet "
+                     "blocks)", "aneurysm_chain"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
@@ -683,6 +749,8 @@ _MR_LU = {"fluid_residual", "solid_residual_mr", "fluid_jacobian",
           "solid_jacobian_mr", "robin_residual", "robin_jacobian"} | _MEASURES
 _MR_F32F = {"fluid_residual_f32", "solid_residual_mr_f32",
             "solid_jacobian_mr_f32"} | _KRYLOV_FLUID | _ROBIN_F32 | _MEASURES
+_DELTA = {"fluid_residual_f32", "solid_residual_f32", "fluid_residual",
+          "solid_residual", "fluid_delta", "solid_delta"} | _KRYLOV | _MEASURES
 PATHS = {
     "lu": {"fluid_residual", "solid_residual", "fluid_jacobian",
            "solid_jacobian"} | _MEASURES,
@@ -747,6 +815,17 @@ PATHS = {
                 "solid_jacobian", "elem_matvec", "ruiz_sweep_f64",
                 "ruiz_scale_f64", "node_block_extract", "node_block_invert",
                 "node_block_apply"},
+    # the Taylor-delta endgame (K13) and the anchor chain (K13's delta2):
+    # float32 coarse residuals, raw float64 anchors, the deltas
+    "delta_endgame": _DELTA,
+    "chain_anchor": _DELTA | {"fluid_delta2", "solid_delta2"},
+    "aneurysm_chain": _DELTA | _ROBIN_F32 | {"fluid_delta2", "solid_delta2",
+                                             "robin_delta", "robin_delta2",
+                                             "dg0_project_jacobian"},
+    "predeform_chain": {"fluid_residual_f32", "solid_residual_mr_f32",
+                        "solid_jacobian_mr_f32", "fluid_delta",
+                        "fluid_delta2", "solid_delta_mr", "solid_delta2_mr"}
+    | _KRYLOV_FLUID | _ROBIN_F32 | _MEASURES,
 }
 
 
@@ -818,11 +897,22 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def count_ops(fn):
+def count_ops(fn, jets=()):
     """Arithmetic operations of one call of a plain torch function, counted
     by dispatching it: a matmul counts 2 m n k, a reduction the elements
     it reads, any other arithmetic op the elements it writes; views,
-    copies, gathers and fills count nothing."""
+    copies, gathers and fills count nothing.
+
+    jets: the tensors that carry an order-3 Taylor series, as K13's Jet3
+    does (every tensor computed from them carries one too); an op with a
+    series operand counts what Jet3 does for it: a sum or difference 4
+    times with two series operands and once with one (only the value
+    moves), a negation 4, a product 4 with one series operand and 16 with
+    two (the Cauchy product's 10 multiplies and 6 adds), a quotient 4 by a
+    plain divisor and 16 by a series (the recurrence's 4 divides, 6
+    multiplies and 6 subtractions), log1p 12, a matmul 4 with one series
+    operand and 10 with two (a jet multiply-add is 8 or 20 operations
+    where a float's is 2), a reduction or any other op 4."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
     import torch
@@ -841,25 +931,48 @@ def count_ops(fn):
     matmul = {"mm", "bmm", "addmm", "matmul", "baddbmm", "mv", "dot"}
     reduce = {"sum", "amax", "amin", "mean", "linalg_vector_norm", "norm",
               "prod", "max", "min"}
+    sums = {"add", "sub", "rsub", "add_", "sub_"}
+    quots = {"div", "div_", "reciprocal"}
+
+    def jet_weight(name, js):
+        k = sum(js)
+        if k == 0:
+            return 1
+        if name in sums:
+            return 4 if k == 2 else 1
+        if name in ("mul", "mul_"):
+            return 16 if k == 2 else 4
+        if name in quots:
+            return 16 if len(js) > 1 and js[1] else 4
+        if name == "log1p":
+            return 12
+        if name in matmul:
+            return 10 if k == 2 else 4
+        return 4
 
     class Ops(TorchDispatchMode):
         n = 0
+        series = {id(t): t for t in jets}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__
-            if name not in free:
-                ins = [a for a in tree_flatten((args, kwargs))[0]
-                       if isinstance(a, torch.Tensor)]
-                outs = [a for a in tree_flatten(out)[0]
-                        if isinstance(a, torch.Tensor)]
-                if name in matmul:
-                    self.n += 2 * max(o.numel() for o in outs) * \
-                        ins[0].shape[-1]
-                elif name in reduce:
-                    self.n += max(i.numel() for i in ins)
-                else:
-                    self.n += max([o.numel() for o in outs] + [0])
+            ins = [a for a in tree_flatten((args, kwargs))[0]
+                   if isinstance(a, torch.Tensor)]
+            outs = [a for a in tree_flatten(out)[0]
+                    if isinstance(a, torch.Tensor)]
+            js = [id(a) in self.series for a in ins]
+            if any(js):
+                self.series.update((id(o), o) for o in outs)
+            if name in free:
+                return out
+            if name in matmul:
+                base = 2 * max(o.numel() for o in outs) * ins[0].shape[-1]
+            elif name in reduce:
+                base = max(i.numel() for i in ins)
+            else:
+                base = max([o.numel() for o in outs] + [0])
+            self.n += jet_weight(name, js) * base
             return out
 
     with Ops() as ops:
@@ -904,23 +1017,39 @@ def check_f32_residual_sass(build):
     arithmetic (a stray double literal, parameter or math call would
     promote their math): count the f64 arithmetic instructions in their
     SASS. Only the input roundings (F2F) and the float64 scatter
-    (RED.ADD.F64) may touch f64."""
+    (RED.ADD.F64) may touch f64. The same for K13's ten instances (the
+    three fluid liftings and two solid materials, each as delta and
+    delta2), whose only float64 arithmetic may be the differences du = U -
+    A (and du0 = U0new - U0) taken before their rounding, as vasp_tpu takes
+    them: at most 64 (128 for delta2) DADD and no other."""
     import re
 
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     so = next(build.BUILD_DIR.glob("libvasp_tpu_torch_*.so"))
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    funcs = [f for f in sass.split("Function : ")[1:]
-             if re.search(r"(residual|lift_\w+)_kernelIf",
-                          f.split("\n", 1)[0])]
+    heads = [(f.split("\n", 1)[0], f) for f in sass.split("Function : ")[1:]]
+    funcs = [f for h, f in heads
+             if re.search(r"(residual|lift_\w+)_kernelIf", h)]
     require(len(funcs) == 9, f"found {len(funcs)} float32 residual and "
                              f"lifting instances in the SASS, expected 9")
+    f64_ops = r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b"
     for f in funcs:
-        n = len(re.findall(r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b", f))
+        n = len(re.findall(f64_ops, f))
         print(f"    SASS of {f.split(chr(10), 1)[0].strip()[:90]}: {n} "
               f"float64 arithmetic instructions")
         require(n == 0, "the float32 residual does float64 arithmetic")
+    deltas = [(re.search(r"delta_kernelI.*?Lb([01])E", h), f)
+              for h, f in heads if "delta_kernelI" in h]
+    require(len(deltas) == 10 and all(m for m, _ in deltas),
+            f"found {len(deltas)} K13 instances in the SASS, expected 10")
+    for m, f in deltas:
+        n = len(re.findall(f64_ops, f))
+        n_add = len(re.findall(r"\bDADD\b", f))
+        print(f"    SASS of {f.split(chr(10), 1)[0].strip()[:90]}: {n} "
+              f"float64 arithmetic instructions, {n_add} of them DADD")
+        require(n == n_add <= 64 * (1 + int(m.group(1))),
+                "K13 does float64 arithmetic beyond its du differences")
 
 
 def model_system(problem, mesh_params, device, **extra):
@@ -3527,6 +3656,310 @@ def phase_new_kernels(records, system, bc):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 14 --
+# the delta endgame's configuration: bench.py's options with its
+# residual_dtype="f32" (BENCH_RESID=f32), delta_endgame at its default;
+# with the anchor chain (BENCH_CHAIN=1)
+DELTA_CFG = dict(BENCH_CFG, residual_dtype="f32")
+CHAIN_CFG = dict(DELTA_CFG, chain_anchor=True)
+# K13's launch counters: the cell blocks' per form, lifting and material,
+# the facet route's per form
+K13_COUNTERS = ("fluid_delta", "fluid_delta2", "fluid_delta_elastic",
+                "fluid_delta2_elastic", "fluid_delta_nolift",
+                "fluid_delta2_nolift", "solid_delta", "solid_delta2",
+                "solid_delta_mr", "solid_delta2_mr", "robin_delta",
+                "robin_delta2")
+# a problem file: -p <model> with each step's raw float64 residual norm
+# at its exit state and the launch counters after it kept (phase 14)
+DELTA_PROBLEM = '''"""-p {model}, each step's raw exit residual and launches kept (chip_smoke.py phase 14)."""
+import torch
+
+from vasp_tpu_torch.fem.biharmonic import correction_apply
+from vasp_tpu_torch.kernels import build
+from vasp_tpu_torch.models.{model} import *  # noqa: F401,F403
+from vasp_tpu_torch.models.{model} import post_solve as _post_solve
+
+
+def post_solve(dvp_, system, bc_set, **namespace):
+    """The model's post_solve, then the raw float64 residual norm of the
+    step's exit state (the residual R64(U) + load + lift(U) of the step
+    from dvp_["n-1"], masked) and a copy of the launch counters."""
+    _post_solve(dvp_=dvp_, system=system, bc_set=bc_set, **namespace)
+    U, U0 = dvp_["n"], dvp_["n-1"]
+    R = system.assembler.residual(U, U0)
+    if namespace.get("load_fn") is not None:
+        R = R + namespace["load_fn"](namespace["t"])
+    if system.lift is not None:
+        R = R + correction_apply(system.lift, U)
+    R = torch.where(bc_set.mask_on(U.device), 0.0, R)
+    kept = namespace.get("delta_steps", []) + [
+        (float(torch.linalg.norm(R)), dict(build.LAUNCHES))]
+    return {{"delta_steps": kept}}
+'''
+
+
+def delta_run(tmp, label, model, mesh_params, steps, floor=None, dt=1e-3,
+              **cfg):
+    """driver.main on -p `model` through DELTA_PROBLEM for `steps` steps of
+    `dt` (run_main_path's checks); prints per step the Newton
+    iterations, GMRES inner iterations, the fine flag, the ladder tiers,
+    the anchor, the Taylor-delta residuals and K13's launches, and the
+    raw float64 residual norm at the exit state beside the reported one.
+    Returns (ns, launches, per-step records)."""
+    path = tmp / f"{label}_problem.py"
+    path.write_text(DELTA_PROBLEM.format(model=model))
+    ns, launches = run_main_path(tmp, label, mesh_params, problem=str(path),
+                                 T=steps * dt, dt=dt, floor=floor, **cfg)
+    st = ns["solver"].stepper
+    kept = ns["delta_steps"]
+    metrics = [json.loads(line) for line in
+               (Path(ns["folder"]) / "metrics.jsonl").read_text()
+               .splitlines()]
+    require(len(kept) == len(st.history) == steps,
+            f"{label}: {len(kept)} kept steps, {len(st.history)} history "
+            f"records, {steps} steps")
+    prev = dict.fromkeys(K13_COUNTERS, 0)
+    out = []
+    for (raw, snap), h, m in zip(kept, st.history, metrics):
+        k13 = {k: snap[k] - prev[k] for k in K13_COUNTERS
+               if snap[k] != prev[k]}
+        prev = {k: snap[k] for k in K13_COUNTERS}
+        out.append(dict(h, raw=raw, reported=m["residual"], k13=k13))
+        print(f"    step {h['tstep']}: Newton {h['iterations']}, GMRES "
+              f"{h['gmres_inner']} in {h['gmres_cycles']} cycles, fine "
+              f"{h['fine']}, tiers {h['tiers']}, anchor {h['anchor']}, "
+              f"Taylor-delta residuals {h['deltas']}, K13 launches {k13}; "
+              f"reported residual {m['residual']:.3e}, raw float64 "
+              f"residual at the exit state {raw:.3e}")
+    t = st.timings
+    print(f"    time in K13's deltas {t['delta']:.3f} s, in the other "
+          f"residuals {t['residual']:.3f} s (summed over the run)")
+    return ns, launches, out
+
+
+def check_delta_steps(label, steps, n_cells):
+    """Every Taylor-delta residual of a step launched K13's delta on each
+    of the run's n_cells cell blocks: a step that went on past its
+    anchor launched it, and no other did."""
+    for s in steps:
+        n = sum(v for k, v in s["k13"].items()
+                if k.startswith(("fluid_delta", "solid_delta"))
+                and "delta2" not in k)
+        require(n == n_cells * s["deltas"],
+                f"{label}: step {s['tstep']} launched K13 {n} times for "
+                f"{s['deltas']} Taylor-delta residuals on {n_cells} cell "
+                f"blocks")
+
+
+def phase_delta_endgame(tmp):
+    """Phase 14a: -p cylinder at the 20,832-cell tube, bench.py's options
+    with residual_dtype="f32" (DELTA_CFG), 5 steps."""
+    print("[14a] cylinder, the Taylor-delta endgame (bench configuration "
+          "with residual_dtype=f32, delta_endgame at its default), 5 "
+          "steps:")
+    _, launches, steps = delta_run(tmp, "delta_endgame", "cylinder",
+                                   FULL_MESH, 5, **DELTA_CFG)
+    check_delta_steps("delta_endgame", steps, 2)
+    return launches
+
+
+def phase_chain_anchor(tmp):
+    """Phase 14b: the same with chain_anchor=True (CHAIN_CFG), 4 steps:
+    K13's delta2 launched once on each cell block at every chained anchor
+    and never at a raw one, and at least one chained anchor."""
+    print("[14b] cylinder, the cross-step anchor chain (CHAIN_CFG: "
+          "chain_anchor=True, chain_reanchor=1), 4 steps:")
+    _, launches, steps = delta_run(tmp, "chain_anchor", "cylinder",
+                                   FULL_MESH, 4, **CHAIN_CFG)
+    check_delta_steps("chain_anchor", steps, 2)
+    for s in steps:
+        n2 = s["k13"].get("fluid_delta2", 0) + s["k13"].get("solid_delta2", 0)
+        require(n2 == (2 if s["anchor"] == "chained" else 0),
+                f"chain_anchor: step {s['tstep']}'s {s['anchor']} anchor "
+                f"launched K13's delta2 {n2} times")
+    require(any(s["anchor"] == "chained" for s in steps),
+            "chain_anchor: no step chained its anchor")
+    return launches
+
+
+def phase_delta_models(tmp):
+    """Phase 14d: the tiny aneurysm (Robin facets: K13's facet route) and
+    the tiny predeform (the Mooney-Rivlin wall) of phase 3 on CHAIN_CFG,
+    3 steps each, counters reset just before each run and read just
+    after. The predeform's theta=1 inflation stalls on the bench options
+    in both packages (phase 9), so it runs with raise_on_fail=False and
+    fails only on non-finite values or a missing launch."""
+    out = {}
+    runs = (("aneurysm_chain", "aneurysm", TINY_ANEURYSM, {}),
+            ("predeform_chain", "predeform", TINY_PREDEFORM,
+             dict(atol=TINY_PREDEFORM["atol"], rtol=TINY_PREDEFORM["rtol"],
+                  max_it=50, raise_on_fail=False)))
+    for label, model, tiny, extra in runs:
+        print(f"[14d] tiny {model} on the anchor chain (CHAIN_CFG), 3 "
+              f"steps:")
+        cfg = {k: v for k, v in tiny.items()
+               if k not in ("T", "dt", "mesh_path", "generated_mesh_params")
+               and k not in NO_FILES}
+        cfg.update(CHAIN_CFG, **extra)
+        _, out[label], steps = delta_run(
+            tmp, label, model, tiny["generated_mesh_params"], 3,
+            floor=math.inf if extra else None, dt=tiny["dt"], **cfg)
+        check_delta_steps(label, steps, 2)
+    return out
+
+
+def delta_block_records(records, b, U, A, U0, U0new, shape_tag=""):
+    """K13 on one cell block, both forms, against its plain version
+    (element.delta_plain / delta2_plain in float32), under the float32
+    rule in the max norm: max|D_kernel - D_plain| <= 2 max|D_plain -
+    D_f64| + 1e-12 max|D_f64|, D_f64 the same series in float64 (both are
+    float32 series summed in float64 in other orders; the kernel folds
+    each contribution's weighted coefficients into one float as it adds
+    it, the plain version sums each order apart). Each record carries the
+    time of the raw float64 K1/K2 residual of the block at U (raw_f64_ms),
+    the work the delta stands in for. The bounds count the entries the
+    block touches (U, A, U0 and, for delta2, U0new read, R written), its
+    tables, and count_ops of one cell in Jet3 arithmetic times K."""
+    import torch
+
+    from vasp_tpu_torch.kernels import element
+
+    K = b.dofs.shape[0]
+    f32, f64 = torch.float32, torch.float64
+    touched = int(torch.unique(b.dofs).numel())
+    cell_args = [A[b.dofs[0]], U0[b.dofs[0]], b.Jinv[0], b.detJ[0],
+                 b.vol[0]]
+    cell_args = [a.to(f32) for a in cell_args]
+    R = torch.zeros_like(U)
+    raw_ms = cuda_ms(lambda: element.residual_cuda(b, U, U0, R), 20)
+    for form, new in (("delta", None), ("delta2", U0new)):
+        name = element.counter_name(b, form, False)
+
+        def kernel(R, new=new):
+            return element.block_delta(b, U, A, U0, R, new)
+
+        def plain(R, dtype=f32, new=new):
+            return element.delta_plain(b, U, A, U0, R, dtype, new)
+
+        Dk = kernel(torch.zeros_like(U))
+        # the plain version (seconds at full width) is timed once, in the
+        # call that makes the reference
+        Dp, plain_ms = cuda_ms_once(lambda: plain(torch.zeros_like(U)))
+        D64 = plain(torch.zeros_like(U), f64)
+        scale = float(D64.abs().max())
+        err = float((Dk - Dp).abs().max())
+        tol = (2 * float((Dp - D64).abs().max()) + 1e-12 * scale) / scale
+        ops = count_ops(lambda: b.kernel.cell(*cell_args),
+                        cell_args[:1 if new is None else 2]) * K
+        print(f"    {name}: {ops / K:.0f} operations a cell in Jet3 "
+              f"arithmetic, {count_ops(lambda: b.kernel.cell(*cell_args)):.0f}"
+              f" in the float32 residual's (count_ops)")
+        reads = 3 if new is None else 4
+        records.add(name, (err / scale, err), cuda_ms(lambda: kernel(R), 20),
+                    plain_ms,
+                    (nbytes(b.dofs, b.Jinv, b.detJ, b.vol, b.rowmask)
+                     + (reads + 1) * 8 * touched, ops, "f32"), tol,
+                    f"K={K}{shape_tag} {form}", raw_f64_ms=raw_ms,
+                    plain_rel_to_f64=float((Dp - D64).abs().max()) / scale)
+        del Dk, Dp, D64
+
+
+def delta_facet_records(records, fb, U, A):
+    """K13's facet route (the K14 float32 residual on U - A) against its
+    plain version by the rule of delta_block_records, both forms being
+    the same launch under its two counters; raw_f64_ms is K14's float64
+    residual at U; the bound counts U and A at the touched entries read,
+    R written, the tables, and K14 float32's operations (the term is
+    linear: its series is the residual of du alone)."""
+    import torch
+
+    from vasp_tpu_torch.kernels import facet
+
+    K = fb.dofs.shape[0]
+    touched = int(torch.unique(fb.dofs).numel())
+    R = torch.zeros_like(U)
+    raw_ms = cuda_ms(lambda: facet.residual_cuda(fb, U, R), 20)
+    ops = count_ops(lambda: facet.residual_plain(fb, U - A, R,
+                                                 torch.float32))
+    wq, N2t = fb.kernel.tables(U.new_empty((), dtype=torch.float32))
+    for name in ("robin_delta", "robin_delta2"):
+        Dk = facet.delta_cuda(fb, U, A, torch.zeros_like(U), name)
+        Dp = facet.delta_plain(fb, U, A, torch.zeros_like(U))
+        D64 = facet.delta_plain(fb, U, A, torch.zeros_like(U), torch.float64)
+        scale = float(D64.abs().max())
+        err = float((Dk - Dp).abs().max())
+        tol = (2 * float((Dp - D64).abs().max()) + 1e-12 * scale) / scale
+        records.add(name, (err / scale, err),
+                    cuda_ms(lambda: facet.delta_cuda(fb, U, A, R, name), 20),
+                    cuda_ms(lambda: facet.delta_plain(fb, U, A, R), 5),
+                    (nbytes(fb.dofs, fb.area2, wq, N2t) + 3 * 8 * touched,
+                     ops, "f32"), tol, f"K={K} facets", raw_f64_ms=raw_ms,
+                    plain_rel_to_f64=float((Dp - D64).abs().max()) / scale)
+
+
+def _endgame_states(space, rng, d_scale):
+    """(A, U0, U, U0new) on the card: A and U0 seeded at the models' scales
+    (displacement d_scale), U = A + du and U0new = U0 + du0 with du, du0
+    seeded at 1e-3 of those scales (an endgame-size step)."""
+    import numpy as np
+    import torch
+
+    scale = np.concatenate([np.full(3 * space.n_p2, d_scale),
+                            np.full(3 * space.n_p2, 1e-2),
+                            np.full(space.n_p1, 1e2)])
+    A, U0, du, du0 = (torch.as_tensor(rng.normal(size=space.ndof) * scale,
+                                      device="cuda") for _ in range(4))
+    return A, U0, A + 1e-3 * du, U0 + 1e-3 * du0
+
+
+def phase_delta_kernels(records):
+    """Phase 14c: K13 against its plain version at the 20,832-cell tube's
+    shapes (the Laplace fluid and SVK solid blocks), the predeform tube's
+    Mooney-Rivlin wall (strains ~1e-2) and the aneurysm tube's Robin
+    facets (the facet route), each under delta and delta2, at seeded
+    states; each timed beside its bound, its plain version and the raw
+    float64 residual of the same state."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.fem.assembly import FacetBlock
+
+    print("[14c] K13 against its plain version, timed beside the raw "
+          "float64 residual it stands in for:")
+    rng = np.random.default_rng(14)
+    system, _ = model_system("cylinder", FULL_MESH, "cuda")
+    A, U0, U, U0new = _endgame_states(system.space, rng, 1e-6)
+    for b in system.assembler.blocks:
+        delta_block_records(records, b, U, A, U0, U0new)
+    raw = sum(records[element_name]["raw_f64_ms"] for element_name in
+              ("fluid_delta", "solid_delta"))
+    k13 = sum(records[n]["ms"] for n in ("fluid_delta", "solid_delta"))
+    print(f"    the tube's K13 delta {k13:.4f} ms against its raw float64 "
+          f"K1 + K2 residual {raw:.4f} ms")
+    del system, A, U0, U, U0new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    system, _ = model_system("predeform", MODEL_MESH, "cuda")
+    (b,) = [b for b in system.assembler.blocks if b.kernel.kind == "solid"]
+    A, U0, U, U0new = _endgame_states(system.space, rng,
+                                      1e-2 * system.mesh.hmin)
+    delta_block_records(records, b, U, A, U0, U0new, " MR")
+    del system, b, A, U0, U, U0new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    system, _ = model_system("aneurysm", MODEL_MESH, "cuda")
+    (fb,) = [b for b in system.assembler.blocks if isinstance(b, FacetBlock)]
+    A, _, U, _ = _endgame_states(system.space, rng, 1e-6)
+    delta_facet_records(records, fb, U, A)
+    del system, fb, A, U
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     start = time.perf_counter()
 
@@ -3618,6 +4051,21 @@ def main():
     phase_new_kernels(records, system, bc)
     del system, bc
     elapsed("phase 13c")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
+        launches["delta_endgame"] = phase_delta_endgame(Path(tmp))
+        elapsed("phase 14a")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["chain_anchor"] = phase_chain_anchor(Path(tmp))
+        elapsed("phase 14b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_delta_kernels(records)
+        elapsed("phase 14c")
+        launches.update(phase_delta_models(Path(tmp)))
+        elapsed("phase 14d")
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():
@@ -3634,7 +4082,8 @@ def main():
                                  "host_splu_ms", "chunk_steps",
                                  "one_launch_ms", "library_calls",
                                  "bound_ms_sinv_read_twice", "inverse_ms",
-                                 "graph_ms", "graph_library_ms")
+                                 "graph_ms", "graph_library_ms",
+                                 "raw_f64_ms")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))

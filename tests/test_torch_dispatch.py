@@ -242,24 +242,33 @@ def test_newton_solver_krylov_branch_builds(tiny_tube, lin):
     assert not any(build.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("extra,item", [
-    (dict(residual_dtype="f32"), 14), (dict(chain_anchor=True), 14),
+@pytest.mark.parametrize("extra", [
+    dict(residual_dtype="f32"),
+    dict(residual_dtype="f32", chain_anchor=True),
 ], ids=["f32", "chain_anchor"])
-def test_unported_iterative_options_raise(tiny_tube, extra, item):
+def test_unported_iterative_options_raise(tiny_tube, extra):
     """residual_dtype="f32" from a config keeps vasp_tpu's delta_endgame
-    default (True), the jet Taylor-delta endgame, which is not ported."""
+    default (True): the Taylor-delta endgame, which builds, as chain_anchor
+    does (both once refused here, hence the name); the solver's options
+    carry them and the stepper chains anchors only under both."""
     system = FSISystem(tiny_tube, dict(CFG, linear_solver="gmres", **extra))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        system.make_solver(system.make_bcset([]))
+    solver = system.make_solver(system.make_bcset([]))
+    assert isinstance(solver, IterativeNewtonSolver)
+    assert solver.opt.residual_dtype == "f32" and solver.opt.delta_endgame
+    assert solver.opt.chain_anchor == extra.get("chain_anchor", False)
+    assert solver.stepper._chain_on == solver.opt.chain_anchor
 
 
-@pytest.mark.parametrize("extra,item", [
-    (dict(residual_dtype="f32", delta_endgame=True), 14),
-    (dict(chain_anchor=True), 14),
+@pytest.mark.parametrize("extra", [
+    dict(residual_dtype="f32", delta_endgame=True),
+    dict(chain_anchor=True),
 ], ids=["f32_delta_endgame", "chain_anchor"])
-def test_unported_step_options_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        StepOptions(**extra)
+def test_unported_step_options_raise(extra):
+    """StepOptions accepts the delta endgame and the anchor chain (both
+    once refused here, hence the name)."""
+    opt = StepOptions(**extra)
+    for k, v in extra.items():
+        assert getattr(opt, k) == v
 
 
 @pytest.mark.parametrize("extra", [
@@ -323,7 +332,10 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "schwarz_build", "schwarz_build_36", "schwarz_apply",
         "schwarz_apply_36", "schwarz_divide", "node_block_extract",
         "node_block_invert", "node_block_apply", "ruiz_scale_f64",
-        "ruiz_scale_36_f64"}
+        "ruiz_scale_36_f64", "fluid_delta", "fluid_delta2",
+        "fluid_delta_elastic", "fluid_delta2_elastic", "fluid_delta_nolift",
+        "fluid_delta2_nolift", "solid_delta", "solid_delta2",
+        "solid_delta_mr", "solid_delta2_mr", "robin_delta", "robin_delta2"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 
@@ -335,4 +347,8 @@ def test_cpu_path_launches_no_kernel(tiny_tube):
         size=system.space.ndof) * 1e-6)
     R = system.assembler.residual(U, U)
     assert R.dtype == torch.float64 and torch.isfinite(R).all()
+    D = system.assembler.residual_delta(U, 0.9 * U, U)
+    D2 = system.assembler.residual_delta2(U, 0.9 * U, U, 0.9 * U)
+    assert all(x.dtype == torch.float64 and torch.isfinite(x).all()
+               for x in (D, D2))
     assert not any(build.LAUNCHES.values())

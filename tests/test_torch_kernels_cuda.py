@@ -43,7 +43,13 @@ each with its reason:
   multiplicity exact, the apply (with its divide) 1e-12 relative;
 - K17 (the node blocks): extract and apply 1e-12 relative (atomics'
   order), the closed-form inverse 1e-12 of each node's largest entry
-  (unfused float64 operations against torch's on blocks of cond ~10).
+  (unfused float64 operations against torch's on blocks of cond ~10);
+- K13 (the Taylor delta, both forms, every instance and the facet route):
+  the float32 rule of K1/K2 in the max norm, max|D_kernel - D_plain| <=
+  2 max|D_plain - D_f64| + 1e-12 max|D_f64|, with D_f64 the same series
+  in float64: both are float32 series summed in float64, in other orders
+  (the kernel folds each contribution's weighted coefficients into one
+  float as it adds it, the plain version sums each order apart).
 
 Marked `cuda`: they need a CUDA device and nvcc, and skip without them.
 The module imports no jax and builds its own mesh, so on a GPU machine
@@ -800,3 +806,53 @@ def test_node_block_kernels(system):
     assert build.LAUNCHES["node_block_apply"] == 1
     assert _rel(yk, knb.apply_plain(Pp, r, sp.n_p2, sp.off_p)) <= RTOL
     assert torch.equal(yk[sp.off_p:], r[sp.off_p:])
+
+
+# ------------------------------------------------------------------ K13 --
+# the K13 instances: a block of the tiny tube (its Laplace fluid, its SVK
+# solid, the Mooney-Rivlin solid, the Robin facets) or a lifting or
+# body-force variant of LIFT_VARIANTS
+DELTA_BLOCKS = ("fluid", "solid", "solid_mr", "robin", "elastic_p_stab",
+                "no_extrapolation", "gravity_mr")
+
+
+@pytest.mark.parametrize("form", ["delta", "delta2"])
+@pytest.mark.parametrize("name", DELTA_BLOCKS)
+def test_delta_kernel(system, robin_system, mr_system, name, form):
+    """K13 against its plain version at a seeded anchor A (the fixture's
+    state), U = A + du and U0new = U0 + du with du = 1e-3 (A - U0), at
+    1e-3 of the state's scales (an endgame-size step)."""
+    sysm, A, U0 = system
+    mr_b, Amr, U0mr = mr_system
+    if name in ("solid_mr", "gravity_mr"):
+        A, U0 = Amr, U0mr
+    if name == "robin":
+        b, ops = robin_system[1], facet
+    elif name in ("fluid", "solid"):
+        b, ops = sysm.assembler.blocks[name == "solid"], element
+    elif name == "solid_mr":
+        b, ops = mr_b, element
+    else:
+        b, ops = _variant_block(sysm, mr_b, name), element
+    du = 1e-3 * (A - U0)
+    U = A + du
+    U0new = U0 + du if form == "delta2" else None
+    counter = ("robin_" + form if ops is facet
+               else element.counter_name(b, form, False))
+    n0 = build.LAUNCHES[counter]
+    Dk = ops.block_delta(b, U, A, U0, torch.zeros_like(U), U0new)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[counter] == n0 + 1
+
+    def plain(dtype):
+        D = torch.zeros_like(U)
+        if ops is facet:
+            return facet.delta_plain(b, U, A, D, dtype)
+        if U0new is None:
+            return element.delta_plain(b, U, A, U0, D, dtype)
+        return element.delta2_plain(b, U, A, U0new, U0, D, dtype)
+
+    Dp, D64 = plain(torch.float32), plain(torch.float64)
+    assert float(D64.abs().max()) > 0
+    assert float((Dk - Dp).abs().max()) <= 2 * float(
+        (Dp - D64).abs().max()) + 1e-12 * float(D64.abs().max())

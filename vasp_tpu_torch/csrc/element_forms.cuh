@@ -12,16 +12,23 @@
 // energy and its Jacobian from jax.jacfwd over that; here S is closed form
 // for both materials and K3 is forward mode (Dual) over it.
 //
-// T is the type of the local state u and of the result r, S = Real<T> the
-// type of everything else (u0, geometry, tables, parameters):
-// - T = S = double gives the float64 residual (K1, K2);
-// - T = S = float gives the float32 residual (K1/K2 f32: vasp_tpu's
-//   residual(dtype=float32), f32 element work on f32-rounded inputs and
-//   f32 tables); every literal and parameter is an S, so no operation of
-//   this instance is promoted to double;
-// - T = Dual (value + one tangent, over double), S = double gives one
-//   column of the exact element Jacobian (K3), so the Jacobian is the
-//   derivative of this very code, as jax.jacfwd is of the JAX kernel.
+// T is the type of the local state u, T0 the type of the previous state
+// u0, TR the type of the result r, S = Real<T> the type of everything else
+// (geometry, tables, parameters):
+// - T = T0 = TR = S = double gives the float64 residual (K1, K2);
+// - T = T0 = TR = S = float gives the float32 residual (K1/K2 f32:
+//   vasp_tpu's residual(dtype=float32), f32 element work on f32-rounded
+//   inputs and f32 tables); every literal and parameter is an S, so no
+//   operation of this instance is promoted to double;
+// - T = TR = Dual (value + one tangent, over double), T0 = S = double
+//   gives one column of the exact element Jacobian (K3), so the Jacobian
+//   is the derivative of this very code, as jax.jacfwd is of the JAX
+//   kernel;
+// - T = Jet3 (an order-3 Taylor series over float), S = float, T0 = float
+//   or Jet3, TR = DeltaSum gives K13's delta of the cell along u's
+//   series (and u0's, for T0 = Jet3): vasp_tpu's residual_delta and
+//   residual_delta2, whose jax.experimental.jet runs the same forms on
+//   float32 series.
 //
 // The quadrature loop is outermost: per point the (10,3) physical basis
 // gradients live in registers and are folded straight into the 64 local
@@ -37,8 +44,9 @@
 // gradients), uploaded by vt_set_element_tables, in float64 and rounded to
 // float32. Every thread walks the quadrature points in the same order, so
 // each read is a broadcast. Static: each source that includes this header
-// (element_kernels.cu, postproc.cu) has its own copy, so the objects link
-// into one library; only element_kernels.cu uploads and reads them.
+// (element_kernels.cu, delta_kernels.cu, postproc.cu) has its own copy, so
+// the objects link into one library; element_kernels.cu uploads and reads
+// both sets, delta_kernels.cu the float32 one.
 static __constant__ double c_wq[VT_NQ_MAX];
 static __constant__ double c_N1[VT_NQ_MAX * 4];
 static __constant__ double c_N2[VT_NQ_MAX * 10];
@@ -47,6 +55,35 @@ static __constant__ float c_wq_f[VT_NQ_MAX_F32];
 static __constant__ float c_N1_f[VT_NQ_MAX_F32 * 4];
 static __constant__ float c_N2_f[VT_NQ_MAX_F32 * 10];
 static __constant__ float c_dN2_f[VT_NQ_MAX_F32 * 30];
+
+// Copy the quadrature tables (host pointers: wq (nq,), N1 (nq,4), N2
+// (nq,10), dN2 (nq,10,3), float64, C-contiguous) into this source's
+// constant memory: the float64 set when f64 is true (nq <= VT_NQ_MAX),
+// and their float32 roundings where nq <= VT_NQ_MAX_F32. Static, as the
+// tables are: it fills the copy of the source that calls it.
+static inline int upload_element_tables(const double* wq, const double* N1,
+                                        const double* N2, const double* dN2, int nq,
+                                        bool f64) {
+  cudaError_t e;
+  if (f64) {
+    if ((e = cudaMemcpyToSymbol(c_wq, wq, sizeof(double) * nq)) != cudaSuccess) return (int)e;
+    if ((e = cudaMemcpyToSymbol(c_N1, N1, sizeof(double) * nq * 4)) != cudaSuccess) return (int)e;
+    if ((e = cudaMemcpyToSymbol(c_N2, N2, sizeof(double) * nq * 10)) != cudaSuccess) return (int)e;
+    if ((e = cudaMemcpyToSymbol(c_dN2, dN2, sizeof(double) * nq * 30)) != cudaSuccess) return (int)e;
+  }
+  if (nq <= VT_NQ_MAX_F32) {
+    float f[VT_NQ_MAX_F32 * 30];
+    for (int i = 0; i < nq; ++i) f[i] = (float)wq[i];
+    if ((e = cudaMemcpyToSymbol(c_wq_f, f, sizeof(float) * nq)) != cudaSuccess) return (int)e;
+    for (int i = 0; i < nq * 4; ++i) f[i] = (float)N1[i];
+    if ((e = cudaMemcpyToSymbol(c_N1_f, f, sizeof(float) * nq * 4)) != cudaSuccess) return (int)e;
+    for (int i = 0; i < nq * 10; ++i) f[i] = (float)N2[i];
+    if ((e = cudaMemcpyToSymbol(c_N2_f, f, sizeof(float) * nq * 10)) != cudaSuccess) return (int)e;
+    for (int i = 0; i < nq * 30; ++i) f[i] = (float)dN2[i];
+    if ((e = cudaMemcpyToSymbol(c_dN2_f, f, sizeof(float) * nq * 30)) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
 
 template <class S>
 struct Tab;
@@ -98,11 +135,93 @@ __device__ inline Dual operator/(double a, Dual b) {
 }
 __device__ inline Dual& operator+=(Dual& a, Dual b) { a = a + b; return a; }
 
+// ----------------------------------------------------------------- jet --
+// A truncated Taylor series over float, x(t) = v + c1 t + c2 t^2 + c3 t^3
+// with normalised coefficients (c_k = x^(k)(0) / k!), the arithmetic of
+// K13. Every operation keeps the terms up to t^3: sums term by term,
+// products as the Cauchy product, quotients and log1p by their standard
+// recurrences. All of it is float arithmetic (f-suffixed literals), so
+// the K13 instances stay free of float64 work as the f32 residuals do.
+struct Jet3 {
+  float v, c1, c2, c3;
+  __device__ Jet3() {}
+  __device__ Jet3(float x) : v(x), c1(0.f), c2(0.f), c3(0.f) {}
+  __device__ Jet3(float x, float a, float b, float c) : v(x), c1(a), c2(b), c3(c) {}
+};
+
+__device__ inline Jet3 operator+(Jet3 a, Jet3 b) {
+  return Jet3(a.v + b.v, a.c1 + b.c1, a.c2 + b.c2, a.c3 + b.c3);
+}
+__device__ inline Jet3 operator+(Jet3 a, float b) { return Jet3(a.v + b, a.c1, a.c2, a.c3); }
+__device__ inline Jet3 operator+(float a, Jet3 b) { return Jet3(a + b.v, b.c1, b.c2, b.c3); }
+__device__ inline Jet3 operator-(Jet3 a, Jet3 b) {
+  return Jet3(a.v - b.v, a.c1 - b.c1, a.c2 - b.c2, a.c3 - b.c3);
+}
+__device__ inline Jet3 operator-(Jet3 a, float b) { return Jet3(a.v - b, a.c1, a.c2, a.c3); }
+__device__ inline Jet3 operator-(float a, Jet3 b) { return Jet3(a - b.v, -b.c1, -b.c2, -b.c3); }
+__device__ inline Jet3 operator-(Jet3 a) { return Jet3(-a.v, -a.c1, -a.c2, -a.c3); }
+__device__ inline Jet3 operator*(Jet3 a, Jet3 b) {
+  return Jet3(a.v * b.v, a.v * b.c1 + a.c1 * b.v, a.v * b.c2 + a.c1 * b.c1 + a.c2 * b.v,
+              a.v * b.c3 + a.c1 * b.c2 + a.c2 * b.c1 + a.c3 * b.v);
+}
+__device__ inline Jet3 operator*(Jet3 a, float b) {
+  return Jet3(a.v * b, a.c1 * b, a.c2 * b, a.c3 * b);
+}
+__device__ inline Jet3 operator*(float a, Jet3 b) {
+  return Jet3(a * b.v, a * b.c1, a * b.c2, a * b.c3);
+}
+// q = a / b from q b = a: q_k = (a_k - sum_{j<k} q_j b_{k-j}) / b_0
+__device__ inline Jet3 operator/(Jet3 a, Jet3 b) {
+  const float q0 = a.v / b.v;
+  const float q1 = (a.c1 - q0 * b.c1) / b.v;
+  const float q2 = (a.c2 - q0 * b.c2 - q1 * b.c1) / b.v;
+  const float q3 = (a.c3 - q0 * b.c3 - q1 * b.c2 - q2 * b.c1) / b.v;
+  return Jet3(q0, q1, q2, q3);
+}
+__device__ inline Jet3 operator/(Jet3 a, float b) {
+  return Jet3(a.v / b, a.c1 / b, a.c2 / b, a.c3 / b);
+}
+__device__ inline Jet3 operator/(float a, Jet3 b) {
+  const float q0 = a / b.v;
+  const float q1 = -(q0 * b.c1) / b.v;
+  const float q2 = -(q0 * b.c2 + q1 * b.c1) / b.v;
+  const float q3 = -(q0 * b.c3 + q1 * b.c2 + q2 * b.c1) / b.v;
+  return Jet3(q0, q1, q2, q3);
+}
+__device__ inline Jet3& operator+=(Jet3& a, Jet3 b) { a = a + b; return a; }
+
+// K13's result entry. vasp_tpu's residual_delta returns the sum of the
+// terms jax.experimental.jet gives for a series [du, 0, 0]; those terms are
+// the derivatives y_k = k! c_k, not the coefficients, so its delta is
+// y1 + y2 + y3 = c1 + 2 c2 + 6 c3 (while R(A + du) - R(A) ~ c1 + c2 + c3).
+// The weights 1, 2, 6 live here and only here. The entry is linear in the
+// cell's contributions, so each contribution is folded into one float as
+// it is added: the cell keeps 64 floats of result instead of 64 jets.
+__device__ inline float jet_delta(const Jet3& a) { return a.c1 + 2.f * a.c2 + 6.f * a.c3; }
+
+struct DeltaSum {
+  float s;
+  __device__ DeltaSum() {}
+  __device__ explicit DeltaSum(float x) : s(x) {}
+  __device__ DeltaSum& operator+=(const Jet3& a) {
+    s += jet_delta(a);
+    return *this;
+  }
+};
+
 // log1p on each scalar type: float's own (the float instance must stay
-// free of float64 arithmetic), double's, and its derivative on a Dual
+// free of float64 arithmetic), double's, its derivative on a Dual, and
+// on a Jet3 the series of y = log(w), w = 1 + x, from w y' = w'
 __device__ inline float vt_log1p(float a) { return log1pf(a); }
 __device__ inline double vt_log1p(double a) { return log1p(a); }
 __device__ inline Dual vt_log1p(Dual a) { return Dual(log1p(a.v), a.d / (1.0 + a.v)); }
+__device__ inline Jet3 vt_log1p(Jet3 a) {
+  const float w0 = 1.f + a.v;
+  const float y1 = a.c1 / w0;
+  const float y2 = (a.c2 - 0.5f * a.c1 * y1) / w0;
+  const float y3 = (a.c3 - (2.f / 3.f) * a.c1 * y2 - (1.f / 3.f) * a.c2 * y1) / w0;
+  return Jet3(log1pf(a.v), y1, y2, y3);
+}
 
 // pow on the real types (the pressure stabilization's h^2 = (6 vol)^(2/3))
 __device__ inline float vt_pow(float a, float b) { return powf(a, b); }
@@ -113,6 +232,8 @@ template <class T>
 struct RealOf { using type = T; };
 template <>
 struct RealOf<Dual> { using type = double; };
+template <>
+struct RealOf<Jet3> { using type = float; };
 template <class T>
 using Real = typename RealOf<T>::type;
 
@@ -232,22 +353,22 @@ __device__ inline void p2_grad(const V* c, const S G[10][3], V g[3][3]) {
 // ------------------------------------------------------------- fluid --
 // u: local (64,) [d 10x3 | v 10x3 | p 4]; u0 likewise; Jinv row-major 3x3.
 // LIFT: kLiftLaplace, kLiftElastic or kLiftNone.
-template <int LIFT, class T>
-__device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
+template <int LIFT, class T, class T0, class TR>
+__device__ void fluid_residual(const T* u, const T0* u0, const Real<T>* Jinv,
                                Real<T> detJ, Real<T> vol, const FluidParams<Real<T>>& P,
-                               int nq, T* r) {
+                               int nq, TR* r) {
   using S = Real<T>;
   const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho, mu = P.mu;
   const S zero = S(0), one = S(1);
 #pragma unroll
-  for (int k = 0; k < 64; ++k) r[k] = T(zero);
+  for (int k = 0; k < 64; ++k) r[k] = TR(zero);
 
   for (int q = 0; q < nq; ++q) {
     S G[10][3];
     basis_gradients(q, Jinv, G);
 
     T d_q[3], v_q[3], p_q = T(zero);
-    S d0_q[3], v0_q[3];
+    T0 d0_q[3], v0_q[3];
     p2_value<S>(q, u, d_q);
     p2_value<S>(q, u + 30, v_q);
     p2_value<S>(q, u0, d0_q);
@@ -259,14 +380,14 @@ __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
     for (int i = 0; i < 3; ++i) w_q[i] = (d_q[i] - d0_q[i]) / P.dt;
 
     T gd[3][3], gv[3][3];
-    S gd0[3][3], gv0[3][3];
+    T0 gd0[3][3], gv0[3][3];
     p2_grad(u, G, gd);
     p2_grad(u + 30, G, gv);
     p2_grad(u0, G, gd0);
     p2_grad(u0 + 30, G, gv0);
 
     T F[3][3], Fi[3][3];
-    S F0[3][3], Fi0[3][3];
+    T0 F0[3][3], Fi0[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -275,13 +396,13 @@ __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
         F0[i][j] = gd0[i][j] + (i == j ? one : zero);
       }
     const T Jd = det3(F);
-    const S J0 = det3(F0);
+    const T0 J0 = det3(F0);
     inv3(F, Jd, Fi);
     inv3(F0, J0, Fi0);
 
     // grad v F^-1, new and old
     T gvFi[3][3];
-    S gvFi0[3][3];
+    T0 gvFi0[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -311,7 +432,7 @@ __device__ void fluid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         T sn = T(zero);
-        S so = zero;
+        T0 so = T0(zero);
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           sn += mu * (gvFi[i][j] + gvFi[j][i]) * Fi[k][j];
@@ -477,30 +598,30 @@ __device__ inline void piola1(const V H[3][3], const SolidParams<S>& P, V Pk[3][
                + (H[i][2] + (i == 2 ? one : zero)) * Sm[2][j];
 }
 
-template <int MAT, class T>
-__device__ void solid_residual(const T* u, const Real<T>* u0, const Real<T>* Jinv,
+template <int MAT, class T, class T0, class TR>
+__device__ void solid_residual(const T* u, const T0* u0, const Real<T>* Jinv,
                                Real<T> detJ, Real<T> vol, const SolidParams<Real<T>>& P,
-                               int nq, T* r) {
+                               int nq, TR* r) {
   using S = Real<T>;
   (void)vol;
   const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho;
   const S zero = S(0);
 #pragma unroll
-  for (int k = 0; k < 64; ++k) r[k] = T(zero);
+  for (int k = 0; k < 64; ++k) r[k] = TR(zero);
 
   for (int q = 0; q < nq; ++q) {
     S G[10][3];
     basis_gradients(q, Jinv, G);
 
     T d_q[3], v_q[3];
-    S d0_q[3], v0_q[3];
+    T0 d0_q[3], v0_q[3];
     p2_value<S>(q, u, d_q);
     p2_value<S>(q, u + 30, v_q);
     p2_value<S>(q, u0, d0_q);
     p2_value<S>(q, u0 + 30, v0_q);
 
     T gd[3][3], Pn[3][3];
-    S gd0[3][3], Po[3][3];
+    T0 gd0[3][3], Po[3][3];
     p2_grad(u, G, gd);
     p2_grad(u0, G, gd0);
     piola1<MAT>(gd, P, Pn);
@@ -527,4 +648,49 @@ __device__ void solid_residual(const T* u, const Real<T>* u0, const Real<T>* Jin
       }
     }
   }
+}
+
+// ------------------------------------------------------------- cells --
+// The kernels' view of a block: its parameters, and eval_cell, which
+// runs the block's form on one cell (u: T, u0: T0, r: TR as above).
+// a fluid cell with the mesh lifting LIFT (kLiftLaplace, kLiftElastic,
+// kLiftNone)
+template <class S, int LIFT>
+struct FluidCell {
+  FluidParams<S> p;
+};
+
+template <class T, class T0, class TR, int LIFT>
+__device__ inline void eval_cell(const FluidCell<Real<T>, LIFT>& C, const T* u,
+                                 const T0* u0, const Real<T>* Jinv, Real<T> detJ,
+                                 Real<T> vol, int nq, TR* r) {
+  fluid_residual<LIFT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
+}
+
+template <class S, int LIFT>
+inline FluidCell<S, LIFT> fluid_cell(double rho, double mu, double dt, double theta,
+                                     double lift_coeff, int lift_sub, double p_stab) {
+  return FluidCell<S, LIFT>{
+      make_fluid_params<S>(rho, mu, dt, theta, lift_coeff, lift_sub, p_stab)};
+}
+
+// a solid cell of material MAT (kSVK or kMooneyRivlin)
+template <class S, int MAT>
+struct SolidCell {
+  SolidParams<S> p;
+};
+
+template <class T, class T0, class TR, int MAT>
+__device__ inline void eval_cell(const SolidCell<Real<T>, MAT>& C, const T* u,
+                                 const T0* u0, const Real<T>* Jinv, Real<T> detJ,
+                                 Real<T> vol, int nq, TR* r) {
+  solid_residual<MAT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
+}
+
+template <class S, int MAT>
+inline SolidCell<S, MAT> solid_cell(double rho, double mu, double lam, double dt,
+                                    double theta, double C01, double C10, double C11,
+                                    double gx, double gy, double gz) {
+  return SolidCell<S, MAT>{
+      make_solid_params<S>(rho, mu, lam, dt, theta, C01, C10, C11, gx, gy, gz)};
 }

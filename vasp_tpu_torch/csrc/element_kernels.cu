@@ -35,48 +35,6 @@
 
 namespace {
 
-// a fluid cell with the mesh lifting LIFT (kLiftLaplace, kLiftElastic,
-// kLiftNone)
-template <class S, int LIFT>
-struct FluidCell {
-  FluidParams<S> p;
-};
-
-template <class T, int LIFT>
-__device__ inline void eval_cell(const FluidCell<Real<T>, LIFT>& C, const T* u,
-                                 const Real<T>* u0, const Real<T>* Jinv, Real<T> detJ,
-                                 Real<T> vol, int nq, T* r) {
-  fluid_residual<LIFT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
-}
-
-template <class S, int LIFT>
-inline FluidCell<S, LIFT> fluid_cell(double rho, double mu, double dt, double theta,
-                                     double lift_coeff, int lift_sub, double p_stab) {
-  return FluidCell<S, LIFT>{
-      make_fluid_params<S>(rho, mu, dt, theta, lift_coeff, lift_sub, p_stab)};
-}
-
-// a solid cell of material MAT (kSVK or kMooneyRivlin)
-template <class S, int MAT>
-struct SolidCell {
-  SolidParams<S> p;
-};
-
-template <class T, int MAT>
-__device__ inline void eval_cell(const SolidCell<Real<T>, MAT>& C, const T* u,
-                                 const Real<T>* u0, const Real<T>* Jinv, Real<T> detJ,
-                                 Real<T> vol, int nq, T* r) {
-  solid_residual<MAT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
-}
-
-template <class S, int MAT>
-inline SolidCell<S, MAT> solid_cell(double rho, double mu, double lam, double dt,
-                                    double theta, double C01, double C10, double C11,
-                                    double gx, double gy, double gz) {
-  return SolidCell<S, MAT>{
-      make_solid_params<S>(rho, mu, lam, dt, theta, C01, C10, C11, gx, gy, gz)};
-}
-
 constexpr int kResidualThreads = 64;
 
 // S = double: the float64 residual; S = float: every input rounded to
@@ -190,23 +148,7 @@ int vt_element_nq_max_f32() { return VT_NQ_MAX_F32; }
 int vt_set_element_tables(const double* wq, const double* N1, const double* N2,
                           const double* dN2, int nq) {
   if (nq < 1 || nq > VT_NQ_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if ((e = cudaMemcpyToSymbol(c_wq, wq, sizeof(double) * nq)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemcpyToSymbol(c_N1, N1, sizeof(double) * nq * 4)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemcpyToSymbol(c_N2, N2, sizeof(double) * nq * 10)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemcpyToSymbol(c_dN2, dN2, sizeof(double) * nq * 30)) != cudaSuccess) return (int)e;
-  if (nq <= VT_NQ_MAX_F32) {
-    float f[VT_NQ_MAX_F32 * 30];
-    for (int i = 0; i < nq; ++i) f[i] = (float)wq[i];
-    if ((e = cudaMemcpyToSymbol(c_wq_f, f, sizeof(float) * nq)) != cudaSuccess) return (int)e;
-    for (int i = 0; i < nq * 4; ++i) f[i] = (float)N1[i];
-    if ((e = cudaMemcpyToSymbol(c_N1_f, f, sizeof(float) * nq * 4)) != cudaSuccess) return (int)e;
-    for (int i = 0; i < nq * 10; ++i) f[i] = (float)N2[i];
-    if ((e = cudaMemcpyToSymbol(c_N2_f, f, sizeof(float) * nq * 10)) != cudaSuccess) return (int)e;
-    for (int i = 0; i < nq * 30; ++i) f[i] = (float)dN2[i];
-    if ((e = cudaMemcpyToSymbol(c_dN2_f, f, sizeof(float) * nq * 30)) != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+  return upload_element_tables(wq, N1, N2, dN2, nq, true);
 }
 
 // f32 nonzero: the float32 instance (tables of at most VT_NQ_MAX_F32 points).

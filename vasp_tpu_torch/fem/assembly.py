@@ -9,7 +9,8 @@ over them. The residual's element work runs in float64, float32 or
 "mixed" (float32 on the fluid only), always accumulated in float64. On
 CUDA tensors the residual, Jacobians and matvec are the hand-written
 kernels of kernels/element.py, kernels/facet.py and kernels/matvec.py; on
-CPU tensors their plain torch versions.
+CPU tensors their plain torch versions. The endgame's Taylor deltas
+(residual_delta, residual_delta2) go the same way (K13).
 """
 from dataclasses import dataclass
 from typing import Optional
@@ -102,6 +103,29 @@ class Assembler:
         R = torch.zeros(self.ndof, dtype=torch.float64, device=U.device)
         for b, dt in zip(self.blocks, per_block):
             _ops(b).block_residual(b, U, U0, R, dt)
+        return R
+
+    def residual_delta(self, U, A, U0):
+        """R(U) - R(A) as vasp_tpu's Assembler.residual_delta computes it: a
+        float64 (ndof,) tensor on U's device, the sum over the blocks of
+        the order-3 float32 Taylor delta of each element kernel along
+        du = U - A at the previous state U0 (K13, kernels/element.py and
+        kernels/facet.py), accumulated in float64. Its value is jet's sum
+        of derivatives y1 + y2 + y3, not the Taylor sum y1 + y2/2 + y3/6
+        (ROADMAP.md queue 3)."""
+        R = torch.zeros(self.ndof, dtype=torch.float64, device=U.device)
+        for b in self.blocks:
+            _ops(b).block_delta(b, U, A, U0, R)
+        return R
+
+    def residual_delta2(self, U, A, U0new, U0old):
+        """R(U; U0new) - R(A; U0old) as vasp_tpu's Assembler.residual_delta2
+        computes it: the delta of residual_delta with the previous state
+        moving along du0 = U0new - U0old too (the facet terms have no
+        previous state: only du applies there)."""
+        R = torch.zeros(self.ndof, dtype=torch.float64, device=U.device)
+        for b in self.blocks:
+            _ops(b).block_delta(b, U, A, U0old, R, U0new)
         return R
 
     def element_jacobians(self, U, U0, dtype=torch.float64):

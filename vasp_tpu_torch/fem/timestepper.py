@@ -33,6 +33,17 @@ residual with float32 element work (K1/K2 f32) while the norm is above
 ``endgame_factor * atol`` and in float64 below it, "mixed" likewise with
 the fine residual float32 on the fluid and float64 on the solid, "f32f"
 with a float32 fine residual too; accumulation is float64 in every case.
+Under "f32" with ``delta_endgame`` (the default) the fine residuals are
+vasp_tpu's Taylor-delta endgame: the first fine evaluation of a Newton call
+is raw float64 and its accepted (U, R) the anchor, every later one R(anchor)
+plus the order-3 float32 jet delta along U - anchor (K13,
+Assembler.residual_delta) and the lifting correction of U - anchor. The
+exact tier keeps raw residuals. ``chain_anchor`` carries the anchor across
+steps: each step's anchor (its start state and residual) is the previous
+step's exit residual advanced by one two-argument delta
+(Assembler.residual_delta2, K13's delta2) or, every ``chain_reanchor``
+steps and wherever the chain breaks, one raw float64 residual; its fine
+residuals are all deltas from that anchor.
 ``step`` then climbs vasp_tpu's ladder, tier by tier: the certification of
 a coarse exit that claims convergence, the reactive float64 factor
 escalation under probe-flagged factors (K11), the coarse-phase stall retry
@@ -50,7 +61,10 @@ The Newton loop is a host loop of device calls: the residual norm, the
 line-search acceptance, the stall count and GMRES's early exit are read
 on the host as they are needed. vasp_tpu's TPU workarounds are not ported:
 the 8-iteration dispatch chunking (so iteration counts and ``jac_carry``
-ages agree with vasp_tpu for Newton calls of at most 8 iterations), the
+ages agree with vasp_tpu for Newton calls of at most 8 iterations; the
+delta endgame keeps the bound it puts on an anchor's age: after every
+NEWTON_CHUNK iterations of one call the port re-anchors with a raw
+float64 residual at the current state, as vasp_tpu's next chunk does), the
 block_until_ready barriers, the remote-worker gate on the last ladder tier
 (the port always takes it, as vasp_tpu does on the CPU), and the 7 GiB
 lowmem switch and 11 GiB escalation gate, which the device's free memory
@@ -59,10 +73,6 @@ low-memory layout, the exact-stall tier take the float64 factor tier where
 banded_layout found it fits, and the float64-Jacobian
 tier where those Jacobians fit in the memory free when it is reached
 (vasp_tpu skips that tier at low-memory scale).
-
-Refused, with the ROADMAP.md item that will port them: the jet
-Taylor-delta endgame (residual_dtype="f32" with delta_endgame=True) and
-chain_anchor (item 14).
 """
 import time
 from collections import defaultdict
@@ -129,7 +139,7 @@ class StepOptions:
     # hybrid residuals: fine (exact-grade) residuals once the norm is
     # within endgame_factor * atol
     endgame_factor: float = 30.0
-    # the jet Taylor-delta endgame of residual_dtype="f32" (not ported;
+    # the jet Taylor-delta endgame of residual_dtype="f32" (module doc;
     # "mixed" and "f32f" never use it)
     delta_endgame: bool = True
     # GMRES forcing: "fixed" solves every direction to gmres_tol; "ew" is
@@ -138,6 +148,10 @@ class StepOptions:
     forcing: str = "fixed"
     ew_gamma: float = 0.9
     ew_max: float = 1e-2
+    # the cross-step anchor chain (residual_dtype="f32" with
+    # delta_endgame only): one raw float64 anchor every chain_reanchor
+    # steps, the others advanced from the previous step's exit by one
+    # two-argument delta (1: raw, chained, raw, ...)
     chain_anchor: bool = False
     chain_reanchor: int = 1
     # carry element Jacobians across steps on the `recompute` cadence
@@ -156,14 +170,9 @@ class StepOptions:
             raise ValueError(
                 f"residual_dtype={self.residual_dtype!r}: expected None, "
                 "'f32', 'mixed' or 'f32f'")
-        if self.residual_dtype == "f32" and self.delta_endgame:
-            not_ported("residual_dtype='f32' with delta_endgame=True (the "
-                       "jet Taylor-delta endgame)", 14)
         if self.precond not in ("banded", "ras"):
             raise ValueError(f"precond={self.precond!r}: expected 'banded' "
                              "or 'ras'")
-        if self.chain_anchor:
-            not_ported("chain_anchor", 14)
 
 
 def _backtrack_update(U, dx, residual_norm_fn, lmbda, n_halvings=4):
@@ -281,14 +290,18 @@ class IterativeStepper:
     synchronize on a card: rebuild phases (rebuild_jacobians, ruiz; banded:
     assemble, factorize, hg, cast, probe; RAS: ras_pattern, ras_extract,
     ras_invert) and per-iteration phases (jacobians, residual, gmres, and
-    inside gmres its matvec and precond shares). ``setup`` holds the
+    inside gmres its matvec and precond shares; delta, the K13 Taylor
+    deltas of the endgame and the chain). ``setup`` holds the
     one-time host seconds (banded: pattern, rcm, plan), ``layout`` the
     banded layout chosen (fem/banded.py BandedLayout; None under RAS),
     ``rebuilds`` the rebuild count, ``gmres_inner`` and ``gmres_cycles``
-    the GMRES inner iterations and restart cycles over the run and
+    the GMRES inner iterations and restart cycles over the run, ``deltas``
+    the fine residuals evaluated as Taylor deltas over the run, and
     ``history`` one record per step (Newton iterations, GMRES inner
     iterations and cycles, rebuilds, the ladder tiers taken after the
-    first Newton call)."""
+    first Newton call, whether its last residual was fine-grade, its
+    Taylor-delta residuals, and under chain_anchor how its anchor was
+    made, "raw" or "chained")."""
 
     def __init__(self, system, bc_set, options: StepOptions,
                  recompute_tstep=20):
@@ -319,8 +332,16 @@ class IterativeStepper:
         self.gmres_inner = 0
         self.gmres_cycles = 0
         self.history = []
+        self.deltas = 0
         self.layout = None
         self._block_sizes = [tuple(b.dofs.shape) for b in self.asm.blocks]
+        # the cross-step anchor chain: this step's anchor (U1, R), the
+        # previous step's exit, and the links since the last raw anchor
+        self._chain_on = (opt.chain_anchor and opt.residual_dtype == "f32"
+                          and opt.delta_endgame)
+        self._anc = None
+        self._chain_prev = None
+        self._chain_age = 10 ** 9  # the first step takes a raw anchor
         if opt.precond == "ras":
             self._n_sub = opt.n_subdomains or max(2, self.ndof // 1500)
             # the subdomain pattern and its apply, built at the first rebuild
@@ -491,6 +512,18 @@ class IterativeStepper:
             R = torch.where(self.mask, 0.0, R)
             return R, float(torch.linalg.norm(R))
 
+    def _delta(self, U, A, RA, U0):
+        """The fine residual of U from the exact anchor (A, RA) of the step
+        from U0: RA plus the K13 Taylor delta along U - A and the lifting
+        correction of U - A, masked; (R, its norm)."""
+        self.deltas += 1
+        with self._timed("delta"):
+            d = self.asm.residual_delta(U, A, U0)
+            if self._lift is not None:
+                d = d + correction_apply(self._lift, U - A)
+            R = torch.where(self.mask, 0.0, RA + d)
+            return R, float(torch.linalg.norm(R))
+
     def _jacobians(self, U, U0, dtype):
         with self._timed("jacobians"):
             return self.asm.element_jacobians(U, U0, dtype=dtype)
@@ -535,12 +568,18 @@ class IterativeStepper:
         """Damped Newton from Ustart (bc values imposed) on the residual of
         the step from U0. Returns (U, stats) for the best state seen,
         stats = iterations, residual (best), r0, stalled, fine (the last
-        iteration's residual was fine-grade), rfine (the best state's was).
+        iteration's residual was fine-grade), rfine (the best state's was)
+        and R (the best state's residual vector: the anchor chain goes on
+        from it).
 
         Hybrid residual precisions: coarse (float32 element work) residuals
         until the norm is within endgame_factor * atol, fine ones from then
         on (float32 under f32f, mixed under mixed, float64 under f32);
-        fine_start=True takes fine ones from the first evaluation.
+        fine_start=True takes fine ones from the first evaluation. Under
+        f32 with delta_endgame the first fine residual is raw float64 and
+        anchors the later ones, which are Taylor deltas from it, the anchor
+        renewed raw after every NEWTON_CHUNK iterations; under the anchor
+        chain every fine residual is a delta from the step's anchor.
         exact=True: float64 Jacobians and float64 GMRES with the exact
         tier's tolerance and cycles, its fine residuals raw float64."""
         opt = self.opt
@@ -550,12 +589,24 @@ class IterativeStepper:
         fine_dt = None if exact else {"mixed": "mixed", "f32f": torch.float32
                                       }.get(opt.residual_dtype)
         endgame = opt.endgame_factor * opt.atol
+        use_delta = (hybrid and opt.delta_endgame and not exact
+                     and fine_dt is None)
+        chained = self._chain_on and not exact
+        # the in-loop anchor of the delta endgame: (state, residual) or None
+        anchor = None
 
         def residual(U, fine):
             if not hybrid:
                 return self._residual(U, U0, load)
-            return self._residual(U, U0, load,
-                                  fine_dt if fine else torch.float32)
+            if not fine:
+                return self._residual(U, U0, load, torch.float32)
+            if fine_dt is not None:
+                return self._residual(U, U0, load, fine_dt)
+            if chained:
+                return self._delta(U, *self._anc, U0)
+            if use_delta and anchor is not None:
+                return self._delta(U, *anchor, U0)
+            return self._residual(U, U0, load)
 
         U = U1 = torch.where(self.mask, bcv, Ustart)
         R, rnorm = residual(U, fine_start)
@@ -563,9 +614,12 @@ class IterativeStepper:
             # the ENDGAME refine of R0
             R, rnorm = residual(U, True)
         fine = not hybrid or fine_start or rnorm < endgame
+        if use_delta and not chained and fine:
+            # R0 is raw float64 here: (U1, R0) is an exact anchor
+            anchor = (U, R)
         r0 = rnorm
         r0_safe = r0 if r0 > 0 else 1.0
-        Ub, rb, rbfine = U, rnorm, fine
+        Ub, Rb, rb, rbfine = U, R, rnorm, fine
         stall, it, eta = 0, 0, opt.gmres_tol
         # a stall is a residual not decreasing; the exact variant counts
         # only near-zero progress as one
@@ -573,8 +627,22 @@ class IterativeStepper:
         use_carry = opt.jac_carry and rec > 1 and not exact
         jacs, age = (self._jac_carry if use_carry and self._jac_carry
                      is not None else (None, 0))
-        while (it < it_cap and rnorm > opt.atol
-               and rnorm / r0_safe > opt.rtol and stall < 2):
+
+        def going():
+            return (it < it_cap and rnorm > opt.atol
+                    and rnorm / r0_safe > opt.rtol and stall < 2)
+
+        while going():
+            if (anchor is not None and it > 0
+                    and it % self.NEWTON_CHUNK == 0):
+                # vasp_tpu's next dispatch chunk starts from a raw float64
+                # residual, which renews the anchor: its age stays bounded
+                R, rnorm = self._residual(U, U0, load)
+                anchor = (U, R)
+                if Ub is U:
+                    Rb, rb = R, rnorm
+                if not going():
+                    break
             if rec == 1 or jacs is None or (it > 0 and (it + age) % rec == 0):
                 jacs = self._jacobians(U, U0, jdt)
             dx = self._direction(R, jacs, eta, exact)
@@ -590,9 +658,12 @@ class IterativeStepper:
             rs = [r if np.isfinite(r) else np.inf for _, _, r in cands]
             U, R, _ = cands[int(np.argmin(rs))]
             rn = min(rs)
+            if use_delta and not chained and fine and anchor is None:
+                # the first fine residual of the call was raw: anchor there
+                anchor = (U, R)
             stall = stall + 1 if rn > sthr * rnorm else 0
             if rn < rb:
-                Ub, rb, rbfine = U, rn, fine
+                Ub, Rb, rb, rbfine = U, R, rn, fine
             # Eisenstat-Walker forcing term of the next direction
             eta = float(np.clip(
                 max(opt.ew_gamma * (rn / max(rnorm, 1e-300)) ** 2,
@@ -604,7 +675,7 @@ class IterativeStepper:
             self._jac_carry = self._carry(jacs, age, it, rb, r0, U1, U0)
         return Ub, dict(iterations=it, residual=rb, r0=r0,
                         stalled=stall >= 2, fine=fine,
-                        rfine=rbfine or exact)
+                        rfine=rbfine or exact, R=Rb)
 
     def _carry(self, jacs, age, it, res, r0, U1, U0):
         """The Jacobian carry a Newton call of `it` iterations leaves: its
@@ -626,18 +697,60 @@ class IterativeStepper:
         return jacs, age
 
     # -------------- public --------------
+    # vasp_tpu's per-dispatch Newton bound, kept here only as the delta
+    # endgame's re-anchoring period
+    NEWTON_CHUNK = 8
+
     def step(self, U0, bc_values, load, tstep):
         """One timestep from U0; returns (U, stats)."""
         inner0, cycles0 = self.gmres_inner, self.gmres_cycles
-        rebuilds0 = self.rebuilds
+        rebuilds0, deltas0 = self.rebuilds, self.deltas
         tiers = []
+        anchor = (self._setup_anchor(U0, bc_values, load, tstep)
+                  if self._chain_on else None)
         U, stats = self._step_ladder(U0, bc_values, load, tstep, tiers)
+        if self._chain_on:
+            # the exit pair, from which the next step's anchor may chain
+            self._chain_prev = dict(tstep=tstep, U=U, R=stats["R"], U0=U0,
+                                    load=load, grade=bool(stats["rfine"]))
         self.history.append(dict(
             tstep=tstep, iterations=stats["iterations"],
             gmres_inner=self.gmres_inner - inner0,
             gmres_cycles=self.gmres_cycles - cycles0,
-            rebuilds=self.rebuilds - rebuilds0, tiers=tiers))
+            rebuilds=self.rebuilds - rebuilds0, tiers=tiers,
+            fine=bool(stats["fine"]), deltas=self.deltas - deltas0,
+            anchor=anchor))
         return U, stats
+
+    def _setup_anchor(self, U0, bc_values, load, tstep):
+        """This step's exact anchor (U1, R(U1)) under the anchor chain:
+        advanced from the previous step's exit (U_exit, R_exit) by one
+        two-argument Taylor delta where the chain holds (the previous step
+        was tstep - 1, its exit is this step's U0 and fine-grade, and fewer
+        than chain_reanchor links since the last raw anchor), as
+        R_exit + mask0(load - load_prev + residual_delta2(U1, U_exit,
+        U_exit, U0_prev) + lift(U1 - U_exit)); else one raw float64
+        residual. Returns "chained" or "raw"."""
+        U1 = torch.where(self.mask, bc_values, U0)
+        prev = self._chain_prev
+        if (prev is not None and prev["tstep"] == tstep - 1
+                and prev["grade"] and prev["U"] is U0
+                and self._chain_age < self.opt.chain_reanchor):
+            with self._timed("delta"):
+                d = self.asm.residual_delta2(U1, prev["U"], prev["U"],
+                                             prev["U0"])
+                corr = load - prev["load"] + d
+                if self._lift is not None:
+                    corr = corr + correction_apply(self._lift, U1 - prev["U"])
+                R = prev["R"] + torch.where(self.mask, 0.0, corr)
+            self._chain_age += 1
+            kind = "chained"
+        else:
+            R, _ = self._residual(U1, U0, load)
+            self._chain_age = 0
+            kind = "raw"
+        self._anc = (U1, R)
+        return kind
 
     def _step_ladder(self, U0, bc_values, load, tstep, tiers):
         opt = self.opt

@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
            "banded.cu", "facet_kernels.cu", "postproc.cu", "lifting.cu",
-           "ras.cu", "schwarz.cu", "nodeblock.cu")
+           "ras.cu", "schwarz.cu", "nodeblock.cu", "delta_kernels.cu")
 HEADERS = ("element_forms.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -35,7 +35,9 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # lifting for the fluid's K1/K3: the _elastic and _nolift instances; per
 # dtype for K16, K7's sweep and scale, and K18; per storage instance for K6 and K12;
 # per local size for K22's build and apply, with its divide apart; K17's
-# extract, invert and apply), bumped by its wrapper right where it launches
+# extract, invert and apply; K13 per form, delta or delta2, and per
+# lifting and material as K1/K2, its facet route as robin_delta(2)),
+# bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
      "solid_residual_f32", "fluid_jacobian", "solid_jacobian",
@@ -58,7 +60,10 @@ LAUNCHES = dict.fromkeys(
      "ras_apply", "ras_apply_f32", "schwarz_build", "schwarz_build_36",
      "schwarz_apply", "schwarz_apply_36", "schwarz_divide",
      "node_block_extract", "node_block_invert", "node_block_apply",
-     "ruiz_scale_f64", "ruiz_scale_36_f64"), 0)
+     "ruiz_scale_f64", "ruiz_scale_36_f64", "fluid_delta", "fluid_delta2",
+     "fluid_delta_elastic", "fluid_delta2_elastic", "fluid_delta_nolift",
+     "fluid_delta2_nolift", "solid_delta", "solid_delta2", "solid_delta_mr",
+     "solid_delta2_mr", "robin_delta", "robin_delta2"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -159,6 +164,11 @@ def _bind(lib):
         "vt_node_block_extract": [P, P, I, I, P, P],
         "vt_node_block_invert": [P, P, L, P, P],
         "vt_node_block_apply": [P, P, L, L, L, P, P],
+        "vt_delta_nq_max": [],
+        "vt_set_delta_tables": [P, P, P, P, I],
+        "vt_fluid_delta": [P] * 10 + [I, I, I, D, D, D, D, D, I, I, D, P],
+        "vt_solid_delta": [P] * 10 + [I, I, I, D, D, D, D, D, I] + [D] * 6
+        + [P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

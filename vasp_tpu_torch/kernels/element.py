@@ -24,6 +24,19 @@ the port computes them in float64 and rounds once on the write (the
 kernel's output type, and ``jacobian_plain(...).to(float32)``). This is a
 designed difference: the port's float32 Jacobians are the correctly
 rounded float64 ones, vasp_tpu's carry float32 rounding from every step.
+
+K13, the order-3 Taylor delta of the endgame and of the anchor chain
+(vasp_tpu/fem/assembly.py Assembler.residual_delta and residual_delta2 on
+the cell blocks), has the same three parts: ``delta_plain`` /
+``delta2_plain`` (``taylor_terms``: three nested torch.func.jvp of the
+per-cell kernel along the same tangents, whose k-th is jax.experimental.jet's
+k-th output term y_k), ``delta_cuda`` / ``delta2_cuda`` (csrc/delta_kernels.cu)
+and ``block_delta``. Its value is vasp_tpu's: y1 + y2 + y3 in float32 on
+float32-rounded A, U0 and geometry with du = U - A (and du0) rounded, the
+row mask applied, accumulated in float64. jet's terms are derivatives, so
+this counts the second- and third-order terms of R(U) - R(A) ~ y1 + y2/2 +
+y3/6 twice and six times over (ROADMAP.md queue 3); the port computes what
+vasp_tpu computes.
 """
 import numpy as np
 import torch
@@ -39,7 +52,9 @@ _LIFT_SUB = {"volume": 1, "volume_change": 2}
 _LIFTS = {"laplace": (0, ""), "biharmonic": (0, ""), "elastic": (1, "_elastic"),
           "no_extrapolation": (2, "_nolift")}
 
-# device index -> the quadrature degree whose tables sit in its constant memory
+# (source, device index) -> the quadrature degree whose tables sit in that
+# source's constant memory on that device ("element": element_kernels.cu,
+# "delta": delta_kernels.cu)
 _uploaded_tables = {}
 
 
@@ -80,6 +95,77 @@ def jacobian_plain(block, U, U0, chunk=256):
     if block.rowmask is not None:
         A = A * block.rowmask[:, :, None]
     return A
+
+
+def _jvp3(f, primals, tangents):
+    """(y1, y2, y3): the first three derivatives of t -> f(primals + t
+    tangents) at t = 0, by three nested torch.func.jvp along the same
+    tangents (the k-th nesting differentiates the (k-1)-th term once more)."""
+    def g1(*p):
+        return torch.func.jvp(f, p, tangents)
+
+    def g2(*p):
+        return torch.func.jvp(g1, p, tangents)
+
+    (((_, y1), (_, y2)), ((_, _), (_, y3))) = torch.func.jvp(g2, primals,
+                                                            tangents)
+    return y1, y2, y3
+
+
+def taylor_terms(block, U, A, U0, U0new=None, dtype=torch.float32,
+                 chunk=2048):
+    """(y1, y2, y3), each (K,64) in `dtype`, rows masked: the derivatives
+    jax.experimental.jet returns for the block's kernel at (A, U0) with the
+    series [du, 0, 0] on the state, du = U - A, and with U0new given also
+    [du0, 0, 0] on the previous state, du0 = U0new - U0. Every input is
+    rounded to `dtype` (float32 as in vasp_tpu; float64 to measure the
+    series itself), du and du0 after their float64 differences. Cells go
+    in chunks of `chunk` (bounds the nested tangents' intermediates)."""
+    cell = block.kernel.cell
+    dofs = block.dofs
+    args = [A[dofs], (U - A)[dofs], U0[dofs]]
+    if U0new is not None:
+        args.append((U0new - U0)[dofs])
+    args = [a.to(dtype) for a in args] + [
+        block.Jinv.to(dtype), block.detJ.to(dtype), block.vol.to(dtype)]
+
+    if U0new is None:
+        def one(a, du, u0, J, dJ, v):
+            return _jvp3(lambda x: cell(x, u0, J, dJ, v), (a,), (du,))
+    else:
+        def one(a, du, u0, du0, J, dJ, v):
+            return _jvp3(lambda x, x0: cell(x, x0, J, dJ, v), (a, u0),
+                         (du, du0))
+
+    # the kernel's cached tables are made here, outside the transforms: a
+    # tensor made under torch.func.jvp belongs to that jvp's level and
+    # would escape it through the cache
+    block.kernel.tables(args[0])
+    terms = torch.func.vmap(one)
+    K = dofs.shape[0]
+    parts = [terms(*(t[s:s + chunk] for t in args))
+             for s in range(0, K, chunk)]
+    ys = [torch.cat([p[k] for p in parts]) if parts
+          else A.new_zeros((0, 64), dtype=dtype) for k in range(3)]
+    if block.rowmask is not None:
+        ys = [y * block.rowmask.to(dtype) for y in ys]
+    return tuple(ys)
+
+
+def delta_plain(block, U, A, U0, R, dtype=torch.float32, U0new=None):
+    """R += the block's delta y1 + y2 + y3 (taylor_terms, in `dtype`),
+    vasp_tpu's residual_delta on this block; with U0new its residual_delta2
+    (the previous state moving from U0 to U0new too)."""
+    y1, y2, y3 = taylor_terms(block, U, A, U0, U0new, dtype=dtype)
+    R.index_add_(0, block.dofs.reshape(-1),
+                 (y1 + y2 + y3).reshape(-1).to(R.dtype))
+    return R
+
+
+def delta2_plain(block, U, A, U0new, U0old, R, dtype=torch.float32):
+    """R += the block's two-argument delta, in residual_delta2's argument
+    order."""
+    return delta_plain(block, U, A, U0old, R, dtype, U0new)
 
 
 # ------------------------------------------------------------- cuda ----
@@ -128,9 +214,12 @@ def counter_name(block, op, f32):
     return f"{kern.kind}_{op}{tag}" + ("_f32" if f32 else "")
 
 
-def _prepare(block, U, U0):
-    """Validate the block's tensors, upload the quadrature tables if the
-    device holds another degree's, and return (lib, nq, stream)."""
+def _prepare(block, U, U0, source="element"):
+    """Validate the block's tensors, upload the quadrature tables into the
+    source's constant memory if the device holds another degree's there,
+    and return (lib, nq, stream). source "element" (K1-K3: float64 tables,
+    float32 ones up to VT_NQ_MAX_F32 points) or "delta" (K13: float32
+    tables only)."""
     lib = build.library()
     dev, f64 = U.device, torch.float64
     K = block.dofs.shape[0]
@@ -147,16 +236,18 @@ def _prepare(block, U, U0):
                        for a in kern.tables_np)
     nq = len(wq)
     dev_index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if _uploaded_tables.get(dev_index) != kern.quad_degree:
-        if nq > lib.vt_element_nq_max():
+    if _uploaded_tables.get((source, dev_index)) != kern.quad_degree:
+        nq_max, upload = ((lib.vt_element_nq_max(), lib.vt_set_element_tables)
+                          if source == "element" else
+                          (lib.vt_delta_nq_max(), lib.vt_set_delta_tables))
+        if nq > nq_max:
             raise NotImplementedError(
                 f"quadrature_degree={kern.quad_degree} has {nq} points; the "
-                f"CUDA element kernels hold at most {lib.vt_element_nq_max()}")
+                f"CUDA {source} kernels hold at most {nq_max}")
         with torch.cuda.device(dev):
-            build.check(lib.vt_set_element_tables(
-                wq.ctypes.data, N1.ctypes.data, N2.ctypes.data,
-                dN2.ctypes.data, nq), "vt_set_element_tables")
-        _uploaded_tables[dev_index] = kern.quad_degree
+            build.check(upload(wq.ctypes.data, N1.ctypes.data, N2.ctypes.data,
+                               dN2.ctypes.data, nq), f"{source} tables")
+        _uploaded_tables[(source, dev_index)] = kern.quad_degree
     return lib, nq, build.stream_handle(dev)
 
 
@@ -203,6 +294,37 @@ def jacobian_cuda(block, U, U0, dtype=torch.float64):
     return A
 
 
+def _delta_launch(block, U, A, U0, U0new, R):
+    """R += the block's K13 delta (delta2 where U0new is given)."""
+    lib, nq, stream = _prepare(block, U, U0, "delta")
+    dev = U.device
+    build.require(A, "A", torch.float64, U.shape, dev)
+    build.require(R, "R", torch.float64, U.shape, dev)
+    delta2 = U0new is not None
+    if delta2:
+        build.require(U0new, "U0new", torch.float64, U.shape, dev)
+    kind = block.kernel.kind
+    fn = lib.vt_fluid_delta if kind == "fluid" else lib.vt_solid_delta
+    args = [build.ptr(t) for t in (U, A, U0, U0new, block.dofs, block.Jinv,
+                                   block.detJ, block.vol, block.rowmask, R)]
+    name = counter_name(block, "delta2" if delta2 else "delta", False)
+    build.check(fn(*args, int(delta2), block.dofs.shape[0], nq,
+                   *cuda_params(block.kernel), stream), name)
+    build.LAUNCHES[name] += 1
+    return R
+
+
+def delta_cuda(block, U, A, U0, R):
+    """R += the block's delta, by the K13 kernel (float32 series)."""
+    return _delta_launch(block, U, A, U0, None, R)
+
+
+def delta2_cuda(block, U, A, U0new, U0old, R):
+    """R += the block's two-argument delta, by the K13 kernel's delta2
+    instance."""
+    return _delta_launch(block, U, A, U0old, U0new, R)
+
+
 # --------------------------------------------------------- dispatch ----
 def block_residual(block, U, U0, R, dtype=None):
     """R += the block's masked element residuals, their element work in
@@ -219,3 +341,14 @@ def block_jacobian(block, U, U0, dtype=torch.float64):
     if build.on_cuda(U, "element"):
         return jacobian_cuda(block, U, U0, dtype)
     return jacobian_plain(block, U, U0).to(dtype)
+
+
+def block_delta(block, U, A, U0, R, U0new=None):
+    """R += the block's K13 delta along U - A at the previous state U0 (and,
+    with U0new, along U0new - U0 on it: the two-argument form): plain on
+    CPU tensors, the CUDA kernel on CUDA tensors."""
+    if not build.on_cuda(U, "element"):
+        return delta_plain(block, U, A, U0, R, U0new=U0new)
+    if U0new is None:
+        return delta_cuda(block, U, A, U0, R)
+    return delta2_cuda(block, U, A, U0new, U0, R)

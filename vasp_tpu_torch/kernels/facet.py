@@ -18,6 +18,15 @@ FacetBlock.residual_local with dtype=float32. Jacobians come in float64 or
 float32; the float32 ones are the float64 ones rounded once, the designed
 difference from vasp_tpu's float32 jacfwd that kernels/element.py states
 for K3. The term is linear, so its Jacobians do not depend on U.
+
+The facet part of K13 (vasp_tpu's residual_delta and residual_delta2 on a
+facet block): the Robin term is linear in u, so jax.experimental.jet's
+series of it along du = U - A is y1 = kernel(du) with y2 = y3 = 0, and its
+delta is the float32 residual of du. ``delta_plain`` is residual_plain on
+U - A in float32 (or float64, to measure the series); ``delta_cuda`` is
+the K14 float32 residual launched on U - A, counted as K13's
+(robin_delta, robin_delta2). The facet term has no previous state, so
+both forms are the same.
 """
 import torch
 
@@ -65,9 +74,10 @@ def _tables(block, like, nq):
     return wq, N2t
 
 
-def residual_cuda(block, U, R, dtype=None):
+def residual_cuda(block, U, R, dtype=None, name=None):
     """R += the block's facet residuals, by the K14 residual kernel: its
-    float64 instance, or its float32 one for dtype=torch.float32."""
+    float64 instance, or its float32 one for dtype=torch.float32; the
+    launch counted under `name` (by default the instance's own)."""
     f32 = _residual_f32(dtype)
     dev = U.device
     lib, K, nq, stream = _prepare(block, dev)
@@ -75,13 +85,20 @@ def residual_cuda(block, U, R, dtype=None):
     build.require(R, "R", torch.float64, U.shape, dev)
     wq, N2t = _tables(block, U.new_empty(
         (), dtype=torch.float32 if f32 else torch.float64), nq)
-    name = "robin_residual" + ("_f32" if f32 else "")
+    name = name or "robin_residual" + ("_f32" if f32 else "")
     build.check(lib.vt_robin_residual(
         *map(build.ptr, (U, block.dofs, block.area2, wq, N2t)), nq,
         build.ptr(R), int(f32), K, block.kernel.k_s, block.kernel.c_s,
         stream), name)
     build.LAUNCHES[name] += 1
     return R
+
+
+def delta_cuda(block, U, A, R, name="robin_delta"):
+    """R += the block's K13 delta, by the K14 float32 residual kernel on
+    U - A (which the kernel rounds to float32: vasp_tpu's du), counted
+    under `name` (robin_delta, or robin_delta2 in the two-argument form)."""
+    return residual_cuda(block, U - A, R, torch.float32, name)
 
 
 def jacobian_cuda(block, device, dtype=torch.float64):
@@ -117,3 +134,21 @@ def block_jacobian(block, U, U0, dtype=torch.float64):
     if build.on_cuda(U, "facet"):
         return jacobian_cuda(block, U.device, dtype)
     return jacobian_plain(block, U).to(dtype)
+
+
+def delta_plain(block, U, A, R, dtype=torch.float32):
+    """R += the block's delta, the facet residual of U - A with its facet
+    work in `dtype` (float32, or float64 to measure the series)."""
+    return residual_plain(block, U - A, R,
+                          None if dtype == torch.float64 else dtype)
+
+
+def block_delta(block, U, A, U0, R, U0new=None):
+    """R += the block's K13 delta along U - A (U0 and U0new unused: the
+    term has no time history): plain on CPU tensors, the CUDA route on
+    CUDA tensors."""
+    if build.on_cuda(U, "facet"):
+        return delta_cuda(block, U, A, R,
+                          "robin_delta2" if U0new is not None
+                          else "robin_delta")
+    return delta_plain(block, U, A, R)

@@ -47,8 +47,19 @@ def wss_load_plain(u, dofs, G2, normals, wq, N1f, area2, fb, nb, mu):
 def stress_strain_plain(d, dofs, G, segments):
     """d (T, n_p2, 3) -> (sig, eps (T,K,4,3,3), mps, mpe (T,K,4)): per
     solid (cell, vertex) sigma = F S F^T / J, E, and their largest
-    eigenvalues; segments lists (k0, K_seg, props), one per material."""
-    gd = torch.einsum("tkai,kvaj->tkvij", d[:, dofs], G)
+    eigenvalues; segments lists (k0, K_seg, props), one per material.
+
+    The displacement gradient is a sum over the 10 nodes, in node order, of
+    elementwise products, so each entry rounds the same way however many
+    steps T the batch holds: a batched einsum goes to a matrix product
+    whose blocking, and so its rounding, follows T (and the threads it
+    gets), which moved a streamed series' outputs by up to 4e-11 of their
+    scale against one pass over the whole series (the Cardano eigenvalues
+    amplify a rounding change of the tensors)."""
+    dk = d[:, dofs]  # (T,K,10,3)
+    gd = dk[:, :, 0, None, :, None] * G[None, :, :, 0, None, :]
+    for a in range(1, 10):
+        gd = gd + dk[:, :, a, None, :, None] * G[None, :, :, a, None, :]
     eye = torch.eye(3, dtype=d.dtype, device=d.device)
     sigs = []
     for k0, n, props in segments:

@@ -320,8 +320,8 @@ class FSISystem:
             chain_reanchor=int(cfg.get("chain_reanchor", 1)),
         )
         # the caller's options override the config's before StepOptions
-        # validates them (residual_dtype="f32" is refused unless
-        # delta_endgame=False comes with it)
+        # validates them; as in vasp_tpu no config key sets delta_endgame,
+        # so residual_dtype="f32" takes the Taylor-delta endgame
         known = {f.name for f in dataclasses.fields(StepOptions)}
         kw.update({k: v for k, v in opts.items() if k in known})
         sopts = StepOptions(**kw)
