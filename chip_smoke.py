@@ -283,8 +283,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      and plain version, with torch.linalg.inv of K22's modified blocks
      (the branch's inverse) and of K17's node blocks, cuSPARSE's SpMV of
      the assembled Schwarz operator, torch.div (K22's divide, also timed
-     with the divide replayed from a CUDA graph) and torch.bmm as
-     yardsticks; and fem/preconditioner.py's build (K22 at eps 1e-8,
+     with the divide replayed from a CUDA graph), torch.bmm and, for
+     K17's extract, index_add_ of the cells' pre-gathered 6x6 node blocks
+     (K8's convention) as yardsticks; and fem/preconditioner.py's build
+     (K22 at eps 1e-8,
      float32 inverses) equal to the same on the plain K22.
    Phase 3 also runs, on the CPU and on the card, the Krylov branch on a
    transient flow in a rigid pipe (tests/test_torch_schwarz.py's case
@@ -328,9 +330,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      phase 9, and then fails only on non-finite values or a missing
      launch).
 
-Phases 3-14 run with HDF5 output off (save_step=0, checkpoint_step=0),
-so the smoke needs no h5py on the GPU host; the CPU tests hold the output
-files.
+15. The sharded Newton-Krylov path (K21):
+   - 15a (run within phase 2, on its K9 factors at the 20,832-cell tube
+     split into two spans of 21 blocks, as two ranks hold them): K21a's
+     zero-carry and true-carry passes on each span against their plain
+     versions, and the two ranks' chain and Thomas applies composed in
+     one process against their plain compositions and against K6's
+     single-device apply, each by K6's rule against the float64 scans;
+     the compositions' probes beside K6's; rank 1's chain apply (five
+     stages) timed beside its bound (Sinv + 2H + 2G of its span) and
+     plain version, its Thomas apply (three stages) likewise, and the
+     chain's carry update beside torch.addmv;
+   - 15b: vasp-tpu-torch-run -p cylinder at 20,832 cells on phase 5's
+     configuration with n_devices=2 and dist_backend=gloo, both ranks on
+     this card (their exchanges gloo all-reduces of CUDA tensors), 3
+     steps, started as the console script starts it (driver.main spawns
+     the ranks), each rank's counters reset just before its time loop
+     and read just after it (the launches of the kernels line are the
+     ranks' sums); the same Newton counts as phase 5's first 3 steps and
+     U within 3e-5 relative of its step-3 state (phase 5 and 6 keep
+     their states per step through a problem file); per rank Newton and
+     GMRES counts, the rebuild by part, s/step, peak memory and K21a's
+     launches. With two cards or more the same on nccl, one card a rank
+     (a machine of one card does not make it).
+
+Phases 3-15 run with HDF5 output off (save_step=0, checkpoint_step=0)
+and, but for 15b, on one device (n_devices=1), so the smoke needs no h5py
+on the GPU host and shards nothing on a machine of several cards; the CPU
+tests hold the output files.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
@@ -369,13 +396,14 @@ FULL_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04, n_theta=16,
 # 10 layers of the 11,088-cell tube's cross-section: 2,520 cells
 LU_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04 * 10 / 44,
                n_theta=12, n_r_fluid=3, n_r_solid=1, n_z=10)
-# HDF5 output off, so no h5py is needed; the CPU tests cover the
-# Visualization/Checkpoint files
-NO_FILES = dict(save_step=0, checkpoint_step=0)
+# every driver run's keys: HDF5 output off, so no h5py is needed (the CPU
+# tests cover the Visualization/Checkpoint files), and one device (with
+# n_devices unset, a run on a machine of several cards shards over all)
+RUN_KEYS = dict(save_step=0, checkpoint_step=0, n_devices=1)
 # the cylinder overrides of tests/conftest.py (cylinder_run)
 TINY = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
             atol=1e-7, rtol=1e-7, recompute=5, recompute_tstep=1,
-            verbose=True, **NO_FILES)
+            verbose=True, **RUN_KEYS)
 # bench.py's options of the Newton-Krylov path (bench.py:102-162) as
 # config keys, and as StepOptions
 BENCH_CFG = dict(linear_solver="gmres", residual_dtype="f32f",
@@ -392,7 +420,7 @@ MODEL_MESH = dict(n_theta=16, n_r_fluid=3, n_r_solid=1, n_z=62)
 TINY_ANEURYSM = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=2,
                      atol=1e-6, rtol=1e-6, recompute=5, recompute_tstep=1,
                      generated_mesh_params=dict(n_theta=8, n_z=8),
-                     verbose=True, **NO_FILES)
+                     verbose=True, **RUN_KEYS)
 # the tiny predeform of tests/test_driver_predeform.py:21-56 (its
 # raise_on_fail=False and atol 5e-5 included: the theta=1 MR inflation's
 # slow tail at its squeezed increments)
@@ -401,7 +429,7 @@ TINY_PREDEFORM = dict(
     rtol=1e-4, raise_on_fail=False, recompute=1, recompute_tstep=1,
     t_start_v=0.0, t_end_v=0.01, t_start_p=0.01, t_end_p=0.05,
     v_max_final=0.05, P_final=400.0, verbose=True,
-    generated_mesh_params=dict(n_theta=8, n_z=4), **NO_FILES)
+    generated_mesh_params=dict(n_theta=8, n_z=4), **RUN_KEYS)
 # the tiny AVF of tests/test_torch_driver_avf.py: tests/test_driver_avf.py's
 # cut to 2 steps and n_z=4 (1,536 cells), whose host splu takes minutes
 # at n_z=8
@@ -410,7 +438,7 @@ TINY_AVF = dict(T=0.0002, dt=0.0001, mesh_path=None, patient_data_path=None,
                 recompute_tstep=1, vel_t_ramp=0.0002, p_t_ramp_start=0.0001,
                 p_t_ramp_end=0.0003,
                 generated_mesh_params=dict(n_theta=8, n_z=4), verbose=True,
-                **NO_FILES)
+                **RUN_KEYS)
 # phase 9: predeform on the bench configuration with the config's max_it
 # (lmbda=0.5 halves the residual per iteration, so 12 cannot reach 1e-6)
 # and its ramps shifted so that pressure is on within the run:
@@ -722,6 +750,14 @@ REPLACES = {
     "robin_delta2": (CSRC + "facet_kernels.cu",
                      "vasp_tpu/fem/assembly.py:301 (residual_delta2, facet "
                      "blocks)", "aneurysm_chain"),
+    "banded_carry": (CSRC + "banded.cu",
+                     "vasp_tpu/parallel/banded_shard.py:676 "
+                     "(make_sharded_chain_apply) and :846 "
+                     "(make_sharded_banded_apply)", "sharded"),
+    "banded_carry_update": (CSRC + "banded.cu",
+                            "vasp_tpu/parallel/banded_shard.py:724 (the "
+                            "chain's carry update, wlast + Tf carry)",
+                            "sharded"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
@@ -826,6 +862,10 @@ PATHS = {
                         "solid_jacobian_mr_f32", "fluid_delta",
                         "fluid_delta2", "solid_delta_mr", "solid_delta2_mr"}
     | _KRYLOV_FLUID | _ROBIN_F32 | _MEASURES,
+    # the sharded Newton-Krylov path (phase 15b), summed over its ranks:
+    # K21a in place of K6
+    "sharded": _TINY_BANDED | {"banded_carry", "banded_carry_update"}
+    | _MEASURES,
 }
 
 
@@ -1499,6 +1539,8 @@ def phase_iterative_kernels(records, system, bc):
                 f"3x({pat.nb},{pat.c},{pat.c}) f32, r f64",
                 f64_rel_kernel=dk, f64_rel_plain=dp)
     storage = phase_storage_kernels(records, Ck, Dk, Bk, Sinv, perm, r, pat)
+    storage.update(phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm,
+                                       r, pat, probe))
     del Ck, Dk, Bk
     return dict(scan_ms=t_scan * 1e3, hg_ms=t_hg * 1e3,
                 probe_ms=t_probe * 1e3, probe_rel=probe, setup=setup,
@@ -1562,6 +1604,169 @@ def phase_storage_kernels(records, Ck, Dk, Bk, Sinv, perm, r, pat):
             / HBM_BYTES_PER_S * 1e3
         records[name]["bound_ms_sinv_read_twice"] = reread
         print(f"    {name}: bound with Sinv read twice {reread:.4f} ms")
+    return out
+
+
+def _two_span_apply(stage, update, spans, rb, chain):
+    """The sharded apply of parallel/banded_shard.py for two ranks, run in
+    one process: rank 0 holds spans[0], rank 1 spans[1] (each (Sinv, H, G,
+    Tf, Tb)), their stages and carries in the order the two ranks run
+    them; chain: make_sharded_chain_apply (every rank's zero-carry scans,
+    the carry updates, the scans again), else make_sharded_banded_apply."""
+    import torch
+
+    m = spans[0][0].shape[0]
+    F0, F1 = spans[0][:3], spans[1][:3]
+    t0 = stage(*F0, "times", rb[:m])
+    t1 = stage(*F1, "times", rb[m:])
+    if chain:
+        wz0 = stage(*F0, "forward", t0)
+        stage(*F1, "forward", t1)  # rank 1's zero-carry scan
+        w_in = update(spans[0][3], torch.zeros_like(wz0[-1]), wz0[-1])
+    w0 = stage(*F0, "forward", t0)
+    w1 = stage(*F1, "forward", t1, w_in if chain else w0[-1])
+    if chain:
+        stage(*F0, "backward", w0)  # rank 0's zero-carry scan
+        xz1 = stage(*F1, "backward", w1)
+        x_in = update(spans[1][4], torch.zeros_like(xz1[0]), xz1[0])
+    x1 = stage(*F1, "backward", w1)
+    x0 = stage(*F0, "backward", w0, x_in if chain else x1[0])
+    return torch.cat([x0, x1])
+
+
+def phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm, r, pat,
+                        probe):
+    """Phase 15a: K21a on phase 2's K9 factors at the 20,832-cell tube,
+    split into two spans of nb/2 blocks as two ranks hold them: its
+    zero-carry and true-carry passes on each span (a pass is the three
+    stages, t = Sinv r, the forward and the backward scan), and the two
+    ranks' chain and Thomas applies composed in this process, each by K6's
+    rule (the distance to the same scans in float64 at most twice the
+    plain version's plus 1e-6), the compositions against K6's
+    single-device apply too. Timed: one rank's chain apply (the five
+    stages of rank 1, which holds the second span) beside its bound
+    (Sinv + 2H + 2G of the span read) and its plain version, its Thomas
+    apply (three stages, Sinv + H + G), and the carry update (with
+    torch.addmv as the yardstick); the probes of both compositions beside
+    phase 2's."""
+    import torch
+
+    from vasp_tpu_torch.kernels import banded as kb
+    from vasp_tpu_torch.parallel.banded_shard import (
+        sharded_transfer_products,
+    )
+
+    nb, c, ndof = pat.nb, pat.c, pat.ndof
+    m = nb // 2
+    print(f"[15a] K21a on phase 2's factors split into two spans of {m} "
+          f"blocks (c={c}):")
+    spans = []
+    for sl in (slice(0, m), slice(m, nb)):
+        F = (Sinv[sl], H[sl], G[sl])
+        spans.append(F + sharded_transfer_products(F[1], F[2]))
+    rb = torch.zeros(pat.npad, dtype=torch.float32, device="cuda")
+    rb[:ndof] = r[perm].float()
+    rb = rb.view(nb, c)
+    out = {}
+
+    def k6_rule(name, xk, xp, ref):
+        dk, dp = rel_err(xk, ref)[0], rel_err(xp, ref)[0]
+        print(f"    {name} vs the f64 scans: kernel {dk:.3e}, plain {dp:.3e}")
+        require(dk <= 2 * dp + 1e-6, f"{name} is less accurate than its "
+                                     f"plain version: {dk:.3e} vs {dp:.3e}")
+        return dk, dp
+
+    # the passes of each span with its true carries (rank 0 receives x_in,
+    # rank 1 w_in) and with none
+    w_in = kb.solve_blocks_carry_plain(*spans[0][:3], rb[:m])[1]
+    x_in = kb.solve_blocks_carry_plain(*spans[1][:3], rb[m:], w_in)[2]
+    for k, carries in ((0, (None, x_in)), (1, (w_in, None))):
+        F, a = spans[k][:3], rb[k * m:(k + 1) * m]
+        for label, cy in (("zero-carry", (None, None)), ("true-carry",
+                                                          carries)):
+            # a pass's outputs, x, w_last and x_first, as one vector
+            xk, xp, ref = (torch.cat([o.reshape(-1) for o in outs])
+                           for outs in (
+                kb.solve_blocks_carry_cuda(*F, a, *cy),
+                kb.solve_blocks_carry_plain(*F, a, *cy),
+                kb.solve_blocks_carry_plain(
+                    *F, a.double(), *(None if v is None else v.double()
+                                      for v in cy))))
+            k6_rule(f"span {k} {label} pass", xk, xp, ref)
+    # float64 arithmetic on the float32 factors (bgemv widens each block
+    # to the vector's type)
+    x64 = kb.solve_blocks_plain(Sinv, H, G, rb.double())
+    xk6 = kb.solve_blocks_cuda(Sinv, H, G, rb)
+    b = torch.where(torch.arange(pat.npad, device="cuda") % 2 == 0, 1.0,
+                    -1.0).view(nb, c)
+
+    def probe_of(x):
+        y = kb.bgemv(Dk, x)
+        y[1:] += kb.bgemv(Ck[1:], x[:-1])
+        y[:-1] += kb.bgemv(Bk[:-1], x[1:])
+        return float(torch.linalg.norm(y - b) / torch.linalg.norm(b))
+
+    for algo, chain in (("chain", True), ("thomas", False)):
+        xk = _two_span_apply(kb.carry_stage_cuda, kb.carry_update_cuda,
+                             spans, rb, chain)
+        xp = _two_span_apply(kb.carry_stage_plain, kb.carry_update_plain,
+                             spans, rb, chain)
+        dk, _ = k6_rule(f"two-rank {algo} apply", xk, xp, x64)
+        dk6 = rel_err(xk6, x64)[0]
+        require(dk <= 2 * dk6 + 1e-6, f"the two-rank {algo} apply is less "
+                                      f"accurate than K6's: {dk:.3e} vs "
+                                      f"{dk6:.3e}")
+        pr = probe_of(_two_span_apply(kb.carry_stage_cuda,
+                                      kb.carry_update_cuda, spans, b, chain))
+        print(f"    two-rank {algo} apply: K6 single-device {dk6:.3e} from "
+              f"the f64 scans; probe {pr:.3e} (K6's {probe:.3e})")
+        out[f"probe_rel_{algo}"] = pr
+        out[f"f64_rel_{algo}"] = dk
+
+    # rank 1's applies, timed: the second span with its true carry w_in
+    F1, a1 = spans[1], rb[m:]
+    zero_in = torch.zeros(c, dtype=torch.float32, device="cuda")
+
+    def rank1(stage, update, chain):
+        t = stage(*F1[:3], "times", a1)
+        if chain:
+            stage(*F1[:3], "forward", t)
+        w = stage(*F1[:3], "forward", t, w_in)
+        if chain:
+            xz = stage(*F1[:3], "backward", w)
+            update(F1[4], zero_in, xz[0])
+        return stage(*F1[:3], "backward", w)
+
+    span_bytes = nbytes(*F1[:3])
+    for name, chain, reads in (("banded_carry", True, 5), ("thomas", False,
+                                                          3)):
+        xk = rank1(kb.carry_stage_cuda, kb.carry_update_cuda, chain)
+        xp = rank1(kb.carry_stage_plain, kb.carry_update_plain, chain)
+        ms = cuda_ms(lambda: rank1(kb.carry_stage_cuda, kb.carry_update_cuda,
+                                   chain), 10)
+        plain_ms = cuda_ms(lambda: rank1(kb.carry_stage_plain,
+                                         kb.carry_update_plain, chain), 3)
+        work = (span_bytes // 3 * reads + nbytes(a1, xk),
+                2 * reads * m * c * c, "f32")
+        if name == "banded_carry":
+            records.add(name, rel_err(xk, xp), ms, plain_ms, work, math.inf,
+                        f"rank 1 of 2: 5 stages, ({m},{c},{c}) f32")
+        else:
+            b_ms = bound(*work)[0]
+            records["banded_carry"].update(thomas_ms=ms,
+                                           thomas_plain_ms=plain_ms,
+                                           thomas_bound_ms=b_ms)
+            print(f"    rank 1's Thomas apply (3 stages): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms")
+    Tf, v, a = F1[3], w_in, a1[0]
+    uk, up = kb.carry_update_cuda(Tf, v, a), kb.carry_update_plain(Tf, v, a)
+    k6_rule("carry update", uk, up, a.double() + Tf.double() @ v.double())
+    records.add("banded_carry_update", rel_err(uk, up),
+                cuda_ms(lambda: kb.carry_update_cuda(Tf, v, a), 50),
+                cuda_ms(lambda: kb.carry_update_plain(Tf, v, a), 50),
+                (nbytes(Tf, v, a, uk), 2 * c * c, "f32"), math.inf,
+                f"({c},{c}) f32", library_ms=cuda_ms(
+                    lambda: torch.addmv(a, Tf, v), 50))
     return out
 
 
@@ -2334,7 +2539,7 @@ def run_main_path(tmp, label, mesh_params, problem="cylinder", T=0.005,
 
     cfg_path = tmp / f"{label}_config.json"
     cfg_path.write_text(json.dumps(dict(
-        mesh_path=None, generated_mesh_params=mesh_params, **NO_FILES,
+        mesh_path=None, generated_mesh_params=mesh_params, **RUN_KEYS,
         **cfg)))
     folder = tmp / f"main_{label}"
     n_steps = round(T / dt)
@@ -2491,15 +2696,25 @@ def report_stepper(st, records):
 
 def phase_krylov(tmp, records, label, title, **cfg):
     """driver.main on the Krylov path at the 20,832-cell tube (phases 5
-    and 6): the main-path checks, the stepper's lines, a profiled step."""
+    and 6) through CYLINDER_PROBLEM: the main-path checks, the stepper's
+    lines, a profiled step. Returns the launches, GMRES's bound per
+    direction, the layout needs and GMRES inner iterations, and the
+    states the problem file kept with each step's Newton iterations."""
     print(title)
-    ns, launches = run_main_path(tmp, label, FULL_MESH, **cfg)
+    path = tmp / f"{label}_problem.py"
+    path.write_text(CYLINDER_PROBLEM.format())
+    ns, launches = run_main_path(tmp, label, FULL_MESH, problem=str(path),
+                                 **cfg)
     st = ns["solver"].stepper
     k5 = report_stepper(st, records)
     profile_one_step(ns)
+    newton = [json.loads(line)["newton_iterations"] for line in
+              (Path(ns["folder"]) / "metrics.jsonl").read_text()
+              .splitlines()]
     return launches, k5, dict(layout_needs(st._bpat, st._block_sizes),
                               gmres_inner=[h["gmres_inner"]
-                                           for h in st.history])
+                                           for h in st.history]), \
+        [(U.cpu(), it) for (_, U), it in zip(ns["series"], newton)]
 
 
 def phase_bench(records, label="bench", title=None, free=None, **opts):
@@ -2814,6 +3029,14 @@ def post_solve(dvp_, t, **namespace):
     _post_solve(dvp_=dvp_, t=t, **namespace)
     return {{"series": namespace.get("series", []) + [(t, dvp_["n"].clone())]}}
 '''
+# a problem file: -p cylinder, its series kept (phases 5 and 6; phase 15b
+# holds its 2-rank run to phase 5's states)
+CYLINDER_PROBLEM = '''"""-p cylinder, its per-step state kept (chip_smoke.py phases 5 and 6)."""
+from vasp_tpu_torch.models.cylinder import (  # noqa: F401
+    create_bcs, get_mesh_domain_and_boundaries, pre_solve,
+    set_problem_parameters)
+from vasp_tpu_torch.models.cylinder import post_solve as _post_solve
+''' + SERIES_HOOK
 # a problem file: -p offset_stenosis, its series kept (phases 8 and 10)
 STENOSIS_PROBLEM = '''"""-p offset_stenosis, its per-step state kept (chip_smoke.py phase 8)."""
 from vasp_tpu_torch.models.offset_stenosis import (  # noqa: F401
@@ -3623,11 +3846,21 @@ def phase_new_kernels(records, system, bc):
         return nb
 
     nb = extract(knb.extract_plain)
+    # the yardstick: one index_add_ of the cells' 6x6 node blocks gathered
+    # beforehand (K8's convention), into a zeroed sum
+    loc = torch.as_tensor(knb._LOCAL, device="cuda")
+    blocks6 = torch.cat([A[:, loc[:, :, None], loc[:, None, :]].reshape(
+        -1, 6, 6) for A in Sp])
+    nodes6 = torch.cat([(d[:, 0:30:3] // 3).reshape(-1) for d in dofs])
+    nb6 = torch.zeros_like(nb)
+    lib_ms = cuda_ms(lambda: nb6.index_add_(0, nodes6, blocks6), 20)
+    del blocks6, nodes6, nb6
     records.add("node_block_extract", rel_err(extract(knb.extract_cuda), nb),
                 cuda_ms(lambda: extract(knb.extract_cuda), 20),
                 cuda_ms(lambda: extract(knb.extract_plain), 5),
                 (K_all * 10 * (36 + 1) * 8 + 36 * 8 * sp.n_p2,
-                 36 * 10 * K_all, "f64"), TOL_F64, f"K={K_all}, n_p2={sp.n_p2}")
+                 36 * 10 * K_all, "f64"), TOL_F64, f"K={K_all}, n_p2={sp.n_p2}",
+                library_ms=lib_ms)
     Pp = knb.invert_plain(nb, mask)
     scale_n = Pp.abs().amax(dim=(1, 2), keepdim=True)
     Pk = knb.invert_cuda(nb, mask)
@@ -3654,6 +3887,159 @@ def phase_new_kernels(records, system, bc):
     del Sp, nb, Pp, Pk
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 15 --
+# a problem file: -p cylinder on each rank of a sharded run, the rank's
+# launch counters (reset just before its time loop, read just after), peak
+# memory, step times (pre_solve to post_solve, synchronized) and stepper
+# records written to <folder>/rank<r>.json, rank 0's final state to
+# <folder>/U.pt (phase 15b)
+SHARDED_PROBLEM = '''"""-p cylinder, each rank's counters and records kept (chip_smoke.py phase 15b)."""
+import json
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from vasp_tpu_torch.kernels import build
+from vasp_tpu_torch.models.cylinder import (  # noqa: F401
+    create_bcs, get_mesh_domain_and_boundaries, set_problem_parameters)
+from vasp_tpu_torch.models.cylinder import post_solve as _post_solve
+from vasp_tpu_torch.models.cylinder import pre_solve as _pre_solve
+
+
+def initiate(system, **namespace):
+    torch.cuda.reset_peak_memory_stats(system.device)
+    build.reset_launch_counts()
+    return {{"step_clock": []}}
+
+
+def pre_solve(step_clock, **namespace):
+    torch.cuda.synchronize()
+    step_clock.append(time.perf_counter())
+    return _pre_solve(**namespace)
+
+
+def post_solve(step_clock, **namespace):
+    _post_solve(**namespace)
+    torch.cuda.synchronize()
+    step_clock.append(time.perf_counter())
+
+
+def finished(solver, system, dvp_, folder, step_clock, **namespace):
+    torch.cuda.synchronize()
+    st = solver.stepper
+    rank = dist.get_rank()
+    Path(folder, f"rank{{rank}}.json").write_text(json.dumps(dict(
+        rank=rank, device=str(system.device), launches=dict(build.LAUNCHES),
+        history=st.history, timings=dict(st.timings), setup=st.setup,
+        rebuilds=st.rebuilds, probe=st._last_rel, c=st.plan.c,
+        nb_loc=st.plan.nb_loc,
+        step_s=[b - a for a, b in zip(step_clock[::2], step_clock[1::2])],
+        peak=torch.cuda.max_memory_allocated(system.device),
+        backend=dist.get_backend())))
+    if rank == 0:
+        torch.save(dvp_["n"].cpu(), Path(folder, "U.pt"))
+'''
+
+
+def sharded_run(tmp, label, backend):
+    """vasp-tpu-torch-run -p cylinder at the 20,832-cell tube on phase 5's
+    configuration with n_devices=2, through SHARDED_PROBLEM, as the
+    console script runs it (driver.main starts the ranks); 3 steps.
+    Returns (wall seconds, the ranks' records, rank 0's metrics, U)."""
+    import torch
+
+    from vasp_tpu_torch.run import driver
+
+    path = tmp / f"{label}_problem.py"
+    path.write_text(SHARDED_PROBLEM.format())
+    cfg_path = tmp / f"{label}_config.json"
+    cfg_path.write_text(json.dumps(dict(
+        mesh_path=None, generated_mesh_params=FULL_MESH, **dict(
+            RUN_KEYS, n_devices=2), linear_solver="gmres",
+        dist_backend=backend)))
+    folder = tmp / f"main_{label}"
+    tic = time.perf_counter()
+    ret = driver.main(["-p", str(path), "-T", "0.003", "-dt", "0.001",
+                       "--folder", str(folder), "--config", str(cfg_path)])
+    wall = time.perf_counter() - tic
+    require(ret is None, f"{label}: driver.main returned a namespace")
+    ranks = [json.loads((folder / f"rank{r}.json").read_text())
+             for r in range(2)]
+    steps = [json.loads(line) for line in
+             (folder / "metrics.jsonl").read_text().splitlines()]
+    return wall, ranks, steps, torch.load(folder / "U.pt")
+
+
+def phase_sharded(tmp, ref_steps, extra):
+    """Phase 15b: the 2-rank run of sharded_run on gloo, both ranks on this
+    card (their exchanges are gloo all-reduces of CUDA tensors, which gloo
+    stages through the host), held to phase 5's first 3 steps: the same
+    Newton counts, U within 3e-5 relative (TOL_PATH_GMRES); every kernel of
+    the path launched (summed over the ranks; K21a on each). Prints per
+    rank Newton and GMRES counts, the rebuild by part, s/step of the steps
+    that reuse the factors, peak memory and K21a's launches. With two
+    cards or more, the same on nccl (one card a rank). Returns the gloo
+    run's launches, summed over the ranks."""
+    import torch
+
+    runs = [("sharded", "gloo")]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("sharded_nccl", "nccl"))
+    else:
+        print("[15b] one card: the nccl run (one card a rank) is not made")
+    out = None
+    for label, backend in runs:
+        print(f"[15b] cylinder at 20,832 cells, phase 5's configuration "
+              f"(linear_solver=gmres), n_devices=2, dist_backend={backend}, "
+              f"3 steps, started as vasp-tpu-torch-run starts it:")
+        wall, ranks, steps, U = sharded_run(tmp, label, backend)
+        newton = [s["newton_iterations"] for s in steps]
+        require(len(steps) == 3 and all(s["converged"] for s in steps),
+                f"{label}: steps {steps}")
+        require(newton == [it for _, it in ref_steps],
+                f"{label}: Newton iterations {newton}, phase 5's "
+                f"{[it for _, it in ref_steps]}")
+        rel = rel_err(U, ref_steps[-1][0])[0]
+        require(bool(torch.isfinite(U).all()) and rel <= TOL_PATH_GMRES,
+                f"{label}: U {rel:.3e} from phase 5's step 3")
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        check_launches("sharded", launches)
+        print(f"    3 steps in {wall:.2f} s (the ranks' start and build "
+              f"included); Newton iterations {newton} (phase 5's the same); "
+              f"U {rel:.3e} from phase 5's step-3 state; transport: "
+              f"{ranks[0]['backend']} all-reduce of CUDA tensors")
+        for r in ranks:
+            t = r["timings"]
+            hist = r["history"]
+            print(f"    rank {r['rank']} on {r['device']} (c={r['c']}, "
+                  f"{r['nb_loc']} blocks): Newton {[h['iterations'] for h in hist]}"
+                  f", GMRES inner {[h['gmres_inner'] for h in hist]} in "
+                  f"{[h['gmres_cycles'] for h in hist]} cycles, rebuilds "
+                  f"{r['rebuilds']}, probe {r['probe']:.3e}")
+            print("      rebuild split (s): " + ", ".join(
+                f"{k} {t.get(k, 0.0):.3f}" for k in (
+                    "rebuild_jacobians", "ruiz", "assemble", "factorize",
+                    "transfer", "probe")) + f"; plan {r['setup']['plan']:.2f}")
+            print("      per-iteration split, summed (s): " + ", ".join(
+                f"{k} {t.get(k, 0.0):.3f}" for k in (
+                    "jacobians", "residual", "gmres", "matvec", "precond")))
+            print(f"      s/step {', '.join(f'{x:.3f}' for x in r['step_s'])}"
+                  f" (steps 2-3 reuse the factors: mean "
+                  f"{sum(r['step_s'][1:]) / 2:.3f} s); peak device memory "
+                  f"{r['peak'] / 2**30:.2f} GiB; K21a launches "
+                  f"{r['launches']['banded_carry']}, carry updates "
+                  f"{r['launches']['banded_carry_update']}")
+            require(r["launches"]["banded_carry"] > 0,
+                    f"{label}: rank {r['rank']} launched no K21a")
+        extra[f"{label}_peak_gib"] = [r["peak"] / 2**30 for r in ranks]
+        extra[f"{label}_step_s"] = [r["step_s"] for r in ranks]
+        out = out or launches
+    return out
 
 
 # ---------------------------------------------------------------- phase 14 --
@@ -3799,7 +4185,7 @@ def phase_delta_models(tmp):
               f"steps:")
         cfg = {k: v for k, v in tiny.items()
                if k not in ("T", "dt", "mesh_path", "generated_mesh_params")
-               and k not in NO_FILES}
+               and k not in RUN_KEYS}
         cfg.update(CHAIN_CFG, **extra)
         _, out[label], steps = delta_run(
             tmp, label, model, tiny["generated_mesh_params"], 3,
@@ -3985,16 +4371,17 @@ def main():
         elapsed("phase 3")
         launches["lu"], lu_splu_s = phase_lu(tmp)
         elapsed("phase 4")
-        launches["gmres"], extra["k5_bound_ms_gmres"], _ = phase_krylov(
-            tmp, records, "gmres", "[5] cylinder, Newton-Krylov path "
-            "(linear_solver=gmres):", linear_solver="gmres")
+        launches["gmres"], extra["k5_bound_ms_gmres"], _, gmres_steps = \
+            phase_krylov(tmp, records, "gmres", "[5] cylinder, Newton-Krylov "
+                         "path (linear_solver=gmres):", linear_solver="gmres")
         elapsed("phase 5")
         gc.collect()
         torch.cuda.empty_cache()
-        launches["f32f"], extra["k5_bound_ms_f32f"], needs6 = phase_krylov(
-            tmp, records, "f32f", "[6] cylinder, bench configuration "
-            "(residual_dtype=f32f, krylov_dtype=f32, gmres_tol=1e-3, "
-            "jac_recompute=2, atol=1e-6):", **BENCH_CFG)
+        launches["f32f"], extra["k5_bound_ms_f32f"], needs6, _ = \
+            phase_krylov(tmp, records, "f32f", "[6] cylinder, bench "
+                         "configuration (residual_dtype=f32f, "
+                         "krylov_dtype=f32, gmres_tol=1e-3, jac_recompute=2, "
+                         "atol=1e-6):", **BENCH_CFG)
         elapsed("phase 6")
         gc.collect()
         torch.cuda.empty_cache()
@@ -4066,6 +4453,11 @@ def main():
         elapsed("phase 14c")
         launches.update(phase_delta_models(Path(tmp)))
         elapsed("phase 14d")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["sharded"] = phase_sharded(Path(tmp), gmres_steps[:3],
+                                            extra)
+        elapsed("phase 15b")
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():
@@ -4083,7 +4475,8 @@ def main():
                                  "one_launch_ms", "library_calls",
                                  "bound_ms_sinv_read_twice", "inverse_ms",
                                  "graph_ms", "graph_library_ms",
-                                 "raw_f64_ms")
+                                 "raw_f64_ms", "thomas_ms", "thomas_plain_ms",
+                                 "thomas_bound_ms")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))

@@ -124,8 +124,9 @@ def test_dispatch_refuses_other_devices(tiny_tube):
 
 
 # the id the n_devices case had beside the two biharmonic cases, which
-# went with the refusal they tested
-@pytest.mark.parametrize("extra,item", [(dict(n_devices=4), 13)],
+# went with the refusal they tested; n_devices > 1 is ported, the SPIKE
+# algorithm of the sharded path is the refusal left
+@pytest.mark.parametrize("extra,item", [(dict(shard_algo="spike"), 18)],
                          ids=["extra2-13"])
 def test_unported_options_raise(tiny_tube, extra, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -173,7 +174,7 @@ def test_multi_device_postprocessing_raises(tmp_path, stage):
 
     fn = {"hemodynamics": hemodynamics.compute_hemodynamics,
           "stress_strain": stress_strain.compute_stress_strain}[stage]
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         fn(tmp_path, n_devices=2, device="cpu")
 
 
@@ -335,7 +336,9 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "ruiz_scale_36_f64", "fluid_delta", "fluid_delta2",
         "fluid_delta_elastic", "fluid_delta2_elastic", "fluid_delta_nolift",
         "fluid_delta2_nolift", "solid_delta", "solid_delta2",
-        "solid_delta_mr", "solid_delta2_mr", "robin_delta", "robin_delta2"}
+        "solid_delta_mr", "solid_delta2_mr", "robin_delta", "robin_delta2",
+        "banded_carry", "banded_carry_hybrid", "banded_carry_bf16",
+        "banded_carry_update"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

@@ -44,6 +44,10 @@ each with its reason:
 - K17 (the node blocks): extract and apply 1e-12 relative (atomics'
   order), the closed-form inverse 1e-12 of each node's largest entry
   (unfused float64 operations against torch's on blocks of cond ~10);
+- K21a (one rank's stages of the sharded applies, every storage instance,
+  and the chain's carry update): the two-span composition equal to K6's
+  solve (the same GEMV instance on the same inputs in the same order), and
+  K6's rule against the float64 scans;
 - K13 (the Taylor delta, both forms, every instance and the facet route):
   the float32 rule of K1/K2 in the max norm, max|D_kernel - D_plain| <=
   2 max|D_plain - D_f64| + 1e-12 max|D_f64|, with D_f64 the same series
@@ -304,6 +308,61 @@ def test_banded_storage_kernels(banded_inputs, layout):
         xp = plain(*F, perm, r.to(dt))
         assert xk.dtype == dt
         assert _rel(xk.double(), ref) <= 2 * _rel(xp.double(), ref) + 1e-6
+
+
+@pytest.mark.parametrize("storage", ["f32", "hybrid", "bf16"])
+def test_carry_kernels(banded_inputs, storage):
+    """K21a, one rank's stages of the sharded applies, on the tiny tube's
+    factors in each storage instance: the two-span Thomas composition (the
+    first span's forward carry handed to the second, the second's
+    backward carry back; every stage with and without a carry) is K6's
+    solve to the bit (the same gemv_kernel instance on the same inputs in
+    the same order) and, against its plain composition, within K6's rule
+    of the float64 scans; the chain's carry update a + T v by the same
+    rule; one count per launch."""
+    sysm, _, _, _, _, jf, pat, plans, diag = banded_inputs
+    Ck, Dk, Bk = kb.assemble_cuda(jf, fb.plans_to_device(plans, "cuda"),
+                                  pat.nb, pat.c, diag.cuda())
+    bf = torch.bfloat16
+    Sinv, H, G, _ = fb.factorize_banded(Ck, Dk, Bk,
+                                        bf if storage == "bf16"
+                                        else torch.float32)
+    if storage == "hybrid":
+        H, G = H.to(bf), G.to(bf)
+    F = (Sinv, H, G)
+    name = kb.K21A_INSTANCES[Sinv.dtype, H.dtype]
+    rng = np.random.default_rng(6)
+    a = torch.as_tensor(rng.normal(size=(pat.nb, pat.c)), dtype=torch.float32,
+                        device="cuda")
+    m = pat.nb // 2
+    halves = ((Sinv[:m], H[:m], G[:m]), (Sinv[m:], H[m:], G[m:]))
+
+    def two_spans(stage):
+        t = [stage(*Fi, "times", ai) for Fi, ai in zip(halves,
+                                                        (a[:m], a[m:]))]
+        w1 = stage(*halves[0], "forward", t[0])
+        w2 = stage(*halves[1], "forward", t[1], w1[-1])
+        x2 = stage(*halves[1], "backward", w2)
+        x1 = stage(*halves[0], "backward", w1, x2[0])
+        return torch.cat([x1, x2])
+
+    def check(k, p, ref):
+        assert k.dtype == torch.float32
+        assert _rel(k.double(), ref) <= 2 * _rel(p.double(), ref) + 1e-6
+
+    build.reset_launch_counts()
+    xk = two_spans(kb.carry_stage_cuda)
+    assert build.LAUNCHES[name] == 6
+    assert torch.equal(xk, kb.solve_blocks_cuda(Sinv, H, G, a))
+    check(xk, two_spans(kb.carry_stage_plain),
+          kb.solve_blocks_plain(*(M.double() for M in F), a.double()))
+    T = H[0].float()
+    carry = xk[m]
+    build.reset_launch_counts()
+    uk = kb.carry_update_cuda(T, carry, a[0])
+    assert build.LAUNCHES["banded_carry_update"] == 1
+    check(uk, kb.carry_update_plain(T, carry, a[0]),
+          a[0].double() + T.double() @ carry.double())
 
 
 def test_ruiz_sweep_kernel_f64(banded_inputs):

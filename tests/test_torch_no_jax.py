@@ -49,7 +49,9 @@ SLICE = [
     "vasp_tpu_torch.fem.biharmonic", "vasp_tpu_torch.kernels.lifting",
     "vasp_tpu_torch.fem.ras", "vasp_tpu_torch.kernels.ras",
     "vasp_tpu_torch.fem.preconditioner", "vasp_tpu_torch.kernels.schwarz",
-    "vasp_tpu_torch.kernels.nodeblock",
+    "vasp_tpu_torch.kernels.nodeblock", "vasp_tpu_torch.parallel",
+    "vasp_tpu_torch.parallel.comm", "vasp_tpu_torch.parallel.bootstrap",
+    "vasp_tpu_torch.parallel.shard", "vasp_tpu_torch.parallel.banded_shard",
 ]
 
 

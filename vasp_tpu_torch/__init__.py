@@ -1,8 +1,9 @@
 """vasp_tpu_torch — the vascular FSI framework on PyTorch and CUDA.
 
 The second package beside ``vasp_tpu`` (the JAX reference). It keeps the
-reference's layout (mesh/, fem/, bcs/, run/, models/) so every module has
-an obvious counterpart, and it never imports jax or vasp_tpu: host modules
+reference's layout (mesh/, fem/, bcs/, run/, models/, parallel/) so every
+module has an obvious counterpart, and it never imports jax or vasp_tpu:
+host modules
 without jax are copied, device code is rewritten on torch tensors, and the
 element residual, element Jacobians, element matvec, Ruiz sweeps, banded
 assembly, banded apply and flow measures run as hand-written CUDA kernels

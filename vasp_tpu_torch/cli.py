@@ -100,7 +100,7 @@ def compute_hemo(argv=None):
     def extra(p):
         p.add_argument("--n-devices", type=int, default=None,
                        help="vasp_tpu's multi-device pass; refused above 1 "
-                            "(ROADMAP.md queue 1, item 13)")
+                            "(ROADMAP.md queue 1, item 19)")
 
     args = _folder_parser("vasp-tpu-torch-compute-hemo", extra,
                           device=True).parse_args(argv)
@@ -119,7 +119,7 @@ def compute_stress(argv=None):
         p.add_argument("--stride", type=int, default=1)
         p.add_argument("--n-devices", type=int, default=None,
                        help="vasp_tpu's multi-device pass; refused above 1 "
-                            "(ROADMAP.md queue 1, item 13)")
+                            "(ROADMAP.md queue 1, item 19)")
 
     args = _folder_parser("vasp-tpu-torch-compute-stress", extra,
                           device=True).parse_args(argv)

@@ -1,4 +1,5 @@
-// K8 (banded assembly) and K6 (banded apply) on Hopper.
+// K8 (banded assembly), K6 (banded apply), K12 (folded apply) and K21a
+// (one rank's stage of the sharded applies) on Hopper.
 //
 // K8 replaces vasp_tpu/fem/banded.py assemble_banded_planned (scatter
 // mode): the in-band entries of the Ruiz-scaled f32 element matrices are
@@ -55,6 +56,27 @@
 //   the small tube of tests/test_torch_kernels_cuda.py (an H100), while
 //   these are as accurate as sums in twice float32's precision. A fused
 //   or persistent step is later work.
+//
+// K21a replaces one rank's part of the sharded applies of
+// vasp_tpu/parallel/banded_shard.py: make_sharded_chain_apply (:676, the
+// default) and make_sharded_banded_apply (:846, algo="thomas"). A rank
+// holds nb_loc blocks of the factors, whose first H_0 couples to rank
+// p - 1 and whose last G_{nb_loc-1} couples to rank p + 1, so each scan
+// starts from an incoming carry instead of K6's k = 1 and nb - 2: one
+// stage per call, t = Sinv r (batched), the forward scan w_0 = t_0 - H_0
+// w_in, w_k = t_k - H_k w_{k-1}, or the backward scan x_{m-1} = w_{m-1} -
+// G_{m-1} x_in, x_k = w_k - G_k x_{k+1} (a null carry is zero: the first
+// block is copied). The chain's carry update w_last + Tf carry (Tf the
+// float32 product of the -H_k) is one GEMV-with-add. Plain torch twins:
+// carry_stage_plain, carry_update_plain, solve_blocks_carry_plain.
+//   Bound: the bytes of the rank's factors read, Sinv + 2H + 2G for a
+//   chain apply (the zero-carry forward and backward scans run again with
+//   the true carries) and Sinv + H + G for the Thomas apply, over
+//   3.35 TB/s: 5 x 21 c x c float32 blocks at c = 4,488, 2.53 ms, for
+//   one rank of two at 20,832 cells. Design: K6's gemv_kernel and its
+//   instances (plain float32 sums with float32 factors, compensated sums
+//   where H/G are bf16), one launch per scan step issued from the host
+//   entry point; the carry update is gemv_kernel with a + M v.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -149,12 +171,12 @@ __device__ __forceinline__ float finish(const float* a, Comp s) {
   return __fadd_rn(d.s, __fsub_rn(d.c, s.c));
 }
 
-// y[b] = M[b] v[b] (a == nullptr) or a[b] - M[b] v[b]; M (batch, c, c) of
-// TM, v/a/y (batch, c) float, c a multiple of 16 / sizeof(TM). a and y
-// may alias (in-place scan step). Acc is the lane's float32 sum: a plain
-// float (each 16-byte chunk's products chained by FMA, then added) or a
-// compensated Comp.
-template <class TM, class Acc>
+// y[b] = M[b] v[b] (a == nullptr), a[b] - M[b] v[b], or a[b] + M[b] v[b]
+// (kAdd, plain float sums only); M (batch, c, c) of TM, v/a/y (batch, c)
+// float, c a multiple of 16 / sizeof(TM). a and y may alias (in-place scan
+// step). Acc is the lane's float32 sum: a plain float (each 16-byte
+// chunk's products chained by FMA, then added) or a compensated Comp.
+template <class TM, class Acc, bool kAdd = false>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 gemv_kernel(const TM* __restrict__ M, const float* __restrict__ v,
             const float* a, float* y, int c) {
@@ -192,22 +214,30 @@ gemv_kernel(const TM* __restrict__ M, const float* __restrict__ v,
       }
     }
     warp_sum(s);
-    if (lane == 0) y[b * c + i] = finish(a ? a + b * c + i : nullptr, s);
+    if (lane == 0) {
+      if constexpr (kAdd) {
+        static_assert(sizeof(Acc) == sizeof(float), "a + M v sums plainly");
+        y[b * c + i] = a[b * c + i] + s;
+      } else {
+        y[b * c + i] = finish(a ? a + b * c + i : nullptr, s);
+      }
+    }
   }
 }
 
-template <class Acc, class TM>
+template <class Acc, bool kAdd = false, class TM>
 int gemv(const TM* M, const float* v, const float* a, float* y, int batch,
          int c, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)c;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<TM, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        gemv_kernel<TM, Acc, kAdd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((c + kRowsPerBlock - 1) / kRowsPerBlock, batch);
-  gemv_kernel<TM, Acc><<<grid, kGemvWarps * 32, smem, stream>>>(M, v, a, y, c);
+  gemv_kernel<TM, Acc, kAdd>
+      <<<grid, kGemvWarps * 32, smem, stream>>>(M, v, a, y, c);
   return (int)cudaGetLastError();
 }
 
@@ -252,6 +282,32 @@ int solve_lowmem(const TS* Sinv, const TCB* C, const TCB* B, float* x,
   }
   if (!e) e = (int)cudaMemcpyAsync(x, w, sizeof(float) * nb * (size_t)c,
                                    cudaMemcpyDeviceToDevice, s);
+  return e;
+}
+
+// One stage of K21a: mode 0, y = M a for all nb blocks; mode 1, the
+// forward scan y_0 = a_0 - M_0 carry, y_k = a_k - M_k y_{k-1}; mode 2, the
+// backward scan y_{nb-1} = a_{nb-1} - M_{nb-1} carry, y_k = a_k - M_k
+// y_{k+1}. A null carry is zero: the first block of the scan is a's. y may
+// alias a (in place), not the carry.
+template <class Acc, class TM>
+int carry_stage(const TM* M, const float* a, float* y, const float* carry,
+                int nb, int c, int mode, cudaStream_t s) {
+  if (mode == 0) return gemv<Acc>(M, a, nullptr, y, nb, c, s);
+  const int64_t cc = (int64_t)c * c;
+  int e = 0;
+  for (int i = 0; i < nb && !e; ++i) {
+    const int k = mode == 2 ? nb - 1 - i : i;
+    const float* v = i == 0 ? carry
+                            : y + (int64_t)(mode == 2 ? k + 1 : k - 1) * c;
+    if (v)
+      e = gemv<Acc>(M + k * cc, v, a + (int64_t)k * c, y + (int64_t)k * c, 1,
+                    c, s);
+    else if (y != a)
+      e = (int)cudaMemcpyAsync(y + (int64_t)k * c, a + (int64_t)k * c,
+                               sizeof(float) * (size_t)c,
+                               cudaMemcpyDeviceToDevice, s);
+  }
   return e;
 }
 
@@ -320,6 +376,32 @@ int vt_banded_solve_lowmem(const void* Sinv, const void* C, const void* B,
                         nb, c, s);
   return solve_lowmem((const float*)Sinv, (const bf*)C, (const bf*)B, x, w, u,
                       nb, c, s);
+}
+
+// K21a: one stage of a rank's solve (carry_stage: mode 0 t = Sinv r, 1
+// forward, 2 backward) on (nb, c) f32 blocks; M in bf16 (m_bf16) or f32,
+// summed in compensated float32 (comp, the hybrid and bf16 layouts, as
+// K6) or plainly (f32 M only).
+int vt_banded_carry(const void* M, const float* a, float* y,
+                    const float* carry, int nb, int c, int m_bf16, int comp,
+                    int mode, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (m_bf16) {
+    if (!comp) return (int)cudaErrorInvalidValue;
+    return carry_stage<Comp>((const __nv_bfloat16*)M, a, y, carry, nb, c,
+                             mode, s);
+  }
+  if (comp)
+    return carry_stage<Comp>((const float*)M, a, y, carry, nb, c, mode, s);
+  return carry_stage<float>((const float*)M, a, y, carry, nb, c, mode, s);
+}
+
+// K21a's chain carry update: y (c,) = a + T v, T (c, c) f32, plain float32
+// sums; y may alias a.
+int vt_banded_carry_update(const float* T, const float* v, const float* a,
+                           float* y, int c, void* stream) {
+  return gemv<float, true>(T, v, a, y, 1, c, (cudaStream_t)stream);
 }
 
 // out (npad,) f32 = r[perm] padded with zeros; r f64 (r_f64) or f32.

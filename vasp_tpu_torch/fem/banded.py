@@ -184,17 +184,25 @@ def schur_scan(Cm, D, Bm, factor_dtype=torch.float32):
     X <- X (2I - S X), G_k = Sinv_k B_k; each block's polished inverse is
     stored in factor_dtype (float32, or bf16 rounded to nearest even,
     while the recursion carries the exact float32 G_k)."""
+    G0 = torch.zeros(D.shape[1:], dtype=torch.float32, device=D.device)
+    return schur_scan_carry(Cm, D, Bm, G0, factor_dtype)[0]
+
+
+def schur_scan_carry(Cm, D, Bm, G0, factor_dtype=torch.float32):
+    """schur_scan from an incoming carry G0 (the G of the block before
+    D[0]; zero for the first): (Sinv, the last G_k), the sharded path's
+    phase of one rank (parallel/banded_shard.py)."""
     nb, c, _ = D.shape
     eye2 = 2.0 * torch.eye(c, dtype=torch.float32, device=D.device)
     Sinv = torch.empty(D.shape, dtype=factor_dtype, device=D.device)
-    Gprev = torch.zeros((c, c), dtype=torch.float32, device=D.device)
+    Gprev = G0
     for k in range(nb):
         S = D[k] - Cm[k] @ Gprev
         Si = torch.linalg.inv(S)
         Si = Si @ (eye2 - S @ Si)
         Gprev = Si @ Bm[k]
         Sinv[k] = Si
-    return Sinv
+    return Sinv, Gprev
 
 
 # bytes of the float32 products Sinv_k X_k that sinv_times forms at once
@@ -249,17 +257,23 @@ def schur_scan_f64(Cm, D, Bm):
     inverse, where vasp_tpu polishes an f32-seeded inverse), Sinv stored
     in float32. Counted in build.LAUNCHES on the card, as the hand-written
     kernels are."""
-    nb, c, _ = D.shape
-    Sinv = torch.empty_like(D)
-    Gprev = torch.zeros((c, c), dtype=torch.float64, device=D.device)
-    for k in range(nb):
+    G0 = torch.zeros(D.shape[1:], dtype=torch.float64, device=D.device)
+    return schur_scan_f64_carry(Cm, D, Bm, G0)[0]
+
+
+def schur_scan_f64_carry(Cm, D, Bm, G0, factor_dtype=torch.float32):
+    """schur_scan_f64 from an incoming float64 carry G0, Sinv stored in
+    factor_dtype: (Sinv, the last float64 G_k)."""
+    Sinv = torch.empty(D.shape, dtype=factor_dtype, device=D.device)
+    Gprev = G0
+    for k in range(D.shape[0]):
         S = D[k].double() - Cm[k].double() @ Gprev
         Si = torch.linalg.inv(S)
         Gprev = Si @ Bm[k].double()
         Sinv[k] = Si
     if D.is_cuda:
         build.LAUNCHES["banded_factorize_f64"] += 1
-    return Sinv
+    return Sinv, Gprev
 
 
 def factorize_banded_f64(Cm, D, Bm):

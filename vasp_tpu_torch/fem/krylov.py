@@ -28,7 +28,8 @@ import scipy.linalg
 import torch
 
 
-def gmres(matvec, b, M, restart=30, cycles=4, tol=1e-5):
+def gmres(matvec, b, M, restart=30, cycles=4, tol=1e-5, atol=0.0,
+          reduce_fn=None):
     """Solve A x = b from x = 0. Returns (x, (rnorm, cycles, inner)): the
     true final residual norm, the restart cycles used and the inner
     iterations over all cycles (the operator/preconditioner application
@@ -36,17 +37,21 @@ def gmres(matvec, b, M, restart=30, cycles=4, tol=1e-5):
 
     matvec: x -> A x; M: right preconditioner r -> M r (approximate
     A^{-1}); restart: Krylov dimension per cycle; cycles: most restarts;
-    tol: relative residual target |b - A x| <= tol |b|. vasp_tpu's x0,
-    atol and reduce_fn, which no caller of the port sets, are left out."""
+    tol, atol: residual target |b - A x| <= max(tol |b|, atol);
+    reduce_fn: the cross-rank sum of the sharded path, where b, x and the
+    basis hold one rank's dofs: every inner product and projection is
+    contracted locally and summed (None on one device). vasp_tpu's x0,
+    which no caller sets, is left out."""
     n = b.shape[0]
     m = restart
     dtype = b.dtype
     fdt = np.float64 if dtype == torch.float64 else np.float32
+    red = reduce_fn if reduce_fn is not None else (lambda v: v)
 
     def norm(v):
-        return torch.sqrt(torch.dot(v, v))
+        return torch.sqrt(red(torch.dot(v, v)))
 
-    target = fdt(tol) * fdt(norm(b).item())
+    target = max(fdt(tol) * fdt(norm(b).item()), fdt(atol))
     x = torch.zeros_like(b)
 
     def arnoldi_cycle(x):
@@ -64,9 +69,9 @@ def gmres(matvec, b, M, restart=30, cycles=4, tol=1e-5):
         while j < m and abs(g[j]) > target:
             w = matvec(M(V[j]))
             Vj = V[:j + 1]
-            h1 = Vj @ w
+            h1 = red(Vj @ w)
             w = w - Vj.T @ h1
-            h2 = Vj @ w
+            h2 = red(Vj @ w)
             w = w - Vj.T @ h2
             hj1 = norm(w)
             V[j + 1] = w / torch.where(hj1 > 0, hj1, 1.0)

@@ -864,13 +864,31 @@ class IterativeNewtonSolver:
     """The Newton-Krylov solver the driver calls for linear_solver in
     ("gmres", "iterative", "ras"; the preconditioner is StepOptions.precond,
     the config key "precond"), with NewtonSolver's solve() contract and one
-    contract line per step."""
+    contract line per step. world > 1 (the process group's ranks, each
+    calling the solver alike) takes vasp_tpu's sharded path,
+    parallel/banded_shard.py's ShardedBandedStepper with the banded
+    preconditioner whatever precond says and shard_algo its algorithm."""
 
     def __init__(self, system, bc_set, step_options: StepOptions,
                  recompute_tstep: int = 20, verbose: bool = True,
-                 raise_on_fail: bool = True):
-        self.stepper = IterativeStepper(system, bc_set, step_options,
-                                        recompute_tstep=recompute_tstep)
+                 raise_on_fail: bool = True, world: int = 1,
+                 shard_algo: str = "chain"):
+        if world > 1:
+            from vasp_tpu_torch.parallel.banded_shard import (
+                ShardedBandedStepper,
+            )
+
+            if getattr(system, "lift", None) is not None:
+                raise NotImplementedError(
+                    "biharmonic lifting is not supported on the sharded "
+                    "path yet; use extrapolation=laplace/elastic or run "
+                    "single-device")
+            self.stepper = ShardedBandedStepper(
+                system, bc_set, step_options,
+                recompute_tstep=recompute_tstep, algo=shard_algo)
+        else:
+            self.stepper = IterativeStepper(system, bc_set, step_options,
+                                            recompute_tstep=recompute_tstep)
         self.bc = bc_set
         self.opt = step_options
         self.verbose = verbose

@@ -1,5 +1,6 @@
-"""K8 (banded assembly), K6 (banded apply, block-Thomas solve) and K12
-(the folded apply of the low-memory layouts).
+"""K8 (banded assembly), K6 (banded apply, block-Thomas solve), K12 (the
+folded apply of the low-memory layouts) and K21a (one rank's stages of the
+sharded applies).
 
 Plain torch versions (``assemble_plain``, ``solve_blocks_plain``,
 ``apply_plain``, ``solve_blocks_lowmem_plain``, ``apply_lowmem_plain``),
@@ -16,6 +17,16 @@ the sums of K12 and of K6's bf16-storage instances are compensated). Costs and
 design: see the head of csrc/banded.cu. ``solve_blocks`` is the two scans
 on an (nb, c) block vector; the apply wraps it in the permutation, and the
 probe (fem/banded.py probe_rel) calls it directly.
+
+K21a replaces one rank's part of vasp_tpu/parallel/banded_shard.py
+make_sharded_chain_apply and make_sharded_banded_apply: ``carry_stage`` is
+one stage of the rank's solve on its (nb_loc, c) blocks, t = Sinv r, the
+forward scan from an incoming carry w_in (H_0 couples to rank p - 1) or the
+backward scan from x_in (G_{nb_loc-1} couples to rank p + 1), a missing
+carry being zero; ``carry_update`` is the chain's w_last + Tf carry.
+``solve_blocks_carry`` runs the three stages with both carries (the checks'
+composite; parallel/banded_shard.py runs the stages between its
+exchanges).
 """
 import torch
 
@@ -69,6 +80,45 @@ def solve_blocks_lowmem_plain(Sinv, C, B, rb):
     for k in range(rb.shape[0] - 2, -1, -1):
         x.append(w[k] - bgemv(Sinv[k], bgemv(B[k], x[-1])))
     return torch.stack(x[::-1])
+
+
+def _carry_factor(Sinv, H, G, stage):
+    """The factor a K21a stage reads: Sinv, H (forward) or G (backward)."""
+    return {"times": Sinv, "forward": H, "backward": G}[stage]
+
+
+def carry_stage_plain(Sinv, H, G, stage, a, carry=None):
+    """(nb, c) float32: stage "times" Sinv_k a_k; "forward" y_0 = a_0 - H_0
+    carry, y_k = a_k - H_k y_{k-1}; "backward" y_{nb-1} = a_{nb-1} -
+    G_{nb-1} carry, y_k = a_k - G_k y_{k+1}; a carry of None is zero (the
+    first block is a's)."""
+    M = _carry_factor(Sinv, H, G, stage)
+    if stage == "times":
+        return bgemv(M, a)
+    nb = a.shape[0]
+    y = torch.empty_like(a)
+    prev = carry
+    for k in (range(nb - 1, -1, -1) if stage == "backward" else range(nb)):
+        y[k] = a[k] if prev is None else a[k] - bgemv(M[k], prev)
+        prev = y[k]
+    return y
+
+
+def carry_update_plain(T, v, a):
+    """a + T v (the chain's carry update), float32."""
+    return a + bgemv(T, v)
+
+
+def solve_blocks_carry_plain(Sinv, H, G, rb, w_in=None, x_in=None):
+    return _solve_carry(carry_stage_plain, Sinv, H, G, rb, w_in, x_in)
+
+
+def _solve_carry(stage, Sinv, H, G, rb, w_in, x_in):
+    """(x, w_last, x_first) of one rank's solve with both carries."""
+    t = stage(Sinv, H, G, "times", rb)
+    w = stage(Sinv, H, G, "forward", t, w_in)
+    x = stage(Sinv, H, G, "backward", w, x_in)
+    return x, w[-1], x[0]
 
 
 def _permuted_solve(solve, F1, F2, F3, perm, r):
@@ -171,6 +221,43 @@ def solve_blocks_lowmem_cuda(Sinv, C, B, rb):
     return x
 
 
+K21A_INSTANCES = {(_F32, _F32): "banded_carry",
+                  (_F32, _BF16): "banded_carry_hybrid",
+                  (_BF16, _BF16): "banded_carry_bf16"}
+_STAGES = {"times": 0, "forward": 1, "backward": 2}
+
+
+def carry_stage_cuda(Sinv, H, G, stage, a, carry=None):
+    nb, c, name = _check_factors(Sinv, H, G, ("H", "G"), K21A_INSTANCES)
+    M = _carry_factor(Sinv, H, G, stage)
+    build.require(a, "a", torch.float32, (nb, c), Sinv.device)
+    if carry is not None:
+        build.require(carry, "carry", torch.float32, (c,), Sinv.device)
+    y = torch.empty_like(a)
+    build.check(build.library().vt_banded_carry(
+        build.ptr(M), build.ptr(a), build.ptr(y), build.ptr(carry), nb, c,
+        int(M.dtype == _BF16), int(H.dtype == _BF16), _STAGES[stage],
+        build.stream_handle(a.device)), name)
+    build.LAUNCHES[name] += 1
+    return y
+
+
+def carry_update_cuda(T, v, a):
+    c = a.shape[0]
+    for label, t, shape in (("T", T, (c, c)), ("v", v, (c,)), ("a", a, (c,))):
+        build.require(t, label, torch.float32, shape, a.device)
+    y = torch.empty_like(a)
+    build.check(build.library().vt_banded_carry_update(
+        *map(build.ptr, (T, v, a, y)), c, build.stream_handle(a.device)),
+        "banded_carry_update")
+    build.LAUNCHES["banded_carry_update"] += 1
+    return y
+
+
+def solve_blocks_carry_cuda(Sinv, H, G, rb, w_in=None, x_in=None):
+    return _solve_carry(carry_stage_cuda, Sinv, H, G, rb, w_in, x_in)
+
+
 def _permute_cuda(solve, F1, F2, F3, perm, r):
     lib = build.library()
     nb, c, _ = F1.shape
@@ -225,3 +312,20 @@ def apply_lowmem(Sinv, C, B, perm, r):
     if build.on_cuda(r, "banded_apply_lowmem"):
         return apply_lowmem_cuda(Sinv, C, B, perm, r)
     return apply_lowmem_plain(Sinv, C, B, perm, r)
+
+
+def carry_stage(Sinv, H, G, stage, a, carry=None):
+    if build.on_cuda(a, "banded_carry"):
+        return carry_stage_cuda(Sinv, H, G, stage, a, carry)
+    return carry_stage_plain(Sinv, H, G, stage, a, carry)
+
+
+def carry_update(T, v, a):
+    if build.on_cuda(a, "banded_carry_update"):
+        return carry_update_cuda(T, v, a)
+    return carry_update_plain(T, v, a)
+
+
+def solve_blocks_carry(Sinv, H, G, rb, w_in=None, x_in=None):
+    """K21a's three stages with both carries: (x, w_last, x_first)."""
+    return _solve_carry(carry_stage, Sinv, H, G, rb, w_in, x_in)

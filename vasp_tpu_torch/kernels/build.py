@@ -36,7 +36,8 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # dtype for K16, K7's sweep and scale, and K18; per storage instance for K6 and K12;
 # per local size for K22's build and apply, with its divide apart; K17's
 # extract, invert and apply; K13 per form, delta or delta2, and per
-# lifting and material as K1/K2, its facet route as robin_delta(2)),
+# lifting and material as K1/K2, its facet route as robin_delta(2); K21a
+# per storage instance as K6, its chain carry update apart),
 # bumped by its wrapper right where it launches
 LAUNCHES = dict.fromkeys(
     ("fluid_residual", "solid_residual", "fluid_residual_f32",
@@ -63,7 +64,8 @@ LAUNCHES = dict.fromkeys(
      "ruiz_scale_f64", "ruiz_scale_36_f64", "fluid_delta", "fluid_delta2",
      "fluid_delta_elastic", "fluid_delta2_elastic", "fluid_delta_nolift",
      "fluid_delta2_nolift", "solid_delta", "solid_delta2", "solid_delta_mr",
-     "solid_delta2_mr", "robin_delta", "robin_delta2"), 0)
+     "solid_delta2_mr", "robin_delta", "robin_delta2", "banded_carry",
+     "banded_carry_hybrid", "banded_carry_bf16", "banded_carry_update"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -149,6 +151,8 @@ def _bind(lib):
         "vt_banded_segsum": [P, P, P, P, I, I, P, P],
         "vt_banded_solve": [P] * 5 + [I, I, I, I, P],
         "vt_banded_solve_lowmem": [P] * 6 + [I, I, I, P],
+        "vt_banded_carry": [P] * 4 + [I] * 5 + [P],
+        "vt_banded_carry_update": [P] * 4 + [I, P],
         "vt_banded_permute": [P, I, P, I, I, P, P],
         "vt_banded_unpermute": [P, P, I, P, I, P],
         "vt_wss_load": [P] * 9 + [I, I, I, L, I, D, P],

@@ -214,12 +214,12 @@ def compute_hemodynamics(folder, mesh_path=None, quad_degree=2,
     (default ~0.5 GB of velocity data), so memory is O(chunk x ndof)
     regardless of T. The WSS loads run on `device` (K20a on a card).
     n_devices > 1 (vasp_tpu shards each chunk's timesteps over devices) is
-    refused: multi-device code is ROADMAP item 13."""
+    refused: the timestep-sharded passes are ROADMAP item 19."""
     import h5py
 
     if n_devices is not None and int(n_devices) > 1:
         not_ported(f"the multi-device WSS pass (n_devices={n_devices!r})",
-                   13)
+                   19)
     dev = resolve_device(device)
     folder = Path(folder)
     params = read_parameters_from_file(folder) or {}

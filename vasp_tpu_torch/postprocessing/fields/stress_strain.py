@@ -131,13 +131,13 @@ def compute_stress_strain(folder, mesh_path=None, stride=1, n_devices=None,
     is streamed in chunks of `chunk_steps` timesteps (default
     default_chunk_steps), each one K20b launch per material on a card, so
     memory is O(chunk x ndof) regardless of T. n_devices > 1 (vasp_tpu
-    shards chunks of timesteps over devices) is refused: multi-device code
-    is ROADMAP item 13."""
+    shards chunks of timesteps over devices) is refused: the timestep-sharded
+    passes are ROADMAP item 19."""
     import h5py
 
     if n_devices is not None and int(n_devices) > 1:
         not_ported(f"the multi-device stress/strain pass "
-                   f"(n_devices={n_devices!r})", 13)
+                   f"(n_devices={n_devices!r})", 19)
     dev = resolve_device(device)
     folder = Path(folder)
     params = read_parameters_from_file(folder) or {}

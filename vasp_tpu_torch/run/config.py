@@ -112,6 +112,11 @@ def parse_command_line(argv=None):
                         default=None)
     parser.add_argument("--config", type=str, default=None,
                         help="JSON config file with overrides")
+    parser.add_argument("--n-devices", type=str, default=None,
+                        help="shard the solve over N ranks, one process "
+                             "each ('auto' = all visible cards); the "
+                             "reference's `mpirun -np N turtleFSI` analogue "
+                             "(docs/simulation.md:13-19)")
     parser.add_argument("--new-arguments", nargs="*", default=None,
                         metavar="key=value")
     args = parser.parse_args(argv)
@@ -122,7 +127,8 @@ def parse_command_line(argv=None):
             overrides.update(json.load(f))
     for key, cli in (("dt", args.dt), ("T", args.T), ("theta", args.theta),
                      ("folder", args.folder), ("sub_folder", args.sub_folder),
-                     ("save_deg", args.save_deg), ("verbose", args.verbose)):
+                     ("save_deg", args.save_deg), ("verbose", args.verbose),
+                     ("n_devices", args.n_devices)):
         if cli is not None:
             overrides[key] = cli
     if args.new_arguments:

@@ -24,17 +24,33 @@ host callables updated in pre_solve.
 Per-timestep stdout follows the reference's log contract
 ("Solved for timestep {n}, t = {t} in {cpu} s",
 reference: docs/offset_stenosis.md:197 and log_plotter.py:72).
+
+With n_devices > 1 (run/system.py resolve_world) each rank of the process
+group runs run_simulation on its own process, every hook included, and
+holds the full state after each step; rank 0 alone writes the folder's
+files (run.log, metrics.jsonl, HDF5, checkpoints) and prints, the other
+ranks' stdout going nowhere. ``main`` joins a launcher's group
+(parallel/bootstrap.py distributed_init) or, outside one, starts the ranks
+itself.
 """
 import importlib
 import importlib.util
+import os
 import sys
 import time
+from contextlib import redirect_stdout
 from pathlib import Path
 
+import torch
+import torch.distributed as dist
+
+from vasp_tpu_torch.parallel import bootstrap
 from vasp_tpu_torch.run import checkpoint as ckpt
 from vasp_tpu_torch.run.config import default_variables, parse_command_line
 from vasp_tpu_torch.run.output import VisualizationOutput
-from vasp_tpu_torch.run.system import FSISystem
+from vasp_tpu_torch.run.system import FSISystem, resolve_world
+
+DIST_BACKENDS = ("nccl", "gloo")
 
 
 def load_problem_module(problem):
@@ -58,19 +74,45 @@ def _call_hook(mod, name, ns, required=False):
     return fn(**ns)
 
 
-def run_simulation(problem, overrides=None):
-    """Run a full simulation; returns the final namespace (for tests)."""
-    mod = load_problem_module(problem) if isinstance(problem, str) else problem
+def merged_config(mod, overrides=None):
+    """default_variables, then the problem's set_problem_parameters, then
+    the overrides."""
     cfg = default_variables()
     cfg = mod.set_problem_parameters(default_variables=cfg, **cfg) or cfg
     if overrides:
         cfg.update(overrides)
+    return cfg
+
+
+def dist_backend(cfg):
+    """The process group's backend: the config's dist_backend ("nccl" or
+    "gloo"), else "nccl" on CUDA and "gloo" on the CPU. Never switched by
+    itself: nccl with fewer cards than ranks raises
+    (bootstrap.check_backend)."""
+    backend = cfg.get("dist_backend")
+    if backend in (None, "None", ""):
+        cpu = torch.device(cfg.get("device", "cuda")).type == "cpu"
+        return "gloo" if cpu else "nccl"
+    if backend not in DIST_BACKENDS:
+        raise ValueError(f"dist_backend={backend!r}: expected one of "
+                         f"{DIST_BACKENDS}")
+    return backend
+
+
+def run_simulation(problem, overrides=None):
+    """Run a full simulation; returns the final namespace (for tests)."""
+    mod = load_problem_module(problem) if isinstance(problem, str) else problem
+    cfg = merged_config(mod, overrides)
 
     folder = Path(cfg["folder"])
     if cfg.get("sub_folder"):
         folder = folder / cfg["sub_folder"]
-    folder.mkdir(parents=True, exist_ok=True)
     cfg["folder"] = str(folder)
+    if bootstrap.world_size() > 1 and dist.get_rank() != 0:
+        # rank 0 alone writes and prints
+        with open(os.devnull, "w") as null, redirect_stdout(null):
+            return _run_simulation_inner(mod, cfg, writer=False)
+    folder.mkdir(parents=True, exist_ok=True)
 
     # tee stdout into <folder>/run.log so vasp-log-plotter always has a log
     # to parse (the reference relies on the queue system capturing stdout;
@@ -84,19 +126,20 @@ def run_simulation(problem, overrides=None):
 
     sys.stdout.write = _tee
     try:
-        return _run_simulation_inner(mod, cfg)
+        return _run_simulation_inner(mod, cfg, writer=True)
     finally:
         sys.stdout.write = _stdout_write
         _log_fh.close()
 
 
-def _run_simulation_inner(mod, cfg):
+def _run_simulation_inner(mod, cfg, writer):
     folder = Path(cfg["folder"])
     ns = dict(cfg)
     # save_step=0 turns the Visualization series off, checkpoint_step=0 the
-    # Checkpoint files; with both off the run writes no HDF5 at all
-    save_step = int(cfg.get("save_step", 1))
-    checkpoint_step = int(cfg.get("checkpoint_step", 500))
+    # Checkpoint files; with both off the run writes no HDF5 at all (nor
+    # does any rank but the writer)
+    save_step = int(cfg.get("save_step", 1)) if writer else 0
+    checkpoint_step = int(cfg.get("checkpoint_step", 500)) if writer else 0
     mesh = mod.get_mesh_domain_and_boundaries(**ns)
     if save_step or checkpoint_step:
         # persist the (possibly re-marked / generated) mesh in the reference's
@@ -140,14 +183,15 @@ def _run_simulation_inner(mod, cfg):
         viz = VisualizationOutput(folder, space,
                                   save_deg=cfg.get("save_deg", 1),
                                   restart=is_restart)
-    ckpt.save_config(folder, cfg)
+    metrics = None
+    if writer:
+        ckpt.save_config(folder, cfg)
+        # structured observability alongside the reference's stdout
+        # contract (SURVEY.md §5.1: JSONL step metrics + profiler traces)
+        from vasp_tpu_torch.run.metrics import JsonlMetrics
 
-    # structured observability alongside the reference's stdout contract
-    # (SURVEY.md §5.1: JSONL step metrics + profiler traces)
-    from vasp_tpu_torch.run.metrics import JsonlMetrics
-
-    metrics = JsonlMetrics(folder)
-    profile_dir = cfg.get("profile_dir")
+        metrics = JsonlMetrics(folder)
+    profile_dir = cfg.get("profile_dir") if writer else None
     profiler = None
     if profile_dir:
         import torch.profiler as tprof
@@ -199,12 +243,13 @@ def _run_simulation_inner(mod, cfg):
         toc = time.time()
         if cfg.get("verbose", True):
             print(f"Solved for timestep {step}, t = {t:.4f} in {toc - tic:.1f} s")
-        metrics.write(
-            tstep=step, t=t, cpu_time=toc - tic,
-            newton_iterations=int(info["iterations"]),
-            residual=float(info["residual"]),
-            converged=bool(info.get("converged", True)),
-        )
+        if metrics is not None:
+            metrics.write(
+                tstep=step, t=t, cpu_time=toc - tic,
+                newton_iterations=int(info["iterations"]),
+                residual=float(info["residual"]),
+                converged=bool(info.get("converged", True)),
+            )
         if killtime is not None and (time.time() - t_start_wall) > killtime:
             print("Killtime reached, checkpointing and exiting.")
             if checkpoint_step:
@@ -214,7 +259,8 @@ def _run_simulation_inner(mod, cfg):
     if checkpoint_step:
         ckpt.save_checkpoint(folder, space, dvp_["n"], t,
                              ns.get("counter", 0))
-    metrics.close()
+    if metrics is not None:
+        metrics.close()
     if profiler is not None:
         profiler.stop()
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
@@ -226,8 +272,23 @@ def _run_simulation_inner(mod, cfg):
 def main(argv=None, return_namespace=False):
     """Console entry point (vasp-tpu-torch-run). Returns None, so the console
     script exits 0; with return_namespace=True, the run's final namespace
-    (as run_simulation returns it) for callers that inspect the run."""
+    (as run_simulation returns it) for callers that inspect the run.
+
+    It joins a launcher's process group first (torchrun, SLURM, MPI:
+    bootstrap.distributed_init, on the backend of dist_backend) and runs
+    this process's rank. Outside one, a run of n_devices > 1 ranks starts
+    them here, one spawned process each in a group that meets in a
+    FileStore in a temporary directory, waits for them and returns None:
+    the namespace stays in the ranks."""
     problem, overrides = parse_command_line(argv)
+    cfg = merged_config(load_problem_module(problem), overrides)
+    backend = dist_backend(cfg)
+    bootstrap.distributed_init(backend=backend)
+    n = resolve_world(cfg)
+    if n > 1 and bootstrap.world_size() == 1:
+        bootstrap.spawn_world(n, run_simulation, (problem, overrides),
+                              backend)
+        return None
     ns = run_simulation(problem, overrides)
     return ns if return_namespace else None
 

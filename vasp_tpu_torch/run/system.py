@@ -22,8 +22,16 @@ Newton solver (fem/solver.py), and any other value (e.g. "krylov") that
 solver's Krylov branch (element-block additive Schwarz and GMRES), as in
 vasp_tpu.
 
+``n_devices`` (the reference's ``mpirun -np N``) > 1 runs the iterative
+path sharded over that many ranks, one process each (parallel/, as
+vasp_tpu's device mesh): any linear_solver maps to it, as in vasp_tpu;
+``shard_algo`` picks its apply ("chain", the default, or "thomas"); each
+rank's state lives on cuda:<local rank % cards> for device="cuda"
+(parallel/bootstrap.py rank_device). The ranks are the process group's:
+vasp-tpu-torch-run starts them (run/driver.py), or a launcher does.
+
 Not ported yet, and refused with the ROADMAP item that will port it:
-n_devices > 1 (queue 1, item 13); fem/timestepper.py refuses the
+shard_algo="spike" (queue 1, item 18); fem/timestepper.py refuses the
 iterative options it does not cover.
 """
 import dataclasses
@@ -32,6 +40,8 @@ import numpy as np
 import torch
 
 from vasp_tpu_torch.device import resolve_device
+from vasp_tpu_torch.parallel import bootstrap
+from vasp_tpu_torch.parallel.banded_shard import check_algo
 from vasp_tpu_torch.fem.assembly import (
     Assembler,
     CellBlock,
@@ -51,10 +61,37 @@ from vasp_tpu_torch.fem.solver import NewtonOptions, NewtonSolver
 from vasp_tpu_torch.fem.timestepper import (
     IterativeNewtonSolver,
     StepOptions,
-    not_ported as _not_ported,
 )
 
-_SINGLE_DEVICE = (None, "None", "", 0, 1, "1")
+_UNSET = (None, "None", "")
+
+
+def resolve_world(cfg):
+    """The ranks of a run, from the config's n_devices (vasp_tpu's
+    _resolve_device_mesh, with visible cards for accelerator chips): an
+    int; "auto" or "max", every visible card (1 on the CPU); unset, every
+    visible card where device is CUDA and there are several, else 1. An
+    explicit 1 is one device (vasp_tpu shards a 1 over every chip too).
+    Inside a process group of several ranks, its size, which an explicit
+    count must equal."""
+    n_req = cfg.get("n_devices")
+    cards = (torch.cuda.device_count()
+             if torch.device(cfg.get("device", "cuda")).type == "cuda"
+             else 0)
+    if n_req in _UNSET:
+        n = cards if cards > 1 else 1
+    elif n_req in ("auto", "max"):
+        n = max(cards, 1)
+    else:
+        n = int(n_req)
+    group = bootstrap.world_size()
+    if group > 1:
+        if n_req not in _UNSET and n_req not in ("auto", "max") \
+                and n != group:
+            raise RuntimeError(f"n_devices={n_req!r} in a process group of "
+                               f"{group} ranks")
+        return group
+    return n
 
 
 def normalize_fluid_properties(cfg):
@@ -106,9 +143,9 @@ class FSISystem:
     def __init__(self, mesh, cfg):
         self.mesh = mesh
         self.cfg = dict(cfg)
-        self.device = resolve_device(cfg.get("device", "cuda"))
-        if cfg.get("n_devices") not in _SINGLE_DEVICE:
-            _not_ported(f"n_devices={cfg['n_devices']!r}", 13)
+        self.device = bootstrap.rank_device(
+            resolve_device(cfg.get("device", "cuda")))
+        check_algo(cfg.get("shard_algo", "chain"))
         self.space = DVPSpace(mesh)
         space = self.space
         dev = self.device
@@ -276,6 +313,14 @@ class FSISystem:
     def make_solver(self, bc_set, **opts):
         cfg = self.cfg
         lin = cfg.get("linear_solver", "lu")
+        if (lin not in ("gmres", "iterative", "ras")
+                and cfg.get("n_devices") not in _UNSET + (0, 1, "1")):
+            # the multi-device equivalent of a parallel direct solve is the
+            # sharded banded-preconditioned Newton-Krylov path (reference:
+            # mpirun -np N turtleFSI, docs/simulation.md:13-19)
+            print(f"n_devices={cfg['n_devices']}: running the sharded "
+                  f"iterative path (linear_solver={lin!r} is single-device)")
+            lin = "gmres"
         if lin in ("gmres", "iterative", "ras"):
             return self._make_iterative_solver(bc_set, **opts)
         options = NewtonOptions(
@@ -325,11 +370,18 @@ class FSISystem:
         known = {f.name for f in dataclasses.fields(StepOptions)}
         kw.update({k: v for k, v in opts.items() if k in known})
         sopts = StepOptions(**kw)
+        world = resolve_world(cfg)
+        if world != bootstrap.world_size():
+            raise RuntimeError(
+                f"n_devices={cfg.get('n_devices')!r} runs {world} ranks, one "
+                f"process each, and this process is alone: start the run "
+                f"with vasp-tpu-torch-run, which starts them, or torchrun")
         return IterativeNewtonSolver(
             self, bc_set, sopts,
             recompute_tstep=int(cfg.get("recompute_tstep", 20)),
             verbose=bool(cfg.get("verbose", True)),
-            raise_on_fail=bool(cfg.get("raise_on_fail", True)))
+            raise_on_fail=bool(cfg.get("raise_on_fail", True)),
+            world=world, shard_algo=cfg.get("shard_algo", "chain"))
 
     def zero_state(self):
         return torch.zeros(self.space.ndof, dtype=torch.float64,
