@@ -337,10 +337,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      versions, and the two ranks' chain and Thomas applies composed in
      one process against their plain compositions and against K6's
      single-device apply, each by K6's rule against the float64 scans;
-     the compositions' probes beside K6's; rank 1's chain apply (five
-     stages) timed beside its bound (Sinv + 2H + 2G of its span) and
-     plain version, its Thomas apply (three stages) likewise, and the
-     chain's carry update beside torch.addmv;
+     each single stage, with and without its carry, at three seeds,
+     within TOL_CARRY_STAGE_RATIO times its plain version's distance to
+     float64 (the ratio read off tests/diag_carry_stages.py); the
+     compositions' probes beside K6's; the chain apply of rank 1 of 2
+     (three stages and a carry update) timed beside its bound (Sinv + H
+     + G of its span and the c x c Tb) and plain version, rank 0's, an
+     interior rank's (five stages, two updates: Sinv + 2H + 2G + Tf + Tb)
+     and rank 1's Thomas apply (three stages) likewise, and the chain's
+     carry update beside torch.addmv;
    - 15b: vasp-tpu-torch-run -p cylinder at 20,832 cells on phase 5's
      configuration with n_devices=2 and dist_backend=gloo, both ranks on
      this card (their exchanges gloo all-reduces of CUDA tensors), 3
@@ -386,6 +391,10 @@ TOL_LADDER = 1e-5
 # with GMRES at 1e-9 (tests/test_torch_node_block.py's bound)
 TOL_PATH_PIPE = 1e-10
 TOL_PATH_STEP_FN = 1e-8
+# K21a's single stages: the kernel's distance to the float64 stage at most
+# this many times the plain version's (plus 1e-6); tests/diag_carry_stages.py's
+# 480 readings on an H100 need at most 2.29 (tests/test_torch_kernels_cuda.py)
+TOL_CARRY_STAGE_RATIO = 4.0
 # H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores, and the
 # f64 tensor-core peak that cuBLAS's DGEMM can reach (NVIDIA H100 SXM data
 # sheet)
@@ -1643,10 +1652,12 @@ def phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm, r, pat,
     ranks' chain and Thomas applies composed in this process, each by K6's
     rule (the distance to the same scans in float64 at most twice the
     plain version's plus 1e-6), the compositions against K6's
-    single-device apply too. Timed: one rank's chain apply (the five
-    stages of rank 1, which holds the second span) beside its bound
-    (Sinv + 2H + 2G of the span read) and its plain version, its Thomas
-    apply (three stages, Sinv + H + G), and the carry update (with
+    single-device apply too; each single stage by carry_stage_checks.
+    Timed on the second span: the chain apply of rank 1 of 2 (its three
+    stages and carry update, as parallel/banded_shard.py runs them)
+    beside its bound (Sinv + H + G and Tb read) and its plain version;
+    likewise rank 0's, an interior rank's (Sinv + 2H + 2G, Tf and Tb) and
+    rank 1's Thomas apply (Sinv + H + G); and the carry update (with
     torch.addmv as the yardstick); the probes of both compositions beside
     phase 2's."""
     import torch
@@ -1680,6 +1691,7 @@ def phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm, r, pat,
     # rank 1 w_in) and with none
     w_in = kb.solve_blocks_carry_plain(*spans[0][:3], rb[:m])[1]
     x_in = kb.solve_blocks_carry_plain(*spans[1][:3], rb[m:], w_in)[2]
+    out["stage_ratio_max"] = carry_stage_checks(spans, w_in, x_in, c)
     for k, carries in ((0, (None, x_in)), (1, (w_in, None))):
         F, a = spans[k][:3], rb[k * m:(k + 1) * m]
         for label, cy in (("zero-carry", (None, None)), ("true-carry",
@@ -1723,41 +1735,65 @@ def phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm, r, pat,
         out[f"probe_rel_{algo}"] = pr
         out[f"f64_rel_{algo}"] = dk
 
-    # rank 1's applies, timed: the second span with its true carry w_in
+    # one rank's applies, timed on the second span with the true carries:
+    # the stages and carry updates that parallel/banded_shard.py runs on
+    # rank 1 of 2 (the last rank), on rank 0 of 2 (the first) and on an
+    # interior rank (from three ranks on), each bound by what it reads
     F1, a1 = spans[1], rb[m:]
     zero_in = torch.zeros(c, dtype=torch.float32, device="cuda")
+    block_bytes = nbytes(F1[0]) // m
 
-    def rank1(stage, update, chain):
-        t = stage(*F1[:3], "times", a1)
-        if chain:
-            stage(*F1[:3], "forward", t)
-        w = stage(*F1[:3], "forward", t, w_in)
-        if chain:
-            xz = stage(*F1[:3], "backward", w)
-            update(F1[4], zero_in, xz[0])
-        return stage(*F1[:3], "backward", w)
+    def rank_apply(stage, update, first, last, chain=True):
+        Fs, (Tf, Tb) = F1[:3], F1[3:]
+        t = stage(*Fs, "times", a1)
+        if not chain:
+            w = stage(*Fs, "forward", t, None if first else w_in)
+            return stage(*Fs, "backward", w, None if last else x_in)
+        wz = stage(*Fs, "forward", t) if first or not last else None
+        if not last:
+            update(Tf, zero_in if first else w_in, wz[-1])
+        w = wz if first else stage(*Fs, "forward", t, w_in)
+        xz = stage(*Fs, "backward", w) if last or not first else None
+        if not first:
+            update(Tb, zero_in if last else x_in, xz[0])
+        return xz if last else stage(*Fs, "backward", w, x_in)
 
-    span_bytes = nbytes(*F1[:3])
-    for name, chain, reads in (("banded_carry", True, 5), ("thomas", False,
-                                                          3)):
-        xk = rank1(kb.carry_stage_cuda, kb.carry_update_cuda, chain)
-        xp = rank1(kb.carry_stage_plain, kb.carry_update_plain, chain)
-        ms = cuda_ms(lambda: rank1(kb.carry_stage_cuda, kb.carry_update_cuda,
-                                   chain), 10)
-        plain_ms = cuda_ms(lambda: rank1(kb.carry_stage_plain,
-                                         kb.carry_update_plain, chain), 3)
-        work = (span_bytes // 3 * reads + nbytes(a1, xk),
-                2 * reads * m * c * c, "f32")
-        if name == "banded_carry":
-            records.add(name, rel_err(xk, xp), ms, plain_ms, work, math.inf,
-                        f"rank 1 of 2: 5 stages, ({m},{c},{c}) f32")
-        else:
-            b_ms = bound(*work)[0]
-            records["banded_carry"].update(thomas_ms=ms,
-                                           thomas_plain_ms=plain_ms,
-                                           thomas_bound_ms=b_ms)
-            print(f"    rank 1's Thomas apply (3 stages): kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms")
+    def timed(first, last, chain=True):
+        xk = rank_apply(kb.carry_stage_cuda, kb.carry_update_cuda, first,
+                        last, chain)
+        xp = rank_apply(kb.carry_stage_plain, kb.carry_update_plain, first,
+                        last, chain)
+        ms = cuda_ms(lambda: rank_apply(kb.carry_stage_cuda,
+                                        kb.carry_update_cuda, first, last,
+                                        chain), 10)
+        plain_ms = cuda_ms(lambda: rank_apply(kb.carry_stage_plain,
+                                              kb.carry_update_plain, first,
+                                              last, chain), 3)
+        interior = chain and not (first or last)
+        stages = 5 if interior else 3
+        updates = 0 if not chain else 2 if interior else 1
+        # each stage reads its m factor blocks once, each update one c x c
+        work = ((stages * m + updates) * block_bytes + nbytes(a1, xk),
+                2 * (stages * m + updates) * c * c, "f32")
+        return xk, xp, ms, plain_ms, work
+
+    xk, xp, ms, plain_ms, work = timed(False, True)
+    records.add("banded_carry", rel_err(xk, xp), ms, plain_ms, work,
+                math.inf, f"rank 1 of 2: 3 stages, ({m},{c},{c}) f32")
+    for label, key, first, last, chain in (
+            ("rank 0's chain apply (3 stages, 1 update)", "rank0", True,
+             False, True),
+            ("an interior rank's chain apply (5 stages, 2 updates)",
+             "interior", False, False, True),
+            ("rank 1's Thomas apply (3 stages)", "thomas", False, True,
+             False)):
+        _, _, ms, plain_ms, work = timed(first, last, chain)
+        b_ms = bound(*work)[0]
+        records["banded_carry"].update({f"{key}_ms": ms,
+                                        f"{key}_plain_ms": plain_ms,
+                                        f"{key}_bound_ms": b_ms})
+        print(f"    {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms")
     Tf, v, a = F1[3], w_in, a1[0]
     uk, up = kb.carry_update_cuda(Tf, v, a), kb.carry_update_plain(Tf, v, a)
     k6_rule("carry update", uk, up, a.double() + Tf.double() @ v.double())
@@ -1768,6 +1804,50 @@ def phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm, r, pat,
                 f"({c},{c}) f32", library_ms=cuda_ms(
                     lambda: torch.addmv(a, Tf, v), 50))
     return out
+
+
+def carry_stage_checks(spans, w_in, x_in, c, seeds=3):
+    """K21a's single stages on the two spans at seeded right-hand sides,
+    each with and without its incoming carry: the kernel's distance to the
+    same stage in float64 on the same float32 inputs at most
+    TOL_CARRY_STAGE_RATIO times the plain version's plus 1e-6. Returns the
+    largest ratio."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.kernels import banded as kb
+
+    worst = {}
+    for seed in range(seeds):
+        for k, Fk in enumerate(s[:3] for s in spans):
+            a = torch.as_tensor(np.random.default_rng((seed, k)).normal(
+                size=tuple(Fk[0].shape[:2])), dtype=torch.float32,
+                device="cuda")
+            t = kb.carry_stage_plain(*Fk, "times", a)
+            w = kb.carry_stage_plain(*Fk, "forward", t, w_in if k else None)
+            for name, stage, inp, carry in (
+                    ("times", "times", a, None),
+                    ("forward", "forward", t, None),
+                    ("forward+carry", "forward", t, w_in),
+                    ("backward", "backward", w, None),
+                    ("backward+carry", "backward", w, x_in)):
+                ref = kb.carry_stage_plain(
+                    *Fk, stage, inp.double(),
+                    None if carry is None else carry.double())
+                dk = rel_err(kb.carry_stage_cuda(*Fk, stage, inp, carry),
+                             ref)[0]
+                dp = rel_err(kb.carry_stage_plain(*Fk, stage, inp, carry),
+                             ref)[0]
+                require(dk <= TOL_CARRY_STAGE_RATIO * dp + 1e-6,
+                        f"K21a's {name} stage (span {k}, seed {seed}) is "
+                        f"less accurate than its plain version: {dk:.3e} "
+                        f"vs {dp:.3e}")
+                worst[name] = max(worst.get(name, 0.0),
+                                  dk / max(dp, 1e-300))
+    print("    single stages, largest kernel/plain ratio of the distances "
+          "to float64 over both spans and " + f"{seeds} seeds: "
+          + ", ".join(f"{n} {r:.3f}" for n, r in worst.items()))
+    return max(worst.values())
 
 
 def phase_k11(records, Ck, Dk, Bk, probe32, pat):
@@ -3945,9 +4025,9 @@ def finished(solver, system, dvp_, folder, step_clock, **namespace):
 '''
 
 
-def sharded_run(tmp, label, backend):
+def sharded_run(tmp, label, backend, n=2):
     """vasp-tpu-torch-run -p cylinder at the 20,832-cell tube on phase 5's
-    configuration with n_devices=2, through SHARDED_PROBLEM, as the
+    configuration with n_devices=n, through SHARDED_PROBLEM, as the
     console script runs it (driver.main starts the ranks); 3 steps.
     Returns (wall seconds, the ranks' records, rank 0's metrics, U)."""
     import torch
@@ -3959,7 +4039,7 @@ def sharded_run(tmp, label, backend):
     cfg_path = tmp / f"{label}_config.json"
     cfg_path.write_text(json.dumps(dict(
         mesh_path=None, generated_mesh_params=FULL_MESH, **dict(
-            RUN_KEYS, n_devices=2), linear_solver="gmres",
+            RUN_KEYS, n_devices=n), linear_solver="gmres",
         dist_backend=backend)))
     folder = tmp / f"main_{label}"
     tic = time.perf_counter()
@@ -3968,7 +4048,7 @@ def sharded_run(tmp, label, backend):
     wall = time.perf_counter() - tic
     require(ret is None, f"{label}: driver.main returned a namespace")
     ranks = [json.loads((folder / f"rank{r}.json").read_text())
-             for r in range(2)]
+             for r in range(n)]
     steps = [json.loads(line) for line in
              (folder / "metrics.jsonl").read_text().splitlines()]
     return wall, ranks, steps, torch.load(folder / "U.pt")
@@ -4476,7 +4556,10 @@ def main():
                                  "bound_ms_sinv_read_twice", "inverse_ms",
                                  "graph_ms", "graph_library_ms",
                                  "raw_f64_ms", "thomas_ms", "thomas_plain_ms",
-                                 "thomas_bound_ms")
+                                 "thomas_bound_ms", "rank0_ms",
+                                 "rank0_plain_ms", "rank0_bound_ms",
+                                 "interior_ms", "interior_plain_ms",
+                                 "interior_bound_ms")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))

@@ -89,6 +89,24 @@ def comm_ops(span, c):
         inputs=(ints, x, y_ext))
 
 
+def rank_devices():
+    """The card this rank takes and makes current (use_rank_device) for
+    device="cuda": torch's own where CUDA is visible, else on a host made
+    to show two cards, torch.cuda.set_device recorded."""
+    from vasp_tpu_torch.parallel import bootstrap
+
+    if torch.cuda.is_available():
+        dev = bootstrap.use_rank_device("cuda")
+        return dict(device=dev, current=torch.cuda.current_device(),
+                    cards=torch.cuda.device_count())
+    set_to = []
+    torch.cuda.device_count = lambda: 2
+    torch.cuda.set_device = set_to.append
+    dev = bootstrap.use_rank_device("cuda")
+    return dict(device=dev, current=set_to[-1].index if set_to else None,
+                cards=2)
+
+
 def _rank_rows(st, A, block_index):
     """The rows of a global (K, n, n) element array that the rank's block
     holds, in its order, zero on its padding rows."""

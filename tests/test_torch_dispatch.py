@@ -12,7 +12,7 @@ from vasp_tpu_torch.device import resolve_device
 from vasp_tpu_torch.fem import forms
 from vasp_tpu_torch.fem.timestepper import IterativeNewtonSolver, StepOptions
 from vasp_tpu_torch.kernels import build, element
-from vasp_tpu_torch.run.system import FSISystem
+from vasp_tpu_torch.run.system import FSISystem, run_layout
 from _torch_small_fsi import torch_threads
 
 _threads = torch_threads(1)
@@ -113,6 +113,50 @@ def test_lifting_blocks_count_under_their_own_names():
                   for dt in (torch.float64, torch.float32)]
     assert lift_names == ["lift_correction", "lift_correction_f32"]
     assert set(names + lift_names) <= set(build.LAUNCHES)
+
+
+# (linear_solver, n_devices) -> (the solver built, the ranks) on a host
+# that shows two cards: vasp_tpu shards only its iterative solver, an
+# explicit count mapping any solver to it
+@pytest.mark.parametrize("lin,n_devices,want", [
+    ("lu", None, ("lu", 1)), ("mumps", None, ("mumps", 1)),
+    ("krylov", None, ("krylov", 1)), ("gmres", None, ("gmres", 2)),
+    ("ras", None, ("ras", 2)), ("lu", "2", ("gmres", 2)),
+    ("lu", "auto", ("gmres", 2)), ("gmres", 1, ("gmres", 1)),
+    ("lu", 1, ("lu", 1))])
+def test_run_layout_shards_only_the_iterative_path(monkeypatch, lin,
+                                                    n_devices, want):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cfg = dict(device="cuda", linear_solver=lin, n_devices=n_devices)
+    assert run_layout(cfg) == want
+
+
+@pytest.mark.parametrize("lin,want", [("lu", [("run",)]),
+                                      ("gmres", [("spawn", 2, "nccl")])])
+def test_cli_starts_ranks_only_for_a_sharded_run(monkeypatch, lin, want):
+    """vasp-tpu-torch-run on a host of two cards, n_devices unset: the
+    default LU run stays in its one process, a gmres run starts two
+    ranks (on nccl, the CUDA default)."""
+    from vasp_tpu_torch.run import driver
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    calls = []
+    monkeypatch.setattr(driver.bootstrap, "spawn_world",
+                        lambda n, fn, args, backend: calls.append(
+                            ("spawn", n, backend)))
+    monkeypatch.setattr(driver, "run_simulation",
+                        lambda problem, overrides: calls.append(("run",)))
+    driver.main(["-p", "cylinder", "--new-arguments",
+                 f"linear_solver={lin}"])
+    assert calls == want
+
+
+def test_launch_on_another_card_than_the_current_raises(monkeypatch):
+    """A launch on a tensor of cuda:1 while cuda:0 is current raises before
+    CUDA would refuse it (a rank that did not set its card)."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(RuntimeError, match="set_device"):
+        build.stream_handle(torch.device("cuda", 1))
 
 
 def test_dispatch_refuses_other_devices(tiny_tube):

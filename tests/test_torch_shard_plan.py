@@ -4,12 +4,13 @@ vasp_tpu) against vasp_tpu's on tests/test_banded_shard.py's tube (Robin
 facets on) at 2 and 4 shards, exactly; and every Collectives operation
 (parallel/comm.py) on 2 and 4 gloo ranks against its single-process
 definition (ppermute's and psum's semantics), exactly: the exchanges move
-values untouched and the sums run on integer-valued floats."""
+values untouched and the sums run on integer-valued floats; and the card
+each rank takes and makes current."""
 import numpy as np
 import pytest
 import torch
 
-from _torch_dist import comm_ops, run_world, tube_system
+from _torch_dist import comm_ops, rank_devices, run_world, tube_system
 from _torch_small_fsi import same_rcm, torch_threads
 from vasp_tpu_torch.parallel.banded_shard import (
     build_shard_plan,
@@ -96,3 +97,11 @@ def test_collectives_match_their_definitions(tmp_path, n):
         own[:c] = torch.maximum(own[:c], recv)
         assert torch.equal(o["halo_max"], own)
         assert torch.equal(o["gather_spans"], torch.cat(xs))
+
+
+def test_each_rank_makes_its_card_current(tmp_path):
+    """Rank r of two takes cuda:<r % cards> and makes it the current card,
+    which the kernels' launches need on a card a rank."""
+    for r, o in enumerate(run_world(2, rank_devices, tmp_path)):
+        assert o["device"] == torch.device("cuda", r % o["cards"])
+        assert o["current"] == r % o["cards"]

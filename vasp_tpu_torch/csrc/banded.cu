@@ -69,11 +69,13 @@
 // block is copied). The chain's carry update w_last + Tf carry (Tf the
 // float32 product of the -H_k) is one GEMV-with-add. Plain torch twins:
 // carry_stage_plain, carry_update_plain, solve_blocks_carry_plain.
-//   Bound: the bytes of the rank's factors read, Sinv + 2H + 2G for a
-//   chain apply (the zero-carry forward and backward scans run again with
-//   the true carries) and Sinv + H + G for the Thomas apply, over
-//   3.35 TB/s: 5 x 21 c x c float32 blocks at c = 4,488, 2.53 ms, for
-//   one rank of two at 20,832 cells. Design: K6's gemv_kernel and its
+//   Bound: the bytes of the rank's factors read over 3.35 TB/s: Sinv + 2H
+//   + 2G for an interior rank's chain apply (its zero-carry forward and
+//   backward scans run again with the true carries), Sinv + H + G for an
+//   end rank's (one scan each way) and for the Thomas apply; at c = 4,488
+//   and 21 float32 blocks a rank (20,832 cells on two ranks) 3 x 21 c x c
+//   blocks, 1.52 ms (5 x 21, 2.53 ms, an interior rank's, from three
+//   ranks on). Design: K6's gemv_kernel and its
 //   instances (plain float32 sums with float32 factors, compensated sums
 //   where H/G are bf16), one launch per scan step issued from the host
 //   entry point; the carry update is gemv_kernel with a + M v.

@@ -24,9 +24,9 @@ one stage of the rank's solve on its (nb_loc, c) blocks, t = Sinv r, the
 forward scan from an incoming carry w_in (H_0 couples to rank p - 1) or the
 backward scan from x_in (G_{nb_loc-1} couples to rank p + 1), a missing
 carry being zero; ``carry_update`` is the chain's w_last + Tf carry.
-``solve_blocks_carry`` runs the three stages with both carries (the checks'
-composite; parallel/banded_shard.py runs the stages between its
-exchanges).
+parallel/banded_shard.py runs the stages between its exchanges;
+``solve_blocks_carry_cuda`` and ``solve_blocks_carry_plain`` run the three
+with both carries (a rank's pass, for the checks).
 """
 import torch
 
@@ -324,8 +324,3 @@ def carry_update(T, v, a):
     if build.on_cuda(a, "banded_carry_update"):
         return carry_update_cuda(T, v, a)
     return carry_update_plain(T, v, a)
-
-
-def solve_blocks_carry(Sinv, H, G, rb, w_in=None, x_in=None):
-    """K21a's three stages with both carries: (x, w_last, x_first)."""
-    return _solve_carry(carry_stage, Sinv, H, G, rb, w_in, x_in)

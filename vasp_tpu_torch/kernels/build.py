@@ -188,6 +188,15 @@ def check(err, what):
 
 
 def stream_handle(device):
+    """The current stream of `device`, the one every launch goes to. CUDA
+    refuses a launch on a stream of another card than the current one:
+    raise, naming the fix, before it would."""
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(
+            f"a kernel launch on {device} while cuda:{current} is the "
+            f"current card: call torch.cuda.set_device({device.index}) first")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -278,15 +278,26 @@ def make_sharded_chain_apply(plan: ShardPlan, comm):
     """apply(F, r_loc) -> M r, the default apply: each triangular solve as a
     zero-carry local scan, an (n - 1)-phase chain of c-vector carry
     updates through Tf / Tb, and the local scan again with the true carry
-    (the sequential recurrence, its carry arriving through the chain)."""
+    (the sequential recurrence, its carry arriving through the chain).
+
+    vasp_tpu's SPMD program runs every scan on every rank; here each rank
+    runs only the scans whose result it uses. Rank 0 has no incoming
+    forward carry (its true-carry forward scan is its zero-carry one) and
+    sends no backward one (no zero-carry backward scan); the last rank
+    sends no forward carry (no zero-carry forward scan) and has no
+    incoming backward one (its true-carry backward scan is its zero-carry
+    one). So the end ranks run one scan each way, as in a Thomas apply,
+    the interior ranks two; the results are vasp_tpu's, scan for scan."""
     c, n, m = plan.c, plan.n, plan.nb_loc
     rank = comm.rank
+    first, last = rank == 0, rank == n - 1
 
     def apply(F, r_loc):
         Sinv, H, G = F["Sinv"], F["H"], F["G"]
         rb = r_loc.to(torch.float32).reshape(m, c)
         t = kb.carry_stage(Sinv, H, G, "times", rb)
-        wz = kb.carry_stage(Sinv, H, G, "forward", t)
+        wz = (kb.carry_stage(Sinv, H, G, "forward", t) if first or not last
+              else None)
         win = carry = torch.zeros(c, dtype=torch.float32, device=rb.device)
         for p in range(n - 1):
             out = (kb.carry_update(F["Tf"], carry, wz[-1]) if rank == p
@@ -294,9 +305,9 @@ def make_sharded_chain_apply(plan: ShardPlan, comm):
             carry = comm.ppermute(out, p, p + 1)
             if rank == p + 1:
                 win = carry
-        w = kb.carry_stage(Sinv, H, G, "forward", t,
-                           win if rank > 0 else None)
-        xz = kb.carry_stage(Sinv, H, G, "backward", w)
+        w = wz if first else kb.carry_stage(Sinv, H, G, "forward", t, win)
+        xz = (kb.carry_stage(Sinv, H, G, "backward", w) if last or not first
+              else None)
         xin = carry = torch.zeros_like(win)
         for p in range(n - 1, 0, -1):
             out = (kb.carry_update(F["Tb"], carry, xz[0]) if rank == p
@@ -304,8 +315,7 @@ def make_sharded_chain_apply(plan: ShardPlan, comm):
             carry = comm.ppermute(out, p, p - 1)
             if rank == p - 1:
                 xin = carry
-        x = kb.carry_stage(Sinv, H, G, "backward", w,
-                           xin if rank < n - 1 else None)
+        x = xz if last else kb.carry_stage(Sinv, H, G, "backward", w, xin)
         return x.reshape(-1).to(r_loc.dtype)
 
     return apply

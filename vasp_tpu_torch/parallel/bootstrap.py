@@ -14,8 +14,11 @@ explicit arguments or the environment:
 
 A single process is a no-op. Without a launcher, :func:`spawn_world`
 starts the ranks itself (torch.multiprocessing spawn, a FileStore in a
-temporary directory). :func:`rank_device` is the rank -> device map,
-vasp_tpu's global_device_mesh: cuda:<local rank % cards>.
+temporary directory). :func:`use_rank_device` is the rank -> device map,
+vasp_tpu's global_device_mesh: cuda:<local rank % cards>, made the
+process's current card, which the hand-written kernels need (each
+launches on its tensor's stream, and CUDA refuses a launch on a stream of
+another card than the current one).
 """
 import os
 import tempfile
@@ -92,13 +95,17 @@ def distributed_init(coordinator=None, num_processes=None, process_id=None,
     return True
 
 
-def rank_device(name="cuda"):
-    """The device of this rank for the config's `name`: a CUDA device
-    without an index becomes cuda:<local rank % visible cards> inside a
-    process group, anything else is returned as given."""
+def use_rank_device(name="cuda"):
+    """The device of this rank for the config's `name`, made the current
+    card where it is one: a CUDA device without an index becomes
+    cuda:<local rank % visible cards> inside a process group (so that rank
+    r of a group with a card a rank launches its kernels on cuda:r),
+    anything else is returned as given."""
     dev = torch.device(name)
     if dev.type == "cuda" and dev.index is None and world_size() > 1:
-        return torch.device("cuda", local_rank() % torch.cuda.device_count())
+        dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
     return dev
 
 

@@ -25,7 +25,7 @@ Per-timestep stdout follows the reference's log contract
 ("Solved for timestep {n}, t = {t} in {cpu} s",
 reference: docs/offset_stenosis.md:197 and log_plotter.py:72).
 
-With n_devices > 1 (run/system.py resolve_world) each rank of the process
+With a sharded run (run/system.py run_layout) each rank of the process
 group runs run_simulation on its own process, every hook included, and
 holds the full state after each step; rank 0 alone writes the folder's
 files (run.log, metrics.jsonl, HDF5, checkpoints) and prints, the other
@@ -48,7 +48,7 @@ from vasp_tpu_torch.parallel import bootstrap
 from vasp_tpu_torch.run import checkpoint as ckpt
 from vasp_tpu_torch.run.config import default_variables, parse_command_line
 from vasp_tpu_torch.run.output import VisualizationOutput
-from vasp_tpu_torch.run.system import FSISystem, resolve_world
+from vasp_tpu_torch.run.system import FSISystem, run_layout
 
 DIST_BACKENDS = ("nccl", "gloo")
 
@@ -276,15 +276,16 @@ def main(argv=None, return_namespace=False):
 
     It joins a launcher's process group first (torchrun, SLURM, MPI:
     bootstrap.distributed_init, on the backend of dist_backend) and runs
-    this process's rank. Outside one, a run of n_devices > 1 ranks starts
-    them here, one spawned process each in a group that meets in a
-    FileStore in a temporary directory, waits for them and returns None:
-    the namespace stays in the ranks."""
+    this process's rank. Outside one, a sharded run (run/system.py
+    run_layout: the iterative path on several ranks) starts its ranks
+    here, one spawned process each in a group that meets in a FileStore
+    in a temporary directory, waits for them and returns None: the
+    namespace stays in the ranks."""
     problem, overrides = parse_command_line(argv)
     cfg = merged_config(load_problem_module(problem), overrides)
     backend = dist_backend(cfg)
     bootstrap.distributed_init(backend=backend)
-    n = resolve_world(cfg)
+    n = run_layout(cfg)[1]
     if n > 1 and bootstrap.world_size() == 1:
         bootstrap.spawn_world(n, run_simulation, (problem, overrides),
                               backend)

@@ -25,10 +25,13 @@ vasp_tpu.
 ``n_devices`` (the reference's ``mpirun -np N``) > 1 runs the iterative
 path sharded over that many ranks, one process each (parallel/, as
 vasp_tpu's device mesh): any linear_solver maps to it, as in vasp_tpu;
-``shard_algo`` picks its apply ("chain", the default, or "thomas"); each
-rank's state lives on cuda:<local rank % cards> for device="cuda"
-(parallel/bootstrap.py rank_device). The ranks are the process group's:
-vasp-tpu-torch-run starts them (run/driver.py), or a launcher does.
+unset, it shards only an iterative solver, over every visible card
+(run_layout decides both, once); ``shard_algo`` picks its apply
+("chain", the default, or "thomas"); each rank's state lives on
+cuda:<local rank % cards> for device="cuda", its current card
+(parallel/bootstrap.py use_rank_device). The ranks are the process
+group's: vasp-tpu-torch-run starts them (run/driver.py), or a launcher
+does.
 
 Not ported yet, and refused with the ROADMAP item that will port it:
 shard_algo="spike" (queue 1, item 18); fem/timestepper.py refuses the
@@ -64,6 +67,7 @@ from vasp_tpu_torch.fem.timestepper import (
 )
 
 _UNSET = (None, "None", "")
+ITERATIVE = ("gmres", "iterative", "ras")
 
 
 def resolve_world(cfg):
@@ -92,6 +96,23 @@ def resolve_world(cfg):
                                f"{group} ranks")
         return group
     return n
+
+
+def run_layout(cfg):
+    """(linear_solver, ranks): the solver a run builds and the ranks it runs
+    on, decided here alone, for run/driver.py main (which starts the
+    ranks) and FSISystem.make_solver (which builds the solver), as
+    vasp_tpu's make_solver and _resolve_device_mesh decide them. Only the
+    iterative path is sharded. An explicit n_devices other than 0 or 1
+    ("auto" and "max" too), or a process group of several ranks, maps any
+    linear_solver to it ("gmres"); an unset n_devices shards an iterative
+    solver over every visible card (resolve_world) and leaves any other
+    solver on one process."""
+    lin = cfg.get("linear_solver", "lu")
+    explicit = cfg.get("n_devices") not in _UNSET + (0, 1, "1")
+    if lin not in ITERATIVE and (explicit or bootstrap.world_size() > 1):
+        lin = "gmres"
+    return lin, (resolve_world(cfg) if lin in ITERATIVE else 1)
 
 
 def normalize_fluid_properties(cfg):
@@ -143,7 +164,7 @@ class FSISystem:
     def __init__(self, mesh, cfg):
         self.mesh = mesh
         self.cfg = dict(cfg)
-        self.device = bootstrap.rank_device(
+        self.device = bootstrap.use_rank_device(
             resolve_device(cfg.get("device", "cuda")))
         check_algo(cfg.get("shard_algo", "chain"))
         self.space = DVPSpace(mesh)
@@ -312,17 +333,16 @@ class FSISystem:
 
     def make_solver(self, bc_set, **opts):
         cfg = self.cfg
-        lin = cfg.get("linear_solver", "lu")
-        if (lin not in ("gmres", "iterative", "ras")
-                and cfg.get("n_devices") not in _UNSET + (0, 1, "1")):
+        lin, world = run_layout(cfg)
+        if lin != cfg.get("linear_solver", "lu"):
             # the multi-device equivalent of a parallel direct solve is the
             # sharded banded-preconditioned Newton-Krylov path (reference:
             # mpirun -np N turtleFSI, docs/simulation.md:13-19)
-            print(f"n_devices={cfg['n_devices']}: running the sharded "
-                  f"iterative path (linear_solver={lin!r} is single-device)")
-            lin = "gmres"
-        if lin in ("gmres", "iterative", "ras"):
-            return self._make_iterative_solver(bc_set, **opts)
+            print(f"n_devices={cfg.get('n_devices')}: running the sharded "
+                  f"iterative path (linear_solver="
+                  f"{cfg.get('linear_solver', 'lu')!r} is single-device)")
+        if lin in ITERATIVE:
+            return self._make_iterative_solver(bc_set, world, **opts)
         options = NewtonOptions(
             atol=float(cfg.get("atol", 1e-7)),
             rtol=float(cfg.get("rtol", 1e-7)),
@@ -340,7 +360,7 @@ class FSISystem:
             setattr(options, k, v)
         return NewtonSolver(self.assembler, bc_set, options, lift=self.lift)
 
-    def _make_iterative_solver(self, bc_set, **opts):
+    def _make_iterative_solver(self, bc_set, world, **opts):
         cfg = self.cfg
         kw = dict(
             atol=float(cfg.get("atol", 1e-7)),
@@ -370,7 +390,6 @@ class FSISystem:
         known = {f.name for f in dataclasses.fields(StepOptions)}
         kw.update({k: v for k, v in opts.items() if k in known})
         sopts = StepOptions(**kw)
-        world = resolve_world(cfg)
         if world != bootstrap.world_size():
             raise RuntimeError(
                 f"n_devices={cfg.get('n_devices')!r} runs {world} ranks, one "
