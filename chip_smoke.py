@@ -209,8 +209,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    scale; within 1e-10 the eigenvalues and the band-pass amplitudes (acos
    near r = +-1 turns a rounding change of r into ~1e-8 of p) and OSI,
    RRT and ECAP (the mean WSS vector cancels over a reversing series, and
-   RRT is its inverse); every K20 kernel launched. Then each K20 kernel
-   against its plain version at production shapes, timed: K20a on a
+   RRT is its inverse); every K20 kernel launched. Then the WSS series
+   and the stress/strain fields again on 2 gloo ranks sharing the card
+   (the timestep-sharded pass, parallel/steps.py, started by
+   bootstrap.spawn_world, each rank's counters reset just before its pass
+   and read just after): within 1e-13 of the one-rank pass's scale
+   (TOL_SHARDED_POST), K20a and K20b launched on each rank. Then each K20
+   kernel against its plain version at production shapes, timed: K20a on a
    seeded 951-step velocity series (-p offset_stenosis's T = 0.951 s at
    dt = 1e-3) at the stenosis tube, with the host part (the loads' copy
    and the boundary-mass splu solves) timed apart; K20b in SVK at that
@@ -330,7 +335,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      phase 9, and then fails only on non-finite values or a missing
      launch).
 
-15. The sharded Newton-Krylov path (K21):
+15. The sharded Newton-Krylov path (K21, SPIKE K21f included):
    - 15a (run within phase 2, on its K9 factors at the 20,832-cell tube
      split into two spans of 21 blocks, as two ranks hold them): K21a's
      zero-carry and true-carry passes on each span against their plain
@@ -356,8 +361,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      U within 3e-5 relative of its step-3 state (phase 5 and 6 keep
      their states per step through a problem file); per rank Newton and
      GMRES counts, the rebuild by part, s/step, peak memory and K21a's
-     launches. With two cards or more the same on nccl, one card a rank
-     (a machine of one card does not make it).
+     launches, and K21d, the all-reduces' seconds (the card synchronized
+     around each) and bytes a GMRES iteration. With two cards or more the
+     same on nccl, one card a rank (a machine of one card does not make
+     it);
+   - 15c (run within phase 2, on its C/D/B at the 20,832-cell tube split
+     into two spans of 21 blocks, the two ranks composed in this process
+     as threads with a summing all-reduce): SPIKE's factorization of both
+     ranks (timed); K21f-a (the refinement's residual) on rank 1's span
+     by K6's rule against the float64 residual, timed beside its bound
+     (C + D + B of the span), its plain version and one torch.bmm of the
+     stacked blocks; the two-rank SPIKE apply through the kernels against
+     the same apply through the plain versions, refine 0 and 2: its probe
+     at most twice the plain apply's plus 1e-6, each apply timed beside
+     the bound of both ranks' reads;
+   - 15d: 15b's run with shard_algo="spike" (2 refinement passes): every
+     step converged, U within 3e-5 relative of phase 5's step 3, the same
+     lines, K21a and K21f-a launched on each rank.
 
 Phases 3-15 run with HDF5 output off (save_step=0, checkpoint_step=0)
 and, but for 15b, on one device (n_devices=1), so the smoke needs no h5py
@@ -395,6 +415,10 @@ TOL_PATH_STEP_FN = 1e-8
 # this many times the plain version's (plus 1e-6); tests/diag_carry_stages.py's
 # 480 readings on an H100 need at most 2.29 (tests/test_torch_kernels_cuda.py)
 TOL_CARRY_STAGE_RATIO = 4.0
+# phase 10's 2-rank pass against its one-rank pass, relative to each
+# field's scale: the same kernels on the same steps (K20a's float64
+# atomics sum in a varying order)
+TOL_SHARDED_POST = 1e-13
 # H100 SXM: HBM3 rate, f32 and f64 peaks without the tensor cores, and the
 # f64 tensor-core peak that cuBLAS's DGEMM can reach (NVIDIA H100 SXM data
 # sheet)
@@ -767,6 +791,10 @@ REPLACES = {
                             "vasp_tpu/parallel/banded_shard.py:724 (the "
                             "chain's carry update, wlast + Tf carry)",
                             "sharded"),
+    "banded_tri_residual": (CSRC + "banded.cu",
+                            "vasp_tpu/parallel/banded_shard.py:775-777 "
+                            "(make_sharded_spike_apply's refinement "
+                            "residual)", "sharded_spike"),
 }
 # the kernels each path's run must launch
 _KRYLOV_FLUID = {"fluid_jacobian_f32", "elem_matvec", "ruiz_sweep",
@@ -875,6 +903,10 @@ PATHS = {
     # K21a in place of K6
     "sharded": _TINY_BANDED | {"banded_carry", "banded_carry_update"}
     | _MEASURES,
+    # SPIKE on it (phase 15d): K21a's stages and carry updates and the
+    # refinement's residual K21f-a
+    "sharded_spike": _TINY_BANDED | {"banded_carry", "banded_carry_update",
+                                     "banded_tri_residual"} | _MEASURES,
 }
 
 
@@ -1315,6 +1347,8 @@ def phase_element_kernels(records, system, U, U0):
 def phase_iterative_kernels(records, system, bc):
     """K4, K7, K8 and K6 against their plain versions on the first rebuild's
     inputs (the state at t = dt from rest), and the torch K9/K10 times."""
+    import gc
+
     import numpy as np
     import torch
 
@@ -1550,6 +1584,10 @@ def phase_iterative_kernels(records, system, bc):
     storage = phase_storage_kernels(records, Ck, Dk, Bk, Sinv, perm, r, pat)
     storage.update(phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm,
                                        r, pat, probe))
+    del Sinv, H, G
+    gc.collect()
+    torch.cuda.empty_cache()
+    storage.update(phase_spike_kernels(records, Ck, Dk, Bk, pat, probe))
     del Ck, Dk, Bk
     return dict(scan_ms=t_scan * 1e3, hg_ms=t_hg * 1e3,
                 probe_ms=t_probe * 1e3, probe_rel=probe, setup=setup,
@@ -1803,6 +1841,138 @@ def phase_carry_kernels(records, Ck, Dk, Bk, Sinv, H, G, perm, r, pat,
                 (nbytes(Tf, v, a, uk), 2 * c * c, "f32"), math.inf,
                 f"({c},{c}) f32", library_ms=cuda_ms(
                     lambda: torch.addmv(a, Tf, v), 50))
+    return out
+
+
+def _test_helpers():
+    """tests/_torch_dist.py (numpy and torch only): thread_ranks, which
+    composes several ranks in this process (threads, each with a
+    Collectives whose all-reduce sums the ranks' buffers), and
+    plain_banded."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_dist
+
+    return _torch_dist
+
+
+def _spike_ranks(fn):
+    """fn(comm) on two ranks composed in this process."""
+    return _test_helpers().thread_ranks(2, fn)
+
+
+def phase_spike_kernels(records, Ck, Dk, Bk, pat, probe):
+    """Phase 15c: SPIKE (K21f) on phase 2's C/D/B at the 20,832-cell tube
+    split into two ranks' spans of nb/2 blocks, the two ranks composed in
+    this process (_spike_ranks): each rank's factorization (torch, timed);
+    K21f-a on rank 1's span against its plain version by K6's rule (the
+    distance to the float64 residual on the same float32 inputs at most
+    twice the plain version's plus 1e-6), timed beside its bound (C + D +
+    B of the span read), its plain version and one torch.bmm of the
+    stacked blocks; the two-rank SPIKE apply through the kernels (K21a's
+    stages, the carry updates, K21f-a) against the same apply through the
+    plain versions with refine 0 and 2: its probe at most twice the plain
+    apply's plus 1e-6 (the tolerance of tests/test_torch_kernels_cuda.py:
+    the partitioned solve is not backward stable, so the two float32
+    results part where the local inverses amplify rounding, and the probe
+    is what a preconditioner is held to), each apply's time beside the
+    bound of the bytes both ranks read."""
+    import numpy as np
+    import torch
+
+    from vasp_tpu_torch.kernels import banded as kb
+    from vasp_tpu_torch.parallel import banded_shard as bs
+
+    nb, c, dev = pat.nb, pat.c, Dk.device
+    require(nb % 2 == 0, f"15c needs an even block count, got {nb}")
+    m = nb // 2
+    spans = [tuple(M[sl] for M in (Ck, Dk, Bk))
+             for sl in (slice(0, m), slice(m, nb))]
+    plan = bs.ShardPlan(c=c, nb_loc=m, span=m * c, n=2, ndof=pat.ndof,
+                        npad=pat.npad, perm=None, iperm=None)
+    print(f"[15c] SPIKE on phase 2's C/D/B split into two spans of {m} "
+          f"blocks (c={c}), the two ranks composed in this process:")
+    out = {}
+    for refine in (0, 2):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        factors = _spike_ranks(lambda comm: bs.sharded_factorize_spike(
+            *spans[comm.rank], comm, refine=refine))
+        torch.cuda.synchronize()
+        fact_s = time.perf_counter() - tic
+
+        def apply_all(rhs):
+            return _spike_ranks(lambda comm: bs.make_sharded_spike_apply(
+                plan, comm, refine)(factors[comm.rank], rhs[comm.rank]))
+
+        def probes():
+            return _spike_ranks(lambda comm: bs.sharded_probe_rel(
+                *spans[comm.rank], factors[comm.rank],
+                bs.make_sharded_spike_apply(plan, comm, refine), comm))
+
+        rhs = [torch.as_tensor(np.random.default_rng((15, k)).normal(
+            size=m * c), dtype=torch.float32, device=dev)
+            for k in range(2)]
+        pk = probes()
+        xk = torch.cat(apply_all(rhs))
+        ms = cuda_ms(lambda: apply_all(rhs), 5)
+        with _test_helpers().plain_banded():
+            pp = probes()
+            xp = torch.cat(apply_all(rhs))
+            plain_ms = cuda_ms(lambda: apply_all(rhs), 2)
+        require(pk[0] == pk[1] and pp[0] == pp[1], f"15c: the ranks read "
+                                                   f"other probes {pk} {pp}")
+        require(pk[0] <= 2 * pp[0] + 1e-6,
+                f"15c: the SPIKE apply (refine {refine}) through the kernels "
+                f"probes {pk[0]:.3e}, through the plain versions "
+                f"{pp[0]:.3e}")
+        # the bytes both ranks read: rank 0's first local solve two stages
+        # (Sinv, H), every other solve three, each refinement pass C + D + B
+        block = 4 * c * c
+        solves = (2 + 3) + (3 + 3)
+        b_ms = bound((1 + refine) * solves * m * block
+                     + refine * 2 * 3 * m * block, 0, "f32")[0]
+        print(f"    refine {refine}: factorization {fact_s:.2f} s (both "
+              f"ranks); probe {pk[0]:.3e} through the kernels, {pp[0]:.3e} "
+              f"through the plain versions (K9's single-device {probe:.3e}); "
+              f"kernel and plain applies {rel_err(xk, xp)[0]:.3e} apart; "
+              f"apply {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms (bytes of both ranks)")
+        out[f"spike{refine}"] = dict(probe=pk[0], probe_plain=pp[0],
+                                     factorize_s=fact_s, apply_ms=ms,
+                                     apply_plain_ms=plain_ms,
+                                     apply_bound_ms=b_ms)
+        del factors
+    # K21f-a on rank 1's span: x and r seeded, rank 0's last row its x_{-1}
+    Cs, Ds, Bs = spans[1]
+    g = np.random.default_rng(151)
+    x, r = (torch.as_tensor(g.normal(size=(m, c)), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    xprev = torch.as_tensor(g.normal(size=c), dtype=torch.float32,
+                            device=dev)
+    yk = kb.tri_residual_cuda(Cs, Ds, Bs, x, r, xprev)
+    yp = kb.tri_residual_plain(Cs, Ds, Bs, x, r, xprev)
+    ref = kb.tri_residual_plain(Cs, Ds, Bs, x.double(), r.double(),
+                                xprev.double())
+    dk, dp = rel_err(yk, ref)[0], rel_err(yp, ref)[0]
+    del ref
+    print(f"    banded_tri_residual vs float64: kernel {dk:.3e}, plain "
+          f"{dp:.3e}")
+    require(dk <= 2 * dp + 1e-6, f"banded_tri_residual is less accurate "
+                                 f"than its plain version: {dk:.3e} vs "
+                                 f"{dp:.3e}")
+    ms = cuda_ms(lambda: kb.tri_residual_cuda(Cs, Ds, Bs, x, r, xprev), 20)
+    plain_ms = cuda_ms(lambda: kb.tri_residual_plain(Cs, Ds, Bs, x, r,
+                                                     xprev), 5)
+    M3 = torch.cat([Cs, Ds, Bs])
+    V3 = torch.cat([torch.cat([xprev[None], x[:-1]]), x,
+                    torch.cat([x[1:], torch.zeros_like(x[:1])])])[..., None]
+    lib_ms = cuda_ms(lambda: torch.bmm(M3, V3), 20)
+    del M3, V3
+    records.add("banded_tri_residual", rel_err(yk, yp), ms, plain_ms,
+                (nbytes(Cs, Ds, Bs, x, r, xprev, yk), 6 * m * c * c, "f64"),
+                math.inf, f"3x({m},{c},{c}) f32", library_ms=lib_ms,
+                f64_rel_kernel=dk, f64_rel_plain=dp)
     return out
 
 
@@ -3577,6 +3747,96 @@ def _time_spectral(records):
           f"nfft {2 * NFFT}): {rfft_ms:.4f} ms")
 
 
+def _sharded_postproc_rank(inputs, out_dir, device="cuda"):
+    """One rank of phase 10's 2-rank pass (a process of spawn_world, its
+    card the current one): the WSS series and the stress/strain fields of
+    each kept run in `inputs`, the steps sharded over the ranks
+    (FluidBoundaryTables.wss_series and SolidVertexTables.fields with a
+    Collectives), the launch counters reset just before and read just
+    after; rank 0 writes the WSS, every rank the fields and its
+    counters."""
+    import torch
+
+    from vasp_tpu_torch.kernels import build
+    from vasp_tpu_torch.parallel import bootstrap
+    from vasp_tpu_torch.parallel.comm import Collectives
+    from vasp_tpu_torch.postprocessing.fields.hemodynamics import (
+        FluidBoundaryTables)
+    from vasp_tpu_torch.postprocessing.fields.stress_strain import (
+        SolidVertexTables, _normalize_solid_props)
+
+    dev = bootstrap.use_rank_device(device)
+    comm = Collectives()
+    runs = torch.load(inputs, weights_only=False)
+    out = {}
+    build.reset_launch_counts()
+    for k, run in runs.items():
+        _, v, d = _post_inputs(run, dev)
+        mu_f = run["mu_f"][0] if isinstance(run["mu_f"], (list, tuple)) \
+            else run["mu_f"]
+        tau = FluidBoundaryTables(run["mesh"], run["dx_f_id"]).wss_series(
+            v, run["space"].cell_dofs_p2, mu_f, device=dev, comm=comm)
+        solid = SolidVertexTables(run["mesh"], run["space"],
+                                  _normalize_solid_props(run))
+        sig, eps, mps, mpe = (a.cpu().numpy() for a in solid.fields(
+            d, solid.device_tables(dev), comm))
+        out[k] = dict(tau=tau, sig=sig, eps=eps, mps=mps, mpe=mpe)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = dict(build.LAUNCHES)
+    torch.save(out, Path(out_dir) / f"rank{comm.rank}.pt")
+
+
+def phase_sharded_postproc(series, card, device="cuda"):
+    """Phase 10's 2-rank pass: the same in-memory series on two gloo ranks
+    sharing this card (parallel/steps.py's timestep sharding, started by
+    bootstrap.spawn_world), against the one-rank card pass `card`: the WSS
+    (rank 0's) and the stress/strain fields (every rank's) within 1e-13 of
+    their scale (TOL_SHARDED_POST; K20a's float64 atomics make the loads
+    differ from run to run in the last bits), K20a and K20b launched on
+    each rank."""
+    import torch
+
+    from vasp_tpu_torch.parallel import bootstrap
+
+    tic = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vasp_smoke_post_") as tmp:
+        inputs = Path(tmp) / "series.pt"
+        torch.save({k: dict(run, series=[(t, u.cpu()) for t, u in
+                                         run["series"]])
+                    for k, run in series.items()}, inputs)
+        bootstrap.spawn_world(2, _sharded_postproc_rank,
+                              (str(inputs), tmp, device), "gloo")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    worst = {}
+    for k in series:
+        for r, res in enumerate(ranks):
+            for key, got in res[k].items():
+                if got is None:
+                    require(r > 0 and key == "tau", f"{k}: rank {r} has no "
+                                                    f"{key}")
+                    continue
+                rel = _scale_err(got, card[k][key])[0]
+                require(rel <= TOL_SHARDED_POST,
+                        f"{k}: the 2-rank pass's {key} (rank {r}) is "
+                        f"{rel:.3e} of its scale from the one-rank pass's")
+                worst[key] = max(worst.get(key, 0.0), rel)
+    for r, res in enumerate(ranks):
+        kinds = ("wss_load", "stress_strain_svk", "stress_strain_mr")
+        missing = [n for n in kinds if res["launches"][n] == 0]
+        require(not missing, f"the 2-rank pass: rank {r} launched no "
+                             f"{missing}")
+    print(f"    2-rank gloo pass, both ranks on this card, "
+          f"{time.perf_counter() - tic:.1f} s with the ranks' start: max "
+          f"|diff| / scale against the one-rank pass "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+          + "; launches a rank (wss_load, stress_strain_svk, "
+          "stress_strain_mr): " + ", ".join(
+              str(tuple(res["launches"][n] for n in kinds))
+              for res in ranks))
+
+
 def phase_postproc(records, series):
     """Phase 10: the postprocessing of phase 8's stenosis series and phase
     9's chain series (the Mooney-Rivlin wall) in memory, on the card with
@@ -3618,6 +3878,7 @@ def phase_postproc(records, series):
               f"{', '.join(worst)}")
     print(f"    the card's pass of both series took {card_s:.2f} s")
     print(f"    launches {dict((n, launches[n]) for n in PATHS['postproc'])}")
+    phase_sharded_postproc(series, card)
     print(f"[10] the K20 kernels at size ({POST_STEPS} steps, "
           f"{POST_NODES} nodes):")
     _time_wss(records, series["stenosis"])
@@ -4025,11 +4286,12 @@ def finished(solver, system, dvp_, folder, step_clock, **namespace):
 '''
 
 
-def sharded_run(tmp, label, backend, n=2):
+def sharded_run(tmp, label, backend, n=2, **cfg):
     """vasp-tpu-torch-run -p cylinder at the 20,832-cell tube on phase 5's
-    configuration with n_devices=n, through SHARDED_PROBLEM, as the
-    console script runs it (driver.main starts the ranks); 3 steps.
-    Returns (wall seconds, the ranks' records, rank 0's metrics, U)."""
+    configuration with n_devices=n and the config keys cfg, through
+    SHARDED_PROBLEM, as the console script runs it (driver.main starts the
+    ranks); 3 steps. Returns (wall seconds, the ranks' records, rank 0's
+    metrics, U)."""
     import torch
 
     from vasp_tpu_torch.run import driver
@@ -4040,7 +4302,7 @@ def sharded_run(tmp, label, backend, n=2):
     cfg_path.write_text(json.dumps(dict(
         mesh_path=None, generated_mesh_params=FULL_MESH, **dict(
             RUN_KEYS, n_devices=n), linear_solver="gmres",
-        dist_backend=backend)))
+        dist_backend=backend, **cfg)))
     folder = tmp / f"main_{label}"
     tic = time.perf_counter()
     ret = driver.main(["-p", str(path), "-T", "0.003", "-dt", "0.001",
@@ -4055,44 +4317,53 @@ def sharded_run(tmp, label, backend, n=2):
 
 
 def phase_sharded(tmp, ref_steps, extra):
-    """Phase 15b: the 2-rank run of sharded_run on gloo, both ranks on this
-    card (their exchanges are gloo all-reduces of CUDA tensors, which gloo
-    stages through the host), held to phase 5's first 3 steps: the same
-    Newton counts, U within 3e-5 relative (TOL_PATH_GMRES); every kernel of
-    the path launched (summed over the ranks; K21a on each). Prints per
-    rank Newton and GMRES counts, the rebuild by part, s/step of the steps
-    that reuse the factors, peak memory and K21a's launches. With two
-    cards or more, the same on nccl (one card a rank). Returns the gloo
-    run's launches, summed over the ranks."""
+    """Phase 15b and 15d: the 2-rank runs of sharded_run on gloo, both
+    ranks on this card (their exchanges are gloo all-reduces of CUDA
+    tensors, which gloo stages through the host), held to phase 5's first 3
+    steps: 15b with the chain apply (the default), the same Newton counts;
+    15d with shard_algo="spike" (2 refinement passes, the default), every
+    step converged; both with U within 3e-5 relative (TOL_PATH_GMRES) and
+    every kernel of the path launched (summed over the ranks; K21a on each,
+    and K21f-a on each in 15d). Prints per rank Newton and GMRES counts,
+    the rebuild by part, s/step of the steps that reuse the factors, peak
+    memory and the sharded kernels' launches. With two cards or more, 15b
+    on nccl too (one card a rank). Returns the launches of 15b's and 15d's
+    gloo runs, summed over the ranks."""
     import torch
 
-    runs = [("sharded", "gloo")]
+    runs = [("15b", "sharded", "gloo", {}),
+            ("15d", "sharded_spike", "gloo", dict(shard_algo="spike"))]
     if torch.cuda.device_count() >= 2:
-        runs.append(("sharded_nccl", "nccl"))
+        runs.append(("15b", "sharded_nccl", "nccl", {}))
     else:
         print("[15b] one card: the nccl run (one card a rank) is not made")
-    out = None
-    for label, backend in runs:
-        print(f"[15b] cylinder at 20,832 cells, phase 5's configuration "
+    out = {}
+    for tag, label, backend, cfg in runs:
+        algo = cfg.get("shard_algo", "chain")
+        print(f"[{tag}] cylinder at 20,832 cells, phase 5's configuration "
               f"(linear_solver=gmres), n_devices=2, dist_backend={backend}, "
-              f"3 steps, started as vasp-tpu-torch-run starts it:")
-        wall, ranks, steps, U = sharded_run(tmp, label, backend)
+              f"shard_algo={algo}, 3 steps, started as vasp-tpu-torch-run "
+              f"starts it:")
+        wall, ranks, steps, U = sharded_run(tmp, label, backend, **cfg)
         newton = [s["newton_iterations"] for s in steps]
         require(len(steps) == 3 and all(s["converged"] for s in steps),
                 f"{label}: steps {steps}")
-        require(newton == [it for _, it in ref_steps],
-                f"{label}: Newton iterations {newton}, phase 5's "
-                f"{[it for _, it in ref_steps]}")
+        if algo == "chain":
+            require(newton == [it for _, it in ref_steps],
+                    f"{label}: Newton iterations {newton}, phase 5's "
+                    f"{[it for _, it in ref_steps]}")
         rel = rel_err(U, ref_steps[-1][0])[0]
         require(bool(torch.isfinite(U).all()) and rel <= TOL_PATH_GMRES,
                 f"{label}: U {rel:.3e} from phase 5's step 3")
         launches = {k: sum(r["launches"][k] for r in ranks)
                     for k in ranks[0]["launches"]}
-        check_launches("sharded", launches)
+        path = "sharded_spike" if algo == "spike" else "sharded"
+        check_launches(path, launches)
         print(f"    3 steps in {wall:.2f} s (the ranks' start and build "
-              f"included); Newton iterations {newton} (phase 5's the same); "
-              f"U {rel:.3e} from phase 5's step-3 state; transport: "
-              f"{ranks[0]['backend']} all-reduce of CUDA tensors")
+              f"included); Newton iterations {newton} (phase 5's "
+              f"{[it for _, it in ref_steps]}); U {rel:.3e} from phase 5's "
+              f"step-3 state; transport: {ranks[0]['backend']} all-reduce "
+              f"of CUDA tensors")
         for r in ranks:
             t = r["timings"]
             hist = r["history"]
@@ -4104,21 +4375,33 @@ def phase_sharded(tmp, ref_steps, extra):
             print("      rebuild split (s): " + ", ".join(
                 f"{k} {t.get(k, 0.0):.3f}" for k in (
                     "rebuild_jacobians", "ruiz", "assemble", "factorize",
-                    "transfer", "probe")) + f"; plan {r['setup']['plan']:.2f}")
+                    "transfer", "spikes", "reduced", "probe"))
+                + f"; plan {r['setup']['plan']:.2f}")
             print("      per-iteration split, summed (s): " + ", ".join(
                 f"{k} {t.get(k, 0.0):.3f}" for k in (
                     "jacobians", "residual", "gmres", "matvec", "precond")))
+            inner = max(1, sum(h["gmres_inner"] for h in hist))
+            print(f"      K21d, the all-reduces (card synchronized around "
+                  f"each): {t.get('exchange', 0.0):.3f} s, "
+                  f"{t.get('exchange_bytes', 0.0):.0f} bytes, "
+                  f"{t.get('exchange_bytes', 0.0) / inner:.0f} bytes a GMRES "
+                  f"iteration over the run's {inner}")
             print(f"      s/step {', '.join(f'{x:.3f}' for x in r['step_s'])}"
                   f" (steps 2-3 reuse the factors: mean "
                   f"{sum(r['step_s'][1:]) / 2:.3f} s); peak device memory "
                   f"{r['peak'] / 2**30:.2f} GiB; K21a launches "
                   f"{r['launches']['banded_carry']}, carry updates "
-                  f"{r['launches']['banded_carry_update']}")
+                  f"{r['launches']['banded_carry_update']}, K21f-a "
+                  f"{r['launches']['banded_tri_residual']}")
             require(r["launches"]["banded_carry"] > 0,
                     f"{label}: rank {r['rank']} launched no K21a")
+            if algo == "spike":
+                require(r["launches"]["banded_tri_residual"] > 0,
+                        f"{label}: rank {r['rank']} launched no K21f-a")
         extra[f"{label}_peak_gib"] = [r["peak"] / 2**30 for r in ranks]
         extra[f"{label}_step_s"] = [r["step_s"] for r in ranks]
-        out = out or launches
+        extra[f"{label}_newton"] = newton
+        out.setdefault(path, launches)
     return out
 
 
@@ -4535,9 +4818,8 @@ def main():
         elapsed("phase 14d")
         gc.collect()
         torch.cuda.empty_cache()
-        launches["sharded"] = phase_sharded(Path(tmp), gmres_steps[:3],
-                                            extra)
-        elapsed("phase 15b")
+        launches.update(phase_sharded(Path(tmp), gmres_steps[:3], extra))
+        elapsed("phase 15b, 15d")
 
     kernels = []
     for name, (src, rep, path) in REPLACES.items():

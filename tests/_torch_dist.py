@@ -8,6 +8,9 @@ functions build the port's systems themselves: this module imports
 neither jax nor vasp_tpu (a rank is a fresh interpreter, which should not
 load XLA).
 """
+import threading
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -67,6 +70,109 @@ def run_world(n, fn, tmp_path, *args):
             for r in range(n)]
 
 
+def in_thread(fn, *args):
+    """fn(*args) started on a thread of this process, so that the caller's
+    own work overlaps it (a world of spawned ranks waits on them with the
+    interpreter lock released); returns a function that waits for it and
+    returns its result (or raises its error)."""
+    out = {}
+
+    def target():
+        try:
+            out["result"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - raised by result()
+            out["error"] = e
+
+    thread = threading.Thread(target=target)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["result"]
+
+    return result
+
+
+def start_world(n, fn, tmp_path, *args):
+    """run_world(n, fn, tmp_path, *args) on a thread (in_thread)."""
+    return in_thread(run_world, n, fn, tmp_path, *args)
+
+
+class _Box:
+    def __init__(self, n):
+        self.n = n
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n)
+
+
+def thread_ranks(n, fn, *args):
+    """fn(comm, *args) on n threads of this process, each one rank with a
+    parallel/comm.py Collectives whose all-reduce is a barrier-synchronized
+    sum (or maximum) of the ranks' buffers in rank order: several ranks'
+    work composed in one process on one card (the exchanges' buffers hold
+    one sender's values and zeros, so the sums are exact, as gloo's).
+    Returns the ranks' results in rank order; a rank's exception is raised
+    here."""
+    import torch.distributed as dist
+
+    from vasp_tpu_torch.parallel.comm import Collectives
+
+    box = _Box(n)
+
+    class ThreadCollectives(Collectives):
+        def __init__(self, rank):
+            self.group, self.rank, self.n = None, rank, n
+            self.span = self.c = None
+
+        def _reduce(self, x, op):
+            box.slots[self.rank] = x.detach().reshape(-1).clone()
+            box.barrier.wait()
+            out = box.slots[0].clone()
+            for y in box.slots[1:]:
+                out = (out + y if op == dist.ReduceOp.SUM
+                       else torch.maximum(out, y))
+            box.barrier.wait()
+            return out.reshape(x.shape)
+
+    results, errors = [None] * n, []
+
+    def run(rank):
+        try:
+            results[rank] = fn(ThreadCollectives(rank), *args)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            box.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+@contextmanager
+def plain_banded():
+    """kernels/banded.py's dispatchers of the sharded applies (carry_stage,
+    carry_update, tri_residual) bound to their plain versions, on a card's
+    tensors too: the same apply through the plain versions."""
+    from vasp_tpu_torch.kernels import banded as kb
+
+    names = ("carry_stage", "carry_update", "tri_residual")
+    saved = {k: getattr(kb, k) for k in names}
+    for k in names:
+        setattr(kb, k, getattr(kb, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(kb, k, f)
+
+
 # ---------------------------------------------------------- rank bodies
 def comm_ops(span, c):
     """Every Collectives operation on this rank's seeded inputs: the
@@ -117,6 +223,47 @@ def _rank_rows(st, A, block_index):
     out = torch.zeros((st.blocks[block_index].dofs.shape[0],)
                       + A.shape[1:], dtype=torch.float32)
     out[:len(sel)] = torch.as_tensor(A[sel])
+    return out
+
+
+# a seeded, diagonally dominant block-tridiagonal system for SPIKE: 4 ranks
+# of 3 blocks of 16
+BENIGN = dict(n=4, nb_loc=3, c=16)
+
+
+def benign_system(seed=20261018):
+    """(C, D, B) float32 (nb, c, c) with C_0 = B_{nb-1} = 0, D_k 4 I plus
+    N(0, 0.1) entries, C_k and B_k N(0, 0.1), and a N(0, 1) right-hand side
+    (nb c,) float64: the kind of system on which vasp_tpu calls its SPIKE
+    exact to 1e-7 (banded_shard.py:587)."""
+    nb, c = BENIGN["n"] * BENIGN["nb_loc"], BENIGN["c"]
+    rng = np.random.default_rng(seed)
+    C = 0.1 * rng.standard_normal((nb, c, c))
+    B = 0.1 * rng.standard_normal((nb, c, c))
+    D = 0.1 * rng.standard_normal((nb, c, c)) + 4.0 * np.eye(c)
+    C[0] = 0.0
+    B[-1] = 0.0
+    f32 = [a.astype(np.float32) for a in (C, D, B)]
+    return (*f32, rng.standard_normal(nb * c))
+
+
+def _spike_benign(comm):
+    """This rank's SPIKE solve of benign_system with refine 0 and 2."""
+    from vasp_tpu_torch.parallel import banded_shard as bs
+
+    m, c = BENIGN["nb_loc"], BENIGN["c"]
+    *CDB, rhs = benign_system()
+    lo = comm.rank * m
+    Cl, Dl, Bl = (torch.as_tensor(a[lo:lo + m]) for a in CDB)
+    plan = bs.ShardPlan(c=c, nb_loc=m, span=m * c, n=comm.n,
+                        ndof=comm.n * m * c, npad=comm.n * m * c, perm=None,
+                        iperm=None)
+    r = torch.as_tensor(rhs[lo * c:(lo + m) * c])
+    out = {}
+    for refine in (0, 2):
+        F = bs.sharded_factorize_spike(Cl, Dl, Bl, comm, refine=refine)
+        out[f"x_benign{refine}"] = bs.make_sharded_spike_apply(
+            plan, comm, refine)(F, r)
     return out
 
 
@@ -184,6 +331,27 @@ def banded_shard_world(inputs):
     out["rel_f64"] = st._last_rel
     out["U_exact"], out["info_exact"] = st._newton(zero, zero, bcv, load,
                                                    True, exact=True)
+
+    # SPIKE (K21f): the benign system, a step at TIGHT with refine 2 and
+    # its factors' probe with refine 0, the float64 factor tier's rebuild
+    # and a bf16-factor step at the hybrid case's options
+    out.update(_spike_benign(comm))
+    spike = bs.ShardedBandedStepper(system, bc, StepOptions(**TIGHT),
+                                    algo="spike")
+    out["U_spike"], out["info_spike"] = spike.step(zero, bcv, load, 1)
+    out["rel_spike2"] = spike._last_rel
+    F = spike._factors[2]
+    out["rel_spike0"] = bs.sharded_probe_rel(
+        F["Cb"], F["Db"], F["Bb"], F,
+        bs.make_sharded_spike_apply(plan, comm, 0), comm)
+    spike._rebuild(U1, zero, 1, f64=True)
+    out["rel_spike_f64"] = spike._last_rel
+    bf16 = bs.ShardedBandedStepper(
+        system, bc, StepOptions(**common, banded_factor_dtype="bf16"),
+        algo="spike")
+    out["U_spike_bf16"], out["info_spike_bf16"] = bf16.step(zero, bcv, load,
+                                                            1)
+    out["spike_bf16_dtype"] = bf16._factors[2]["H"].dtype
     return out
 
 

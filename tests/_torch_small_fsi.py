@@ -145,19 +145,30 @@ def run_steps(pair, opts, loads, recompute_tstep=20):
 
     from vasp_tpu_torch.fem.timestepper import IterativeStepper, StepOptions
 
+    from _torch_dist import in_thread
+
     (js, jbc, jload, jbcv), (ts, tbc, tload, tbcv) = pair
     jst = JaxStepper(js, jbc, JaxOptions(**opts),
                      recompute_tstep=recompute_tstep)
     tst = IterativeStepper(ts, tbc, StepOptions(**opts),
                            recompute_tstep=recompute_tstep)
-    jU, tU = js.zero_state(), ts.zero_state()
-    out = []
-    for tstep, scale in enumerate(loads, start=1):
-        jU, jstats = jst.step(jU, jbcv, scale * jload, tstep)
-        tU, tstats = tst.step(tU, tbcv, scale * tload, tstep)
-        ages = [None if c is None else int(c[1])
-                for c in (jst._jac_carry, tst._jac_carry)]
-        out.append((np.asarray(jU), jstats, tU, tstats, *ages))
+
+    def steps(st, U, bcv, load, host):
+        """(U, stats, carry age) per step of one package's stepper."""
+        out = []
+        for tstep, scale in enumerate(loads, start=1):
+            U, stats = st.step(U, bcv, scale * load, tstep)
+            carry = st._jac_carry
+            out.append((host(U), stats,
+                        None if carry is None else int(carry[1])))
+        return out
+
+    # vasp_tpu's steps on a thread beside the port's: the two share nothing
+    jax_steps = in_thread(steps, jst, js.zero_state(), jbcv, jload,
+                          np.asarray)
+    port = steps(tst, ts.zero_state(), tbcv, tload, lambda U: U)
+    out = [(jU, jstats, tU, tstats, jage, tage) for (jU, jstats, jage),
+           (tU, tstats, tage) in zip(jax_steps(), port)]
     return tst, out
 
 

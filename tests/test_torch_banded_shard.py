@@ -28,14 +28,37 @@ each with its reason:
   path's rule, tests/test_torch_driver_gmres.py).
 The file mirrors vasp_tpu's three other sharded cases on the port itself
 (the reuse, test_sharded_hybrid_delta_endgame and test_sharded_ladder_tiers
-with their bounds), and its chain-against-Thomas check."""
+with their bounds), and its chain-against-Thomas check.
+
+SPIKE (algo="spike", K21f), in the same world and the same vasp_tpu run:
+- a seeded, diagonally dominant block-tridiagonal system (_torch_dist's
+  benign_system) factorized and solved by both packages at 4 ranks (the
+  port with 0 and 2 refinement passes, vasp_tpu with none): within 1e-5
+  of each other and of the float64 direct solve (vasp_tpu calls its SPIKE
+  exact to 1e-7 on such systems);
+- a step on the tube at TIGHT with 2 refinement passes: converged to
+  1e-9, vasp_tpu's spike stepper's Newton count at N = 4, U within 2e-6
+  of the scale of the port's Thomas step (vasp_tpu's
+  test_parallel_solve_variants_match_thomas bars);
+- the factors' probe with 2 passes below the probe with none, in both
+  packages;
+- a bf16-factor step at the hybrid case's options (atol 1e-6) and the
+  float64 factor tier's rebuild with its probe under 1e-2
+  (test_sharded_ladder_tiers' bar)."""
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from _torch_dist import TIGHT, banded_shard_world, run_world, tube_system
+from _torch_dist import (
+    BENIGN,
+    TIGHT,
+    banded_shard_world,
+    benign_system,
+    start_world,
+    tube_system,
+)
 from _torch_small_fsi import random_state, same_rcm, torch_threads
 from vasp_tpu_torch.fem import banded as tb
 from vasp_tpu_torch.kernels import banded as kb
@@ -54,6 +77,74 @@ def _facet_order(jdofs, tdofs):
     the same facets in other orders)."""
     where = {tuple(row): i for i, row in enumerate(jdofs)}
     return np.array([where[tuple(row)] for row in tdofs])
+
+
+def _jax_spike_probe(st, refine):
+    """vasp_tpu's probe of a SPIKE stepper's factors (its probe_rel,
+    banded_shard.py:1010-1028) through its spike apply with `refine`
+    passes, under shard_map."""
+    import jax
+
+    from jax.sharding import PartitionSpec as P
+    from vasp_tpu.parallel.banded_shard import (
+        _left_perm,
+        _right_perm,
+        bgemv,
+        make_sharded_spike_apply,
+        shard_map,
+    )
+
+    plan, axis = st.plan, st.axis
+    m, c, n = plan.nb_loc, plan.c, plan.n
+    apply = make_sharded_spike_apply(plan, axis, refine)
+
+    def probe(F):
+        b = jnp.where(jnp.arange(plan.span) % 2 == 0, 1.0, -1.0
+                      ).astype(jnp.float32)
+        x = apply(F, b).astype(jnp.float32).reshape(m, c)
+        xprev = jax.lax.ppermute(x[m - 1], axis, _right_perm(n))
+        xnext = jax.lax.ppermute(x[0], axis, _left_perm(n))
+        xm = jnp.concatenate([xprev[None], x, xnext[None]], axis=0)
+        y = (bgemv(F["Db"], x) + bgemv(F["Cb"], xm[:m])
+             + bgemv(F["Bb"], xm[2:]))
+        r = (y - b.reshape(m, c)).reshape(-1)
+        return jnp.sqrt(jax.lax.psum(jnp.dot(r, r), axis)
+                        / jax.lax.psum(jnp.dot(b, b), axis))
+
+    F = st._factors[2]
+    return float(jax.jit(shard_map(
+        probe, mesh=st.mesh, in_specs=(jax.tree.map(lambda _: P(axis), F),),
+        out_specs=P(), check_vma=False))(F))
+
+
+def _jax_spike_benign():
+    """vasp_tpu's SPIKE factorization and apply (refine 0) of the benign
+    system at N devices, as scripts/bench_spike.py:77-90 runs its apply."""
+    import jax
+
+    from jax.sharding import PartitionSpec as P
+    from vasp_tpu.parallel.banded_shard import (
+        ShardPlan,
+        _sharded_factorize_spike,
+        make_sharded_spike_apply,
+        shard_map,
+    )
+    from vasp_tpu.parallel.shard import build_device_mesh
+
+    *CDB, rhs = benign_system()
+    m, c = BENIGN["nb_loc"], BENIGN["c"]
+    nd = N * m * c
+    plan = ShardPlan(c=c, nb_loc=m, span=m * c, n=N, ndof=nd, npad=nd,
+                     perm=np.arange(nd), iperm=np.arange(nd))
+
+    def solve(Cl, Dl, Bl, rl):
+        F = _sharded_factorize_spike(Cl, Dl, Bl, "dof", plan)
+        return make_sharded_spike_apply(plan, "dof", 0)(F, rl)
+
+    return np.asarray(jax.jit(shard_map(
+        solve, mesh=build_device_mesh(N, "dof"), in_specs=(P("dof"),) * 4,
+        out_specs=P("dof"), check_vma=False))(
+            *map(jnp.asarray, CDB), jnp.asarray(rhs)))
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +198,10 @@ def world(tmp_path_factory):
         if jdofs[i].shape[1] == 36:  # the facets, in the port's order
             A = A[_facet_order(jdofs[i], block_dofs[i])]
         inputs[f"jac{i}"] = A
+    path = tmp_path_factory.mktemp("banded_shard_inputs") / "inputs.npz"
+    np.savez(path, **inputs)
+    # the port's ranks run while vasp_tpu's steppers do
+    ranks = start_world(N, banded_shard_world, path.parent, str(path))
 
     st = ShardedBandedStepper(js, jbc, StepOptions(**TIGHT),
                               mesh=build_device_mesh(N, "dof"),
@@ -115,11 +210,16 @@ def world(tmp_path_factory):
     Uj2, info2 = st.step(Uj1, bcv, 1.2 * jload, tstep=2)
     jout.update(U1=np.asarray(Uj1), info1=info1, U2=np.asarray(Uj2),
                 info2=info2, rel=st._last_rel)
-
-    path = tmp_path_factory.mktemp("banded_shard_inputs") / "inputs.npz"
-    np.savez(path, **inputs)
-    ranks = run_world(N, banded_shard_world, path.parent, str(path))
-    return jout, ranks, ts
+    # SPIKE at N ranks with VASP_SPIKE_REFINE's default, 2 passes
+    sp = ShardedBandedStepper(js, jbc, StepOptions(**TIGHT),
+                              mesh=build_device_mesh(N, "dof"),
+                              recompute_tstep=20, algo="spike")
+    assert sp.spike_refine == 2
+    Us, infos = sp.step(Z, bcv, jload, tstep=1)
+    jout.update(U_spike=np.asarray(Us), info_spike=infos,
+                rel_spike2=sp._last_rel, rel_spike0=_jax_spike_probe(sp, 0),
+                x_benign=_jax_spike_benign())
+    return jout, ranks(), ts
 
 
 def _gathered(ranks, key):
@@ -273,3 +373,73 @@ def test_ladder_tiers(world):
         assert r["rel_f64"] < 1e-2
         assert _converged(r["info_exact"], 1e-9)
         assert torch.isfinite(r["U_exact"]).all()
+
+
+def _direct(C, D, B, rhs):
+    """The float64 dense solve of the block-tridiagonal system."""
+    nb, c, _ = D.shape
+    A = np.zeros((nb * c, nb * c))
+    for k in range(nb):
+        rows = slice(k * c, (k + 1) * c)
+        A[rows, rows] = D[k]
+        if k:
+            A[rows, (k - 1) * c:k * c] = C[k]
+        if k < nb - 1:
+            A[rows, (k + 1) * c:(k + 2) * c] = B[k]
+    return np.linalg.solve(A, rhs)
+
+
+def test_spike_benign_system(world):
+    """SPIKE on a seeded, diagonally dominant block-tridiagonal system, the
+    same C/D/B in both packages at 4 ranks: within 1e-5 of each other and
+    of the float64 direct solve (vasp_tpu's docstring: exact to 1e-7 on
+    such systems); the port's refined apply too."""
+    jout, ranks, _ = world
+    x64 = _direct(*benign_system())
+    xj = jout["x_benign"]
+    assert _rel(xj, x64) <= 1e-5
+    for refine in (0, 2):
+        x = _gathered(ranks, f"x_benign{refine}").numpy()
+        assert x.shape == x64.shape == (N * BENIGN["nb_loc"] * BENIGN["c"],)
+        assert _rel(x, x64) <= 1e-5
+        assert _rel(x, xj) <= 1e-5
+
+
+def test_spike_step_matches_vasp_tpu(world):
+    """vasp_tpu's spike case of test_parallel_solve_variants_match_thomas on
+    the port: a SPIKE step at TIGHT (2 refinement passes) converges to
+    1e-9, with vasp_tpu's spike stepper's Newton count at N = 4, and its U
+    is within 2e-6 of the scale of the port's Thomas step."""
+    jout, ranks, _ = world
+    for r in ranks:
+        info = r["info_spike"]
+        assert _converged(info, 1e-9)
+        assert info["iterations"] == int(jout["info_spike"]["iterations"])
+        assert torch.equal(r["U_spike"], ranks[0]["U_spike"])
+    a, b = ranks[0]["U_thomas"].numpy(), ranks[0]["U_spike"].numpy()
+    assert np.abs(a - b).max() <= 2e-6 * np.abs(a).max() + 1e-14
+
+
+def test_spike_refinement_contracts_the_probe(world):
+    """The SPIKE factors' probe with 2 refinement passes is below the probe
+    with none, in both packages (vasp_tpu measured 5.4 -> 1.26 -> 0.14 on
+    its tube fixture, banded_shard.py:575-585), every rank reading the
+    same."""
+    jout, ranks, _ = world
+    assert jout["rel_spike2"] < jout["rel_spike0"]
+    for key in ("rel_spike0", "rel_spike2"):
+        assert all(r[key] == ranks[0][key] for r in ranks)
+    assert ranks[0]["rel_spike2"] < ranks[0]["rel_spike0"]
+
+
+def test_spike_ladder_tiers(world):
+    """test_ladder_tiers on SPIKE: a step with bf16 factors at
+    test_hybrid_delta_endgame's options converges to their atol 1e-6, and
+    the float64 factor tier's rebuild (K11's recursion in each rank's local
+    scan, the float64 reduced inverse) is certified by its probe."""
+    _, ranks, _ = world
+    for r in ranks:
+        assert r["spike_bf16_dtype"] == torch.bfloat16
+        assert r["info_spike_bf16"]["residual"] <= 1e-6
+        assert torch.isfinite(r["U_spike_bf16"]).all()
+        assert r["rel_spike_f64"] < 1e-2

@@ -167,14 +167,26 @@ def test_dispatch_refuses_other_devices(tiny_tube):
         element.block_residual(block, U, U, U)
 
 
-# the id the n_devices case had beside the two biharmonic cases, which
-# went with the refusal they tested; n_devices > 1 is ported, the SPIKE
-# algorithm of the sharded path is the refusal left
-@pytest.mark.parametrize("extra,item", [(dict(shard_algo="spike"), 18)],
-                         ids=["extra2-13"])
-def test_unported_options_raise(tiny_tube, extra, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        FSISystem(tiny_tube, dict(CFG, **extra))
+@pytest.mark.parametrize("algo", ["chain", "thomas", "spike"])
+def test_shard_algos_build(monkeypatch, tiny_tube, algo):
+    """Each shard_algo builds the sharded stepper with its algorithm and the
+    SPIKE apply's refinement passes read from the config (spike_refine,
+    default 2: vasp_tpu's VASP_SPIKE_REFINE); an unknown one raises. A
+    process group of two ranks faked, the stepper recorded."""
+    from vasp_tpu_torch.parallel import banded_shard, bootstrap
+
+    made = []
+    monkeypatch.setattr(bootstrap, "world_size", lambda: 2)
+    monkeypatch.setattr(banded_shard, "ShardedBandedStepper",
+                        lambda *a, **kw: made.append(kw))
+    for extra, refine in (({}, 2), (dict(spike_refine=0), 0)):
+        system = FSISystem(tiny_tube, dict(CFG, n_devices=2, shard_algo=algo,
+                                           linear_solver="gmres", **extra))
+        system.make_solver(system.make_bcset([]))
+        assert made[-1]["algo"] == algo
+        assert made[-1]["spike_refine"] == refine
+    with pytest.raises(ValueError, match="shard_algo"):
+        FSISystem(tiny_tube, dict(CFG, shard_algo="cyclic"))
 
 
 @pytest.mark.parametrize("sub_type", ["bc1", "volume"])
@@ -207,10 +219,15 @@ def test_lift_correction_refuses_other_devices(tiny_tube):
         lifting.correction_apply(system.lift, U)
 
 
-@pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
-def test_multi_device_postprocessing_raises(tmp_path, stage):
-    """vasp_tpu's n_devices > 1 postprocessing (timesteps sharded over
-    devices) is refused by its ROADMAP item before any file is read."""
+@pytest.mark.parametrize("stage,device,backend", [
+    ("hemodynamics", "cpu", "gloo"), ("stress_strain", "cpu", "gloo"),
+    ("stress_strain", "cuda", "nccl")])
+def test_multi_device_postprocessing_starts_ranks(monkeypatch, tmp_path,
+                                                  stage, device, backend):
+    """n_devices > 1 outside a process group starts that many ranks of the
+    same pass (gloo on the CPU, nccl on a card, as run/driver.py's rule)
+    before any file is read, and returns None: the ranks write."""
+    from vasp_tpu_torch.parallel import bootstrap
     from vasp_tpu_torch.postprocessing.fields import (
         hemodynamics,
         stress_strain,
@@ -218,8 +235,11 @@ def test_multi_device_postprocessing_raises(tmp_path, stage):
 
     fn = {"hemodynamics": hemodynamics.compute_hemodynamics,
           "stress_strain": stress_strain.compute_stress_strain}[stage]
-    with pytest.raises(NotImplementedError, match="item 19"):
-        fn(tmp_path, n_devices=2, device="cpu")
+    calls = []
+    monkeypatch.setattr(bootstrap, "spawn_world",
+                        lambda n, f, args, b: calls.append((n, f, b)))
+    assert fn(tmp_path, n_devices=2, device=device) is None
+    assert calls == [(2, fn, backend)]
 
 
 @pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
@@ -382,7 +402,7 @@ def test_build_is_keyed_by_source_hash_and_counts_start_at_zero():
         "fluid_delta2_nolift", "solid_delta", "solid_delta2",
         "solid_delta_mr", "solid_delta2_mr", "robin_delta", "robin_delta2",
         "banded_carry", "banded_carry_hybrid", "banded_carry_bf16",
-        "banded_carry_update"}
+        "banded_carry_update", "banded_tri_residual"}
     build.reset_launch_counts()
     assert not any(build.LAUNCHES.values())
 

@@ -1,10 +1,12 @@
 """The slice as a whole: the port's cylinder run against vasp_tpu's.
 
-Both packages run the cylinder_run configuration of conftest.py (the port
-with device="cpu", i.e. the plain torch versions of its kernels): the same
-Newton iteration count per step, the final U within 1e-8 relative, the
-same stdout contract lines, the same output datasets, and a restart of the
-port from vasp_tpu's Checkpoint folder."""
+Both packages run the cylinder_run configuration of conftest.py on a
+smaller generated tube (MESH: the host LU's factorizations take most of
+this module's time, and no check depends on the tube's size; the port
+with device="cpu", i.e. the plain torch versions of its kernels): the
+same Newton iteration count per step, the final U within 1e-8 relative,
+the same stdout contract lines, the same output datasets, and a restart
+of the port from vasp_tpu's Checkpoint folder."""
 import io
 import json
 import re
@@ -21,10 +23,13 @@ from _torch_small_fsi import torch_threads
 
 _threads = torch_threads(2)
 
-OVERRIDES = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
-                 save_deg=2, save_step=1, checkpoint_step=2, atol=1e-7,
-                 rtol=1e-7, recompute=5, recompute_tstep=1, verbose=True,
-                 device="cpu")
+MESH = dict(n_theta=8, n_z=4)
+# conftest.py's cylinder_run overrides on MESH
+JAX_OVERRIDES = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
+                     save_deg=2, save_step=1, checkpoint_step=2, atol=1e-7,
+                     rtol=1e-7, recompute=5, recompute_tstep=1, verbose=True,
+                     generated_mesh_params=MESH)
+OVERRIDES = dict(JAX_OVERRIDES, device="cpu")
 CONTRACT = {
     "timestep": r"Solved for timestep (.*), t = (.*) in (.*) s",
     "newton": r"Newton iteration (.*): r \(atol\) = (.*) \(tol = .*\), "
@@ -34,6 +39,20 @@ CONTRACT = {
     "cfl": r"\s*CFL \(mean, min, max\): (.*), (.*), (.*)",
     "reynolds": r"\s*Reynolds Numbers \(mean, min, max\): (.*), (.*), (.*)",
 }
+
+
+@pytest.fixture(scope="module")
+def cylinder_run(tmp_path_factory):
+    """vasp_tpu's run of conftest.py's cylinder_run configuration on MESH:
+    (namespace, stdout, folder)."""
+    from vasp_tpu.run.driver import run_simulation as jax_run_simulation
+
+    folder = tmp_path_factory.mktemp("cylinder_jax")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        ns = jax_run_simulation("cylinder", overrides=dict(
+            JAX_OVERRIDES, folder=str(folder)))
+    return ns, buf.getvalue(), folder
 
 
 @pytest.fixture(scope="module")
@@ -140,7 +159,8 @@ def test_console_entry_point_runs_and_exits_clean(tmp_path):
         out = main(["-p", "cylinder", "-T", "0.001", "-dt", "0.001",
                     "--folder", str(folder), "--new-arguments",
                     "mesh_path=None", "device=cpu", "quadrature_degree=3",
-                    "recompute_tstep=1", "save_step=0", "checkpoint_step=0"])
+                    "recompute_tstep=1", "save_step=0", "checkpoint_step=0",
+                    f"generated_mesh_params={MESH}"])
     assert out is None
     steps = [json.loads(line) for line in
              (folder / "metrics.jsonl").read_text().splitlines()]

@@ -2,7 +2,7 @@
 of the Newton-Krylov path (bench.py's options as config keys:
 residual_dtype="f32f", krylov_dtype="f32", gmres_tol=1e-3,
 gmres_maxiter=120, jac_recompute=2, atol=rtol=1e-6, max_it=12) against
-vasp_tpu's run of the same configuration, on the tiny cylinder of
+vasp_tpu's run of the same configuration, on the tube of
 test_torch_driver_gmres.py (the port with device="cpu").
 
 Checks: the same Newton iteration count per step and every step
@@ -10,7 +10,7 @@ converged; the final U within 5e-3 relative. The bound: each step is one
 inexact Newton iteration whose direction GMRES solves to 1e-3 only, with
 float32 element work and float32 Krylov sums in other orders on the two
 sides, so the two states meet only to what atol=1e-6 bounds through the
-conditioning (measured 4.7e-4)."""
+conditioning (measured 4.7e-4 on the default tube, n_theta=12, n_z=8)."""
 import json
 
 import numpy as np
@@ -26,7 +26,8 @@ OVERRIDES = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
                  linear_solver="gmres", residual_dtype="f32f",
                  krylov_dtype="f32", gmres_tol=1e-3, gmres_restart=60,
                  gmres_maxiter=120, jac_recompute=2, atol=1e-6, rtol=1e-6,
-                 max_it=12, save_step=1, checkpoint_step=50, verbose=False)
+                 max_it=12, save_step=1, checkpoint_step=50, verbose=False,
+                 generated_mesh_params=dict(n_theta=8, n_z=4))
 
 
 def _run(run_simulation, folder, **extra):

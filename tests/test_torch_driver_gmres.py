@@ -2,9 +2,10 @@
 (linear_solver="gmres": banded preconditioner, float32 Jacobians, float64
 GMRES and residual) against vasp_tpu's run of the same configuration.
 
-Both packages run the tiny cylinder of conftest.py's cylinder_run with
-linear_solver="gmres" (the port with device="cpu", i.e. the plain torch
-versions of its kernels). vasp_tpu writes its output files (its driver
+Both packages run the configuration of conftest.py's cylinder_run with
+linear_solver="gmres" on the cylinder's generated tube cut to n_theta=8,
+n_z=4 (no check depends on the tube's size; the port with device="cpu",
+i.e. the plain torch versions of its kernels). vasp_tpu writes its output files (its driver
 divides by save_step and checkpoint_step, so neither can be 0 there).
 
 Checks: the same Newton iteration count per step (no step takes more
@@ -15,8 +16,8 @@ converges in one Newton iteration, so the step's state is one inexact
 Newton update whose direction GMRES solves only to gmres_tol = 1e-6
 relative, and the two packages' float32 Jacobians and factors round
 differently (vasp_tpu computes Jacobians in float32 arithmetic, the port
-rounds float64 ones once). Measured 3.0e-6 on U and 3.1e-5 on the
-velocity extremes."""
+rounds float64 ones once). Measured on the default tube (n_theta=12,
+n_z=8): 3.0e-6 on U and 3.1e-5 on the velocity extremes."""
 import io
 import json
 import re
@@ -33,7 +34,8 @@ _threads = torch_threads(2)
 
 OVERRIDES = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
                  atol=1e-7, rtol=1e-7, linear_solver="gmres", save_step=1,
-                 checkpoint_step=50, verbose=True)
+                 checkpoint_step=50, verbose=True,
+                 generated_mesh_params=dict(n_theta=8, n_z=4))
 CONTRACT = {
     "timestep": r"Solved for timestep (.*), t = (.*) in (.*) s",
     "newton": r"Newton iteration (.*): r \(atol\) = (.*) \(tol = .*\), "
@@ -95,7 +97,8 @@ def test_console_entry_point_runs_gmres(tmp_path):
                     "--folder", str(folder), "--new-arguments",
                     "mesh_path=None", "device=cpu", "quadrature_degree=3",
                     "linear_solver=gmres", "save_step=0",
-                    "checkpoint_step=0"])
+                    "checkpoint_step=0",
+                    f"generated_mesh_params={OVERRIDES['generated_mesh_params']}"])
     assert out is None
     steps = [json.loads(line) for line in
              (folder / "metrics.jsonl").read_text().splitlines()]

@@ -16,13 +16,15 @@ import h5py
 import numpy as np
 import pytest
 
+from _torch_dist import in_thread
 from _torch_small_fsi import torch_threads
 
 _threads = torch_threads(2)
 
 OVERRIDES = dict(T=0.003, dt=0.001, mesh_path=None, quadrature_degree=3,
                  atol=1e-7, rtol=1e-7, linear_solver="gmres", save_step=1,
-                 checkpoint_step=50, verbose=True)
+                 checkpoint_step=50, verbose=True,
+                 generated_mesh_params=dict(n_theta=8, n_z=4))
 
 
 def _final_state(folder):
@@ -49,17 +51,19 @@ def runs(tmp_path_factory):
     from vasp_tpu.run.driver import run_simulation as jax_run_simulation
     from vasp_tpu_torch.run.driver import main
 
+    # the port's ranks run while vasp_tpu's run does
+    tfolder = tmp_path_factory.mktemp("port_sharded")
+    args = [f"{k}={v}" for k, v in OVERRIDES.items()
+            if k not in ("T", "dt")]
+    port = in_thread(main, ["-p", "cylinder", "-T", "0.003", "-dt", "0.001",
+                            "--folder", str(tfolder), "--n-devices", "2",
+                            "--new-arguments", *args, "save_step=0",
+                            "device=cpu", "dist_backend=gloo"])
     jfolder = tmp_path_factory.mktemp("jax_sharded")
     with redirect_stdout(io.StringIO()):
         jax_run_simulation("cylinder", overrides=dict(
             OVERRIDES, folder=str(jfolder), n_devices=2))
-    tfolder = tmp_path_factory.mktemp("port_sharded")
-    args = [f"{k}={v}" for k, v in OVERRIDES.items()
-            if k not in ("T", "dt")]
-    assert main(["-p", "cylinder", "-T", "0.003", "-dt", "0.001",
-                 "--folder", str(tfolder), "--n-devices", "2",
-                 "--new-arguments", *args, "save_step=0", "device=cpu",
-                 "dist_backend=gloo"]) is None
+    assert port() is None
     return jfolder, tfolder
 
 

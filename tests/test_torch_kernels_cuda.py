@@ -55,6 +55,17 @@ each with its reason:
   H100, two tubes' factors in three instances, five stages, two spans,
   eight seeds, need at most 2.29 under the 1e-6 floor, the largest bare
   ratio 5.16; 4 leaves 1.75x over the 2.29);
+- K21f-a (the SPIKE refinement's residual r - T x): K6's rule against
+  the same residual in float64 on the same float32 inputs (every product
+  exact and each row summed in double on the card, float32 matmuls in the
+  plain version);
+- the two-rank SPIKE apply (K21a's stages, carry updates and K21f-a,
+  refine 0 and 2): its probe, ||T M b - b|| / ||b||, at most twice the
+  same apply's through the plain versions plus 1e-6 (the SPIKE apply is
+  not backward stable on the tube's partitions, vasp_tpu
+  banded_shard.py:575-585, so the two float32 results part where the
+  local inverses amplify rounding; the probe is the quality that the
+  preconditioner is held to);
 - K13 (the Taylor delta, both forms, every instance and the facet route):
   the float32 rule of K1/K2 in the max norm, max|D_kernel - D_plain| <=
   2 max|D_plain - D_f64| + 1e-12 max|D_f64|, with D_f64 the same series
@@ -415,6 +426,72 @@ def test_carry_stages(banded_inputs, storage):
                                                carry).double(), ref)
                 assert dk <= CARRY_STAGE_RATIO * dp + 1e-6, (
                     seed, k, stage, carry is not None, dk, dp)
+
+
+def _spans(banded_inputs):
+    """The tiny tube's C/D/B (K8) split into two ranks' spans."""
+    sysm, _, _, _, _, jf, pat, plans, diag = banded_inputs
+    Ck, Dk, Bk = kb.assemble_cuda(jf, fb.plans_to_device(plans, "cuda"),
+                                  pat.nb, pat.c, diag.cuda())
+    m = pat.nb // 2
+    return [tuple(M[sl] for M in (Ck, Dk, Bk))
+            for sl in (slice(0, m), slice(m, pat.nb))], pat
+
+
+def test_tri_residual_kernel(banded_inputs):
+    """K21f-a on each span of the tiny tube's C/D/B, with the neighbour's
+    boundary row where the span has one: K6's rule against the float64
+    residual; one count per launch."""
+    spans, pat = _spans(banded_inputs)
+    m, c = spans[0][1].shape[:2]
+    rng = np.random.default_rng(9)
+    x, r = (torch.as_tensor(rng.normal(size=(2, m, c)), dtype=torch.float32,
+                            device="cuda") for _ in range(2))
+    build.reset_launch_counts()
+    for k, (C, D, B) in enumerate(spans):
+        nbr = (None, x[1][0]) if k == 0 else (x[0][-1], None)
+        yk = kb.tri_residual_cuda(C, D, B, x[k], r[k], *nbr)
+        yp = kb.tri_residual_plain(C, D, B, x[k], r[k], *nbr)
+        ref = kb.tri_residual_plain(
+            C, D, B, x[k].double(), r[k].double(),
+            *(None if v is None else v.double() for v in nbr))
+        assert yk.dtype == torch.float32
+        assert _rel(yk.double(), ref) <= 2 * _rel(yp.double(), ref) + 1e-6
+    assert build.LAUNCHES["banded_tri_residual"] == 2
+
+
+@pytest.mark.parametrize("refine", [0, 2])
+def test_spike_apply_kernels(banded_inputs, refine):
+    """The two-rank SPIKE apply (the ranks as threads of this process) on
+    the tiny tube's C/D/B: through the kernels its probe at most twice the
+    probe through the plain versions plus 1e-6, with K21a's stages, its
+    carry updates and (refine > 0) K21f-a launched."""
+    from _torch_dist import plain_banded, thread_ranks
+    from vasp_tpu_torch.parallel import banded_shard as bs
+
+    spans, pat = _spans(banded_inputs)
+    m, c = pat.nb // 2, pat.c
+    plan = bs.ShardPlan(c=c, nb_loc=m, span=m * c, n=2, ndof=pat.ndof,
+                        npad=pat.nb * c, perm=None, iperm=None)
+
+    factors = thread_ranks(2, lambda comm: bs.sharded_factorize_spike(
+        *spans[comm.rank], comm, refine=refine))
+
+    def probe(comm):
+        return bs.sharded_probe_rel(
+            *spans[comm.rank], factors[comm.rank],
+            bs.make_sharded_spike_apply(plan, comm, refine), comm)
+
+    build.reset_launch_counts()
+    pk = thread_ranks(2, probe)
+    launches = dict(build.LAUNCHES)
+    with plain_banded():
+        pp = thread_ranks(2, probe)
+    assert pk[0] == pk[1] and pp[0] == pp[1]
+    assert pk[0] <= 2 * pp[0] + 1e-6, (pk, pp)
+    assert launches["banded_carry"] > 0
+    assert launches["banded_carry_update"] > 0
+    assert (launches["banded_tri_residual"] > 0) == (refine > 0)
 
 
 def test_ruiz_sweep_kernel_f64(banded_inputs):

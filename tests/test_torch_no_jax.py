@@ -52,6 +52,7 @@ SLICE = [
     "vasp_tpu_torch.kernels.nodeblock", "vasp_tpu_torch.parallel",
     "vasp_tpu_torch.parallel.comm", "vasp_tpu_torch.parallel.bootstrap",
     "vasp_tpu_torch.parallel.shard", "vasp_tpu_torch.parallel.banded_shard",
+    "vasp_tpu_torch.parallel.steps",
 ]
 
 

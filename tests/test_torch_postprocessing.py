@@ -40,7 +40,14 @@ from vasp_tpu_torch.postprocessing.fields import stress_strain as port_stress
 from vasp_tpu_torch.postprocessing.spectral import hi_pass_viz as port_hipass
 from _torch_small_fsi import torch_threads
 
-_threads = torch_threads(2)
+# one torch thread: with two, under load, the intra-op worker thread now
+# and then evaluated its half of the Cardano eigenvalues (get_eig) 6.8e-11
+# of their scale off (an accurate evaluation is 2e-15 off), while the
+# stress and strain tensors it took were bitwise equal, and
+# test_stress_streamed_equals_one_chunk[svk] failed (2 of 6 full runs; 2 of
+# 8 and 1 of 2 runs of this file's stress cases beside a busy-loop load);
+# at one thread, 10 of 10 such runs passed
+_threads = torch_threads(1)
 T_STEPS, DT = 12, 1e-3
 E_A, E_V, NU = 1.2e6, 0.6e6, 0.45
 SVK = dict(material_model="StVenantKirchoff", mu_s=E_A / (2 * (1 + NU)),
@@ -417,3 +424,77 @@ def test_cli_entries_run_on_cpu(folders, tmp_path):
     cli.log_plotter(["--log-file", str(log), "--save", "--output-directory",
                      str(tmp_path / "Images")])
     assert (tmp_path / "Images" / "flow_rate.png").exists()
+
+
+@pytest.fixture(scope="module")
+def sharded(folders, tmp_path_factory):
+    """The timestep-sharded passes at n_devices=2 on copies of the folders:
+    the port's (2 gloo ranks that compute_hemodynamics and
+    compute_stress_strain start, device=cpu) and vasp_tpu's (2 of the
+    virtual CPU devices), with the port's one-rank passes on a third copy
+    (St.Venant-Kirchhoff walls)."""
+    jf, tf = folders
+    runs = (("jax", jf, jax_hemo.compute_hemodynamics,
+             jax_stress.compute_stress_strain, dict(n_devices=2)),
+            ("torch", tf, port_hemo.compute_hemodynamics,
+             port_stress.compute_stress_strain,
+             dict(n_devices=2, device="cpu")),
+            ("one", tf, port_hemo.compute_hemodynamics,
+             port_stress.compute_stress_strain, dict(device="cpu")))
+    out = {}
+    for name, src, hemo_fn, stress_fn, kw in runs:
+        f = tmp_path_factory.mktemp(f"sharded_{name}") / "case"
+        shutil.copytree(src, f)
+        for sub in ("Hemodynamic_indices", "StressStrain"):
+            shutil.rmtree(f / sub, ignore_errors=True)
+        _write_params(f, "svk")
+        out[name] = (f, hemo_fn(f, **kw), stress_fn(f, **kw))
+    return out
+
+
+_STAGE_FILES = {
+    "hemodynamics": ("Hemodynamic_indices", ("WSS", "TAWSS", "TWSSG", "OSI",
+                                              "RRT", "ECAP")),
+    "stress_strain": ("StressStrain", (
+        "TrueStress", "GreenLagrangeStrain", "MaxPrincipalStress",
+        "MaxPrincipalStrain", "MaxPrincipalStress_avg",
+        "MaxPrincipalStrain_avg"))}
+
+
+@pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
+def test_sharded_pass_equals_one_rank(sharded, stage):
+    """The port's 2-rank pass writes every file of its one-rank pass, each
+    dataset within 1e-13 of its scale (each step's kernel is the same;
+    the plain WSS load is a batched einsum, whose rounding may follow the
+    batch), and the spawning caller gets None (the results stay in the
+    ranks; rank 0 wrote)."""
+    sub, names = _STAGE_FILES[stage]
+    f2, *res2 = sharded["torch"]
+    f1, *res1 = sharded["one"]
+    assert res2 == [None, None] and all(r is not None for r in res1)
+    for name in names:
+        _assert_h5_equal(f1 / sub / f"{name}.h5", f2 / sub / f"{name}.h5",
+                         rtol=1e-13, scale_rel=True)
+
+
+@pytest.mark.parametrize("stage", ["hemodynamics", "stress_strain"])
+def test_sharded_pass_matches_vasp_tpu_sharded(sharded, stage):
+    """The port's 2-rank pass against vasp_tpu's n_devices=2 pass at the
+    one-rank bounds: the WSS series and indices to 1e-10 of their scale;
+    TrueStress to 1e-12 of its scale, GreenLagrangeStrain to 1e-15
+    absolute, the max principal fields to 1e-10 of their scale."""
+    sub, names = _STAGE_FILES[stage]
+    jf, tf = sharded["jax"][0], sharded["torch"][0]
+    if stage == "hemodynamics":
+        for name in names:
+            _assert_h5_equal(jf / sub / f"{name}.h5", tf / sub / f"{name}.h5",
+                             rtol=1e-10, scale_rel=True)
+        return
+    for name, atol in (("TrueStress", 1e-12), ("GreenLagrangeStrain", None),
+                       ("MaxPrincipalStress", 1e-10),
+                       ("MaxPrincipalStrain", 1e-10)):
+        a = _ckpt_series(jf / sub / f"{name}.h5", name)
+        b = _ckpt_series(tf / sub / f"{name}.h5", name)
+        assert a.shape == b.shape == (T_STEPS, a.shape[1])
+        tol = 1e-15 if atol is None else atol * np.abs(a).max()
+        np.testing.assert_allclose(b, a, rtol=0, atol=tol, err_msg=name)

@@ -17,8 +17,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_dist import SMALL, STEP_OPTS, run_world, sharded_step_world, \
-    tube_system
+from _torch_dist import SMALL, STEP_OPTS, sharded_step_world, \
+    start_world, tube_system
 from _torch_small_fsi import same_rcm, torch_threads
 
 _threads = torch_threads(2)
@@ -37,6 +37,9 @@ def runs(tmp_path_factory):
     from vasp_tpu.run.system import FSISystem
     from vasp_tpu_torch.fem.timestepper import StepOptions, make_step_fn
 
+    # the ranks run while vasp_tpu and the single-device step do
+    ranks = start_world(N, sharded_step_world,
+                        tmp_path_factory.mktemp("sharded_step"))
     js, jbc, jload = tube_system(SMALL, DirichletBC=DirichletBC,
                                  FSISystem=FSISystem,
                                  fsi_tube_mesh=fsi_tube_mesh)
@@ -49,9 +52,7 @@ def runs(tmp_path_factory):
                           layout=(ts.space.n_p2, ts.space.off_p))
     Us, ss = single(ts.zero_state(), torch.as_tensor(tbc.values_at(0.001)),
                     tload)
-    ranks = run_world(N, sharded_step_world,
-                      tmp_path_factory.mktemp("sharded_step"))
-    return (np.asarray(Uj), jax.tree.map(float, sj)), (Us, ss), ranks
+    return (np.asarray(Uj), jax.tree.map(float, sj)), (Us, ss), ranks()
 
 
 def _rel(a, b):

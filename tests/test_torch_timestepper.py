@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_dist import in_thread
 from _torch_small_fsi import loaded_pair, torch_threads
 from vasp_tpu.fem.timestepper import IterativeStepper as JaxStepper
 from vasp_tpu.fem.timestepper import StepOptions as JaxOptions
@@ -44,12 +45,19 @@ def _two_steps(pair, **extra):
     jst = JaxStepper(js, jbc, JaxOptions(**OPTS, **extra), recompute_tstep=5)
     tst = IterativeStepper(ts, tbc, StepOptions(**OPTS, **extra),
                            recompute_tstep=5)
-    jU, tU = js.zero_state(), ts.zero_state()
-    out = []
-    for tstep, scale in ((1, 1.0), (2, 1.5)):
-        jU, jstats = jst.step(jU, jbcv, scale * jload, tstep)
-        tU, tstats = tst.step(tU, tbcv, scale * tload, tstep)
-        out.append((np.asarray(jU), jstats, tU, tstats))
+
+    def steps(st, U, bcv, load):
+        out = []
+        for tstep, scale in ((1, 1.0), (2, 1.5)):
+            U, stats = st.step(U, bcv, scale * load, tstep)
+            out.append((U, stats))
+        return out
+
+    # vasp_tpu's steps on a thread beside the port's: the two share nothing
+    jax_steps = in_thread(steps, jst, js.zero_state(), jbcv, jload)
+    port = steps(tst, ts.zero_state(), tbcv, tload)
+    out = [(np.asarray(jU), jstats, tU, tstats)
+           for (jU, jstats), (tU, tstats) in zip(jax_steps(), port)]
     return jst, tst, out
 
 

@@ -99,13 +99,17 @@ def compute_hemo(argv=None):
 
     def extra(p):
         p.add_argument("--n-devices", type=int, default=None,
-                       help="vasp_tpu's multi-device pass; refused above 1 "
-                            "(ROADMAP.md queue 1, item 19)")
+                       help="ranks the timesteps are sharded over (started "
+                            "here, or a launcher's group); rank 0 writes")
+        p.add_argument("--dist-backend", default=None,
+                       help="gloo or nccl (default: nccl on cuda, gloo on "
+                            "cpu; gloo for ranks sharing one card)")
 
     args = _folder_parser("vasp-tpu-torch-compute-hemo", extra,
                           device=True).parse_args(argv)
     compute_hemodynamics(args.folder, args.mesh_path,
-                         n_devices=args.n_devices, device=args.device)
+                         n_devices=args.n_devices, device=args.device,
+                         dist_backend=args.dist_backend)
     print(f"Hemodynamic indices written to "
           f"{Path(args.folder) / 'Hemodynamic_indices'}")
 
@@ -118,13 +122,17 @@ def compute_stress(argv=None):
     def extra(p):
         p.add_argument("--stride", type=int, default=1)
         p.add_argument("--n-devices", type=int, default=None,
-                       help="vasp_tpu's multi-device pass; refused above 1 "
-                            "(ROADMAP.md queue 1, item 19)")
+                       help="ranks the timesteps are sharded over (started "
+                            "here, or a launcher's group); rank 0 writes")
+        p.add_argument("--dist-backend", default=None,
+                       help="gloo or nccl (default: nccl on cuda, gloo on "
+                            "cpu; gloo for ranks sharing one card)")
 
     args = _folder_parser("vasp-tpu-torch-compute-stress", extra,
                           device=True).parse_args(argv)
     compute_stress_strain(args.folder, args.mesh_path, stride=args.stride,
-                          n_devices=args.n_devices, device=args.device)
+                          n_devices=args.n_devices, device=args.device,
+                          dist_backend=args.dist_backend)
     print(f"Stress/strain written to {Path(args.folder) / 'StressStrain'}")
 
 

@@ -1,5 +1,6 @@
-// K8 (banded assembly), K6 (banded apply), K12 (folded apply) and K21a
-// (one rank's stage of the sharded applies) on Hopper.
+// K8 (banded assembly), K6 (banded apply), K12 (folded apply), K21a
+// (one rank's stage of the sharded applies) and K21f-a (the SPIKE
+// refinement's block-tridiagonal residual) on Hopper.
 //
 // K8 replaces vasp_tpu/fem/banded.py assemble_banded_planned (scatter
 // mode): the in-band entries of the Ruiz-scaled f32 element matrices are
@@ -79,6 +80,23 @@
 //   instances (plain float32 sums with float32 factors, compensated sums
 //   where H/G are bf16), one launch per scan step issued from the host
 //   entry point; the carry update is gemv_kernel with a + M v.
+//
+// K21f-a replaces the refinement residual of vasp_tpu/parallel/
+// banded_shard.py make_sharded_spike_apply (:775-777, the SPIKE apply's
+// iterative refinement): over a rank's m blocks, y_k = r_k - (D_k x_k +
+// C_k x_{k-1} + B_k x_{k+1}), x_{-1} and x_m the neighbours' boundary rows
+// (null: zero, the end ranks). C/D/B float32 (m, c, c), x, r, y float32.
+// Plain torch twin: vasp_tpu_torch/kernels/banded.py tri_residual_plain
+// (kb.bgemv three times).
+//   Bound: the read of C, D and B (3 m c^2 f32: 5.08 GB at c = 4,488 and
+//   21 blocks a rank, 1.52 ms at 3.35 TB/s). Design: K6's GEMV layout (a
+//   warp per row, coalesced 16-byte loads, the vectors staged in shared
+//   memory, here x_{k-1}, x_k and x_{k+1}), but every product is formed
+//   exactly in double (two floats' product has 48 significant bits) and
+//   each row's three products and r_k are summed in double and rounded
+//   once: y is a small difference of large terms, where float32 sums lose
+//   the 2x rule K6 and K12 are held to. A warp's rows share each
+//   x chunk's conversion to double.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -313,6 +331,64 @@ int carry_stage(const TM* M, const float* a, float* y, const float* carry,
   return e;
 }
 
+// K21f-a: one warp per kTriRows rows of block k = blockIdx.y; the three
+// vectors x_{k-1}, x_k, x_{k+1} in shared memory (a null neighbour zero).
+constexpr int kTriRows = 2;
+constexpr int kTriRowsPerBlock = kGemvWarps * kTriRows;
+
+__global__ void __launch_bounds__(kGemvWarps * 32)
+tri_residual_kernel(const float* __restrict__ C, const float* __restrict__ D,
+                    const float* __restrict__ B, const float* __restrict__ x,
+                    const float* __restrict__ xprev,
+                    const float* __restrict__ xnext,
+                    const float* __restrict__ r, float* __restrict__ y, int m,
+                    int c) {
+  extern __shared__ float4 s_v4[];
+  float* s_v = reinterpret_cast<float*>(s_v4);  // [x_{k-1} | x_k | x_{k+1}]
+  const int64_t k = blockIdx.y;
+  const float* src[3] = {k > 0 ? x + (k - 1) * c : xprev, x + k * c,
+                         k + 1 < m ? x + (k + 1) * c : xnext};
+  for (int t = 0; t < 3; ++t)
+    for (int j = threadIdx.x; j < c; j += blockDim.x)
+      s_v[t * c + j] = src[t] ? src[t][j] : 0.f;
+  __syncthreads();
+  const float* Mt[3] = {C + k * c * (int64_t)c, D + k * c * (int64_t)c,
+                        B + k * c * (int64_t)c};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = blockIdx.x * kTriRowsPerBlock + warp * kTriRows;
+  if (i0 >= c) return;
+  const int cv = c / 4;
+  double s[kTriRows] = {};
+  for (int t = 0; t < 3; ++t) {
+    if (!src[t]) continue;
+    const float4* v4 = s_v4 + t * cv;
+    for (int j = lane; j < cv; j += 32) {
+      const float4 f = v4[j];
+      const double xv[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int q = 0; q < kTriRows; ++q) {
+        const int i = i0 + q;
+        if (i >= c) break;
+        const float4 mv =
+            reinterpret_cast<const float4*>(Mt[t] + (int64_t)i * c)[j];
+        s[q] = fma((double)mv.x, xv[0], s[q]);
+        s[q] = fma((double)mv.y, xv[1], s[q]);
+        s[q] = fma((double)mv.z, xv[2], s[q]);
+        s[q] = fma((double)mv.w, xv[3], s[q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kTriRows; ++q) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s[q] += __shfl_down_sync(0xffffffffu, s[q], off);
+    const int i = i0 + q;
+    if (lane == 0 && i < c)
+      y[k * c + i] = (float)((double)r[k * c + i] - s[q]);
+  }
+}
+
 template <class T>
 __global__ void permute_pad_kernel(const T* __restrict__ r,
                                    const int64_t* __restrict__ perm, int ndof,
@@ -404,6 +480,27 @@ int vt_banded_carry(const void* M, const float* a, float* y,
 int vt_banded_carry_update(const float* T, const float* v, const float* a,
                            float* y, int c, void* stream) {
   return gemv<float, true>(T, v, a, y, 1, c, (cudaStream_t)stream);
+}
+
+// K21f-a: y (m, c) = r - (D x + C x_{-1..m-2} + B x_{1..m}) per block,
+// xprev / xnext the rows x_{-1} and x_m (null: zero); all float32, c a
+// multiple of 4; y must not alias x.
+int vt_banded_tri_residual(const float* C, const float* D, const float* B,
+                           const float* x, const float* xprev,
+                           const float* xnext, const float* r, float* y,
+                           int m, int c, void* stream) {
+  if (c % 4 || m < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = 3 * sizeof(float) * (size_t)c;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tri_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((c + kTriRowsPerBlock - 1) / kTriRowsPerBlock, m);
+  tri_residual_kernel<<<grid, kGemvWarps * 32, smem, (cudaStream_t)stream>>>(
+      C, D, B, x, xprev, xnext, r, y, m, c);
+  return (int)cudaGetLastError();
 }
 
 // out (npad,) f32 = r[perm] padded with zeros; r f64 (r_f64) or f32.

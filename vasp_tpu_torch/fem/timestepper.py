@@ -867,12 +867,13 @@ class IterativeNewtonSolver:
     contract line per step. world > 1 (the process group's ranks, each
     calling the solver alike) takes vasp_tpu's sharded path,
     parallel/banded_shard.py's ShardedBandedStepper with the banded
-    preconditioner whatever precond says and shard_algo its algorithm."""
+    preconditioner whatever precond says, shard_algo its algorithm and
+    spike_refine the SPIKE apply's refinement passes."""
 
     def __init__(self, system, bc_set, step_options: StepOptions,
                  recompute_tstep: int = 20, verbose: bool = True,
                  raise_on_fail: bool = True, world: int = 1,
-                 shard_algo: str = "chain"):
+                 shard_algo: str = "chain", spike_refine: int = 2):
         if world > 1:
             from vasp_tpu_torch.parallel.banded_shard import (
                 ShardedBandedStepper,
@@ -885,7 +886,8 @@ class IterativeNewtonSolver:
                     "single-device")
             self.stepper = ShardedBandedStepper(
                 system, bc_set, step_options,
-                recompute_tstep=recompute_tstep, algo=shard_algo)
+                recompute_tstep=recompute_tstep, algo=shard_algo,
+                spike_refine=spike_refine)
         else:
             self.stepper = IterativeStepper(system, bc_set, step_options,
                                             recompute_tstep=recompute_tstep)

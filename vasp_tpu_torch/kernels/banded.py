@@ -26,7 +26,15 @@ backward scan from x_in (G_{nb_loc-1} couples to rank p + 1), a missing
 carry being zero; ``carry_update`` is the chain's w_last + Tf carry.
 parallel/banded_shard.py runs the stages between its exchanges;
 ``solve_blocks_carry_cuda`` and ``solve_blocks_carry_plain`` run the three
-with both carries (a rank's pass, for the checks).
+with both carries (a rank's pass, for the checks). The SPIKE apply runs
+its local solves as these stages with no carry and its reduced sweeps and
+corrections as ``carry_update`` (K21f-b).
+
+K21f-a replaces the refinement residual of vasp_tpu/parallel/
+banded_shard.py make_sharded_spike_apply: ``tri_residual`` is r - (D x +
+C x_{k-1} + B x_{k+1}) over a rank's blocks, the neighbours' boundary
+rows given (None: zero); on the card every product exact in double and
+each row summed in double and rounded once.
 """
 import torch
 
@@ -107,6 +115,16 @@ def carry_stage_plain(Sinv, H, G, stage, a, carry=None):
 def carry_update_plain(T, v, a):
     """a + T v (the chain's carry update), float32."""
     return a + bgemv(T, v)
+
+
+def tri_residual_plain(Cb, Db, Bb, x, r, xprev=None, xnext=None):
+    """(m, c) float32: r - (D_k x_k + C_k x_{k-1} + B_k x_{k+1}), x_{-1} =
+    xprev and x_m = xnext (None: zero), vasp_tpu's three bgemv."""
+    z = x.new_zeros(x.shape[1])
+    xm = torch.cat([(z if xprev is None else xprev)[None], x,
+                    (z if xnext is None else xnext)[None]])
+    m = x.shape[0]
+    return r - (bgemv(Db, x) + bgemv(Cb, xm[:m]) + bgemv(Bb, xm[2:]))
 
 
 def solve_blocks_carry_plain(Sinv, H, G, rb, w_in=None, x_in=None):
@@ -254,6 +272,23 @@ def carry_update_cuda(T, v, a):
     return y
 
 
+def tri_residual_cuda(Cb, Db, Bb, x, r, xprev=None, xnext=None):
+    m, c = x.shape
+    dev = x.device
+    for label, t in (("C", Cb), ("D", Db), ("B", Bb)):
+        build.require(t, label, torch.float32, (m, c, c), dev)
+    for label, t, shape in (("x", x, (m, c)), ("r", r, (m, c)),
+                            ("xprev", xprev, (c,)), ("xnext", xnext, (c,))):
+        if t is not None:
+            build.require(t, label, torch.float32, shape, dev)
+    y = torch.empty_like(x)
+    build.check(build.library().vt_banded_tri_residual(
+        *map(build.ptr, (Cb, Db, Bb, x, xprev, xnext, r, y)), m, c,
+        build.stream_handle(dev)), "banded_tri_residual")
+    build.LAUNCHES["banded_tri_residual"] += 1
+    return y
+
+
 def solve_blocks_carry_cuda(Sinv, H, G, rb, w_in=None, x_in=None):
     return _solve_carry(carry_stage_cuda, Sinv, H, G, rb, w_in, x_in)
 
@@ -318,6 +353,12 @@ def carry_stage(Sinv, H, G, stage, a, carry=None):
     if build.on_cuda(a, "banded_carry"):
         return carry_stage_cuda(Sinv, H, G, stage, a, carry)
     return carry_stage_plain(Sinv, H, G, stage, a, carry)
+
+
+def tri_residual(Cb, Db, Bb, x, r, xprev=None, xnext=None):
+    if build.on_cuda(x, "banded_tri_residual"):
+        return tri_residual_cuda(Cb, Db, Bb, x, r, xprev, xnext)
+    return tri_residual_plain(Cb, Db, Bb, x, r, xprev, xnext)
 
 
 def carry_update(T, v, a):

@@ -65,7 +65,8 @@ LAUNCHES = dict.fromkeys(
      "fluid_delta_elastic", "fluid_delta2_elastic", "fluid_delta_nolift",
      "fluid_delta2_nolift", "solid_delta", "solid_delta2", "solid_delta_mr",
      "solid_delta2_mr", "robin_delta", "robin_delta2", "banded_carry",
-     "banded_carry_hybrid", "banded_carry_bf16", "banded_carry_update"), 0)
+     "banded_carry_hybrid", "banded_carry_bf16", "banded_carry_update",
+     "banded_tri_residual"), 0)
 
 # seconds the last build took in this process (0.0 when the library was
 # already built)
@@ -153,6 +154,7 @@ def _bind(lib):
         "vt_banded_solve_lowmem": [P] * 6 + [I, I, I, P],
         "vt_banded_carry": [P] * 4 + [I] * 5 + [P],
         "vt_banded_carry_update": [P] * 4 + [I, P],
+        "vt_banded_tri_residual": [P] * 8 + [I, I, P],
         "vt_banded_permute": [P, I, P, I, I, P, P],
         "vt_banded_unpermute": [P, P, I, P, I, P],
         "vt_wss_load": [P] * 9 + [I, I, I, L, I, D, P],

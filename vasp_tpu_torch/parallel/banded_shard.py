@@ -29,17 +29,25 @@ G, for the chain the transfer products (K21c,
 (algo="thomas"). Factors stay on their rank: memory / n, no scaling of a
 Thomas scan's time.
 
+algo="spike" is vasp_tpu's SPIKE (K21f): each rank factorizes its own
+blocks with no carry (``local_thomas``), the spikes' corners and a reduced
+interface recursion (``sharded_factorize_spike``) replace the phase chain, and the
+apply (``make_sharded_spike_apply``) runs K21a's stages as local solves,
+carry_update for the reduced sweeps and corrections, and ``spike_refine``
+passes of iterative refinement on the residual K21f-a (kernels/banded.py
+tri_residual).
+
 vasp_tpu's semantics are kept, its quirks included (hybrid residuals only
 for residual_dtype="f32", so "f32f" and "mixed" run raw float64 residuals
 here; no re-anchoring of the delta endgame; the Newton loop's own stall
-rule and full-step-first search), and its host ladder. Not ported: the
-SPIKE algorithm (algo="spike", ROADMAP.md item 18) and vasp_tpu's
-VASP_SHARD_ALGO / VASP_SPIKE_REFINE environment variables, whose place
-the constructor's ``algo`` takes (the config key ``shard_algo``).
+rule and full-step-first search), and its host ladder. vasp_tpu's
+VASP_SHARD_ALGO / VASP_SPIKE_REFINE environment variables are the
+constructor's ``algo`` and ``spike_refine`` (the config keys
+``shard_algo`` and ``spike_refine``).
 """
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,23 +56,16 @@ import torch
 from vasp_tpu_torch.fem import banded as banded_mod
 from vasp_tpu_torch.fem.assembly import Assembler, CellBlock, FacetBlock
 from vasp_tpu_torch.fem.krylov import gmres
-from vasp_tpu_torch.fem.timestepper import (
-    StepOptions,
-    _backtrack_update,
-    not_ported,
-)
+from vasp_tpu_torch.fem.timestepper import StepOptions, _backtrack_update
 from vasp_tpu_torch.kernels import banded as kb
 from vasp_tpu_torch.kernels import scaling as ks
 from vasp_tpu_torch.parallel.comm import Collectives
 
-ALGOS = ("chain", "thomas")
+ALGOS = ("chain", "thomas", "spike")
 
 
 def check_algo(algo):
-    """Raise for a shard_algo the port does not run: "spike" is ROADMAP.md
-    item 18, anything else but ALGOS an error."""
-    if algo == "spike":
-        not_ported("the SPIKE solve (shard_algo='spike')", 18)
+    """Raise for a shard_algo other than ALGOS."""
     if algo not in ALGOS:
         raise ValueError(f"shard_algo={algo!r}: expected one of {ALGOS}")
 
@@ -352,6 +353,193 @@ def make_sharded_banded_apply(plan: ShardPlan, comm):
     return apply
 
 
+# ---------------------------------------------------------------- SPIKE
+# K21f, vasp_tpu's third algorithm (banded_shard.py:438-466): every rank
+# factorizes its own nb_loc-block system with C_0 left out, no carry (the
+# point of SPIKE: no rank waits on another's scan); the couplings C_0 (to
+# rank p - 1) and B_{m-1} (to rank p + 1) give the spikes W = T^-1 e_0 C_0
+# and V = T^-1 e_{m-1} B_{m-1}, whose corner blocks make a reduced system
+# of n - 1 interfaces, solved by a c-sized recursion rank after rank. The
+# apply: a local solve, the reduced sweeps, the corrected local solve, then
+# `refine` passes of iterative refinement (vasp_tpu: the partitions' local
+# inverses are not backward stable on the FSI tube, :575-585).
+
+
+def local_thomas(Cm, D, Bm, factor_dtype=torch.float32, f64=False):
+    """The rank's own block-Thomas factors (Sinv, H, G) with C_0 left out
+    (H_0 = 0) and no incoming carry (vasp_tpu _local_thomas, :469): the
+    float32 Schur scan (K9's), or the float64 one on the factor tier
+    (K11's), H and G formed from the float32 Sinv and all three stored in
+    factor_dtype."""
+    c = D.shape[1]
+    if f64:
+        G0 = torch.zeros((c, c), dtype=torch.float64, device=D.device)
+        Sinv = banded_mod.schur_scan_f64_carry(Cm, D, Bm, G0)[0]
+    else:
+        G0 = torch.zeros((c, c), dtype=torch.float32, device=D.device)
+        Sinv = banded_mod.schur_scan_carry(Cm, D, Bm, G0)[0]
+    H = banded_mod.sinv_times(Sinv, Cm, factor_dtype)
+    H[0] = 0.0
+    G = banded_mod.sinv_times(Sinv, Bm, factor_dtype)
+    return Sinv.to(factor_dtype), H, G
+
+
+def local_solve(Sinv, H, G, rb, full=True):
+    """T_p^-1 rb on the rank's blocks: K21a's three stages with no carry
+    (vasp_tpu _local_solve_vec, :517). full=False runs the first two and
+    returns the forward result, whose last block is the solve's (the
+    backward scan starts from it)."""
+    t = kb.carry_stage(Sinv, H, G, "times", rb)
+    w = kb.carry_stage(Sinv, H, G, "forward", t)
+    return kb.carry_stage(Sinv, H, G, "backward", w) if full else w
+
+
+def spike_corners(Sinv, H, G, C0, Blast):
+    """(Vt, Vb, Wt, Wb): the first and last blocks of the spikes V = T^-1
+    e_{m-1} B_{m-1} and W = T^-1 e_0 C_0 (vasp_tpu _local_solve_mat, :539,
+    float32 torch.matmul scans, once a rebuild). A step whose input is
+    zero is skipped: V's forward scan is zero up to block m - 1, and past
+    block 0 the right-hand side of W is."""
+    m = Sinv.shape[0]
+    Vb = Sinv[m - 1].float() @ Blast
+    Vt = Vb
+    for k in range(m - 2, -1, -1):
+        Vt = -(G[k].float() @ Vt)
+    w = [Sinv[0].float() @ C0]
+    for k in range(1, m):
+        w.append(-(H[k].float() @ w[-1]))
+    Wb = Wt = w[m - 1]
+    for k in range(m - 2, -1, -1):
+        Wt = w[k] - G[k].float() @ Wt
+    return Vt, Vb, Wt, Wb
+
+
+def spike_reduced(Vt, Vb, Wt, Wb, comm, f64=False):
+    """The reduced interface factors of vasp_tpu's _sharded_factorize_spike
+    (:598-636), rank j owning interface j: P_j = Vb_j + Wb_j M_{j-1} Vt_j,
+    K_j = (I - Wt_{j+1} P_j)^-1 (the LU inverse and one polish in float32,
+    the float64 inverse on the factor tier), the carry M_j = P_j K_j handed
+    to rank j + 1; the last rank keeps vasp_tpu's inert entries (P = 0,
+    K = I). Returns (P, K, Q = Wt_{j+1}, Vtn = Vt_{j+1})."""
+    c, dev = Vt.shape[0], Vt.device
+    n, rank = comm.n, comm.rank
+    Q = comm.shift_left(Wt)
+    Vtn = comm.shift_left(Vt)
+    eye = torch.eye(c, dtype=torch.float32, device=dev)
+    P, K = torch.zeros_like(eye), eye
+    M = torch.zeros_like(eye)
+    for j in range(n - 1):
+        if rank == j:
+            P = Vb if j == 0 else Vb + Wb @ (M @ Vt)
+            A = eye - Q @ P
+            if f64:
+                K = torch.linalg.inv(A.double()).float()
+            else:
+                K = torch.linalg.inv(A)
+                K = K @ (2.0 * eye - A @ K)
+        if j < n - 2:
+            M = comm.ppermute(P @ K if rank == j else M, j, j + 1)
+    return P, K, Q, Vtn
+
+
+def sharded_factorize_spike(Cm, D, Bm, comm, factor_dtype=torch.float32,
+                            f64=False, refine=0, timed=None):
+    """K21f's factorization (vasp_tpu _sharded_factorize_spike, :564): the
+    local factors, the spikes' corners, the reduced factors, each part in
+    `timed(phase)` (a context manager: factorize, spikes, reduced) where
+    given. Returns the factor dict of make_sharded_spike_apply: Sinv, H, G
+    and the c x c blocks with the sign their carry_update takes (nC0 =
+    -C_0, nBlast = -B_{m-1}, nWb = -Wb, nQ = -Q, nP = -P, K, Vtn); with
+    refine > 0 the operator blocks Cb, Db, Bb (float32) for the refinement
+    residual."""
+    timed = timed or (lambda phase: nullcontext())
+    with timed("factorize"):
+        Sinv, H, G = local_thomas(Cm, D, Bm, factor_dtype, f64)
+    C0, Blast = Cm[0].float(), Bm[D.shape[0] - 1].float()
+    with timed("spikes"):
+        Vt, Vb, Wt, Wb = spike_corners(Sinv, H, G, C0, Blast)
+    with timed("reduced"):
+        P, K, Q, Vtn = spike_reduced(Vt, Vb, Wt, Wb, comm, f64)
+    F = dict(Sinv=Sinv, H=H, G=G, nC0=-C0, nBlast=-Blast, nWb=-Wb, nQ=-Q,
+             nP=-P, K=K, Vtn=Vtn)
+    if refine > 0:
+        F.update(Cb=Cm, Db=D, Bb=Bm)
+    return F
+
+
+def make_sharded_spike_apply(plan: ShardPlan, comm, refine=0):
+    """apply(F, r_loc) -> M r, vasp_tpu's make_sharded_spike_apply (:758):
+    the local solve, the reduced forward and backward sweeps over the
+    interfaces (n - 1 phases each, rank j owning interface j), the
+    corrected local solve, then `refine` passes, each the neighbours'
+    boundary rows exchanged, the residual r - T x (K21f-a), a solve and an
+    add. The sweeps and corrections are K21a's carry_update on the stored
+    blocks (K21f-b).
+
+    Each rank runs only the work whose result it uses (vasp_tpu's SPMD
+    program runs every branch): of the first local solve, rank 0 needs
+    only the bottom block (no backward scan) and a single rank none; the
+    last rank owns no interface; the corrections by a zero interface
+    value (rank 0's C_0 term, the last rank's B_{m-1} term, the last
+    interface's incoming backward value) are left out."""
+    c, n, m = plan.c, plan.n, plan.nb_loc
+    rank = comm.rank
+    first, last = rank == 0, rank == n - 1
+
+    def solve_once(F, rb):
+        Sinv, H, G = F["Sinv"], F["H"], F["G"]
+        zero = rb.new_zeros(c)
+        gb = gt = zero
+        if not (first and last):
+            g = local_solve(Sinv, H, G, rb, full=not first)
+            gb, gt = g[m - 1], g[0]
+        gtn = comm.shift_left(gt)
+        # the forward sweep: u = gb_j - Wb_j wa_{j-1}, s = K_j (gt_{j+1} -
+        # Q_j u), wa_j = u - P_j s, wb_j = s
+        wa = wb = carry = zero
+        for j in range(n - 1):
+            if rank == j:
+                u = gb if j == 0 else kb.carry_update(F["nWb"], carry, gb)
+                s = kb.carry_update(F["K"], kb.carry_update(F["nQ"], u, gtn),
+                                    zero)
+                wa, wb = kb.carry_update(F["nP"], s, u), s
+            if j < n - 2:
+                carry = comm.ppermute(wa if rank == j else carry, j, j + 1)
+        # the backward sweep: z = Vt_{j+1} xb_{j+1}; xa_j = wa_j + P_j K_j
+        # z, xb_j = wb_j - K_j z (z = 0 on the last interface)
+        xa, xb, carry = wa, wb, zero
+        for j in range(n - 2, -1, -1):
+            if rank == j and j < n - 2:
+                z = kb.carry_update(F["Vtn"], carry, zero)
+                mkz = kb.carry_update(F["K"], -z, zero)
+                xa, xb = kb.carry_update(F["nP"], mkz, wa), wb + mkz
+            if j > 0:
+                carry = comm.ppermute(xb if rank == j else carry, j, j - 1)
+        # the correction: r_p - e_0 C_0 xa_{p-1} - e_{m-1} B_{m-1} xb_p
+        a_prev = comm.shift_right(xa)
+        rb2 = rb.clone()
+        if not first:
+            rb2[0] = kb.carry_update(F["nC0"], a_prev, rb2[0].contiguous())
+        if not last:
+            rb2[m - 1] = kb.carry_update(F["nBlast"], xb,
+                                         rb2[m - 1].contiguous())
+        return local_solve(Sinv, H, G, rb2)
+
+    def apply(F, r_loc):
+        rb = r_loc.to(torch.float32).reshape(m, c)
+        x = solve_once(F, rb)
+        for _ in range(refine):
+            xprev = comm.shift_right(x[m - 1])
+            xnext = comm.shift_left(x[0])
+            y = kb.tri_residual(F["Cb"], F["Db"], F["Bb"], x, rb,
+                                None if first else xprev,
+                                None if last else xnext)
+            x = x + solve_once(F, y)
+        return x.reshape(-1).to(r_loc.dtype)
+
+    return apply
+
+
 def sharded_probe_rel(Cm, D, Bm, F, apply, comm):
     """Solve quality of the sharded factors, ||T M b - b|| / ||b|| for the
     +-1 probe b (fem/banded.py probe_rel, dof-sharded: the neighbours'
@@ -385,20 +573,26 @@ class ShardedBandedStepper:
     stall-triggered rebuild, the fine retry, the probe-flagged float64
     factor tier, the float64 direction tier). ``timings`` holds wall
     seconds per phase (the rebuild's rebuild_jacobians, ruiz, assemble,
-    factorize, transfer, probe; residual, jacobians and gmres, matvec and
-    precond within it), each ended by a device synchronize on a card;
+    factorize, transfer (chain), spikes and reduced (spike), probe;
+    residual, jacobians and gmres, matvec and precond within it), each
+    ended by a device synchronize on a card, and the all-reduces' seconds
+    and bytes (exchange, exchange_bytes: parallel/comm.py);
     ``history`` one record per step (Newton iterations, GMRES inner
     iterations and cycles, rebuilds, the tiers taken)."""
 
     def __init__(self, system, bc_set, options: StepOptions, group=None,
-                 recompute_tstep=20, algo="chain"):
+                 recompute_tstep=20, algo="chain", spike_refine=2):
         check_algo(algo)
         self.opt = options
         self.algo = algo
+        # the SPIKE apply's refinement passes (vasp_tpu's VASP_SPIKE_REFINE,
+        # default 2; the config key spike_refine)
+        self.spike_refine = int(spike_refine) if algo == "spike" else 0
         self.device = system.device
         asm = system.assembler
         self.ndof = asm.ndof
-        self.comm = Collectives(group=group)
+        self.timings = defaultdict(float)
+        self.comm = Collectives(group=group, timings=self.timings)
         n, rank = self.comm.n, self.comm.rank
         plan = build_shard_plan([b.dofs.cpu().numpy() for b in asm.blocks],
                                 self.ndof, n)
@@ -412,7 +606,6 @@ class ShardedBandedStepper:
         self._last_rel = 0.0
         self._f64_factors = False
         self._rel_max = 1.0
-        self.timings = defaultdict(float)
         self.rebuilds = self.gmres_inner = self.gmres_cycles = 0
         self.history = []
 
@@ -446,8 +639,12 @@ class ShardedBandedStepper:
         self._loc_src = torch.as_tensor(plan.perm[lo:lo + own], device=dev)
         self._iperm = torch.as_tensor(plan.iperm, device=dev)
         self._hybrid0 = options.residual_dtype == "f32"
-        self._apply = (make_sharded_chain_apply if algo == "chain"
-                       else make_sharded_banded_apply)(plan, self.comm)
+        if algo == "spike":
+            self._apply = make_sharded_spike_apply(plan, self.comm,
+                                                   self.spike_refine)
+        else:
+            self._apply = (make_sharded_chain_apply if algo == "chain"
+                           else make_sharded_banded_apply)(plan, self.comm)
         print(f"sharded banded preconditioner ({algo}): {n} ranks of "
               f"{plan.nb_loc} blocks at c={c} (span {span} dofs, "
               f"{plan.npad - plan.ndof} padding)", flush=True)
@@ -496,9 +693,13 @@ class ShardedBandedStepper:
             Cm, D, Bm = merge_halo_blockrow(Cm, D, Bm, comm)
         fdt = (torch.bfloat16 if opt.banded_factor_dtype == "bf16"
                else torch.float32)
-        with self._timed("factorize"):
-            Sinv, H, G = sharded_factorize(Cm, D, Bm, comm, fdt, f64)
-        F = dict(Sinv=Sinv, H=H, G=G)
+        if self.algo == "spike":
+            F = sharded_factorize_spike(Cm, D, Bm, comm, fdt, f64,
+                                        self.spike_refine, self._timed)
+        else:
+            with self._timed("factorize"):
+                Sinv, H, G = sharded_factorize(Cm, D, Bm, comm, fdt, f64)
+            F = dict(Sinv=Sinv, H=H, G=G)
         if self.algo == "chain":
             with self._timed("transfer"):
                 F["Tf"], F["Tb"] = sharded_transfer_products(H, G)

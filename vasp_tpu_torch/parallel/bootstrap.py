@@ -48,6 +48,21 @@ def world_size():
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+BACKENDS = ("nccl", "gloo")
+
+
+def backend_for(device, backend=None):
+    """The process group's backend: `backend` ("nccl" or "gloo"), else
+    "nccl" on CUDA and "gloo" on the CPU. Never switched by itself: nccl
+    with fewer cards than ranks raises (check_backend)."""
+    if backend in (None, "None", ""):
+        return "gloo" if torch.device(device).type == "cpu" else "nccl"
+    if backend not in BACKENDS:
+        raise ValueError(f"dist_backend={backend!r}: expected one of "
+                         f"{BACKENDS}")
+    return backend
+
+
 def check_backend(backend, ranks_on_host):
     """NCCL takes one card a rank: raise, naming the gloo backend that shares
     cards, where the host has fewer cards than ranks."""

@@ -15,6 +15,8 @@ ranks share one card (NCCL refuses two ranks on one card, and gloo offers
 only broadcast and all-reduce for CUDA tensors). A pair exchange returns
 zeros on every rank but the receiver, as ppermute does.
 """
+import time
+
 import torch
 import torch.distributed as dist
 
@@ -22,17 +24,31 @@ import torch.distributed as dist
 class Collectives:
     """The exchanges of one rank of a process group. span and c (the rank's
     dofs and the halo width, the banded pattern's block size) are needed
-    by the halo operations only."""
+    by the halo operations only. With a timings dict every all-reduce adds
+    its bytes to timings["exchange_bytes"] and its wall seconds to
+    timings["exchange"], the card synchronized before and after (so the
+    seconds are the exchange's alone)."""
 
-    def __init__(self, span=None, c=None, group=None):
+    def __init__(self, span=None, c=None, group=None, timings=None):
         self.group = group
         self.rank = dist.get_rank(group)
         self.n = dist.get_world_size(group)
         self.span, self.c = span, c
+        self.timings = timings
 
     def _reduce(self, x, op):
         buf = x.detach().clone().reshape(-1)
+        if self.timings is None:
+            dist.all_reduce(buf, op=op, group=self.group)
+            return buf.reshape(x.shape)
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+        tic = time.perf_counter()
         dist.all_reduce(buf, op=op, group=self.group)
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+        self.timings["exchange"] += time.perf_counter() - tic
+        self.timings["exchange_bytes"] += buf.numel() * buf.element_size()
         return buf.reshape(x.shape)
 
     def red(self, x):

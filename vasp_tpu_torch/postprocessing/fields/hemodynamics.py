@@ -24,6 +24,11 @@ File access and arithmetic are apart: ``compute_hemodynamics`` reads the
 HDF5 series and writes the outputs; ``FluidBoundaryTables.wss_series`` and
 ``WSSIndices`` work on in-memory series (``hemodynamic_indices`` runs both),
 so a caller without h5py drives the same code.
+
+n_devices > 1 is vasp_tpu's timestep-sharded pass (parallel/steps.py): each
+rank runs K20a on its share of each chunk's steps on its own card, and rank
+0 gathers the loads, runs the host solves and the reductions and alone
+writes.
 """
 from pathlib import Path
 
@@ -35,9 +40,9 @@ from vasp_tpu_torch.fem.assembly import cell_geometry
 from vasp_tpu_torch.fem.functionspace import DVPSpace
 from vasp_tpu_torch.fem.quadrature import tri_quadrature
 from vasp_tpu_torch.fem.shape import p1_tri, p2_tet
-from vasp_tpu_torch.fem.timestepper import not_ported
 from vasp_tpu_torch.kernels import postproc
 from vasp_tpu_torch.mesh.io import read_vasp_mesh
+from vasp_tpu_torch.parallel import bootstrap, steps
 from vasp_tpu_torch.postprocessing.common import read_parameters_from_file
 from vasp_tpu_torch.run.output import VizWriter
 
@@ -134,17 +139,29 @@ class FluidBoundaryTables:
         return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                      device=device) for a, dt in arrays)
 
-    def wss_series(self, u_series, cell_dofs_p2, mu_f, device="cuda"):
+    def wss_series(self, u_series, cell_dofs_p2, mu_f, device="cuda",
+                   comm=None):
         """u_series (T, n_p2, 3) full-mesh P2 velocity -> nodal WSS vectors
         (T, n_bnodes, 3) numpy on the fluid boundary: the loads on
         `device`, the consistent boundary-mass solve on the host (a small
         SPD factor reused across timesteps, like the reference's cached
-        LU)."""
+        LU). With comm (parallel/comm.py Collectives) the steps are sharded
+        over its ranks (u_series the whole series on every rank): each
+        computes the loads of its share, rank 0 gathers them and solves,
+        the other ranks return None."""
         dev = resolve_device(device) if isinstance(device, str) else device
         u = torch.as_tensor(u_series, dtype=torch.float64, device=dev)
+        T = u.shape[0]
+        if comm is not None:
+            u = u[torch.as_tensor(steps.share(T, comm), device=dev)]
         loads = postproc.wss_load(u, *self.device_tables(cell_dofs_p2, dev),
-                                  len(self.bnodes), mu_f).cpu().numpy()
-        return np.stack([self._mass_lu.solve(b) for b in loads])
+                                  len(self.bnodes), mu_f)
+        if comm is not None:
+            loads = steps.gather_steps(comm, loads, T)
+            if comm.rank != 0:
+                return None
+        return np.stack([self._mass_lu.solve(b)
+                         for b in loads.cpu().numpy()])
 
 
 class WSSIndices:
@@ -197,30 +214,47 @@ class WSSIndices:
 
 
 def hemodynamic_indices(tables, u_series, cell_dofs_p2, mu_f, times,
-                        device="cuda"):
+                        device="cuda", comm=None):
     """The in-memory pass: (indices dict, tau (T, n_bnodes, 3)) of a
-    velocity series (T, n_p2, 3) with its times."""
-    tau = tables.wss_series(u_series, cell_dofs_p2, mu_f, device=device)
+    velocity series (T, n_p2, 3) with its times; with comm the
+    timestep-sharded one (wss_series), (None, None) on ranks but 0."""
+    tau = tables.wss_series(u_series, cell_dofs_p2, mu_f, device=device,
+                            comm=comm)
+    if tau is None:
+        return None, None
     acc = WSSIndices(len(tables.bnodes))
     acc.update(tau)
     return acc.indices(np.asarray(times)), tau
 
 
 def compute_hemodynamics(folder, mesh_path=None, quad_degree=2,
-                         chunk_steps=None, n_devices=None, device="cuda"):
+                         chunk_steps=None, n_devices=None, device="cuda",
+                         dist_backend=None):
     """Main entry (vasp-tpu-torch-compute-hemo).
 
     The time series is streamed in chunks of `chunk_steps` timesteps
     (default ~0.5 GB of velocity data), so memory is O(chunk x ndof)
     regardless of T. The WSS loads run on `device` (K20a on a card).
-    n_devices > 1 (vasp_tpu shards each chunk's timesteps over devices) is
-    refused: the timestep-sharded passes are ROADMAP item 19."""
+
+    n_devices > 1 shards each chunk's timesteps over that many ranks
+    (vasp_tpu's multi-device pass; a chunk holds at least one step a rank):
+    inside a process group of n_devices ranks this process runs its rank,
+    outside one the ranks are started here (parallel/steps.py rank_group,
+    on bootstrap.backend_for's backend) and None is returned. Each rank reads
+    its share of each chunk and runs K20a on cuda:<local rank % cards> (or
+    the CPU); rank 0 gathers the loads, solves, reduces, writes and returns
+    the indices, the other ranks None."""
     import h5py
 
-    if n_devices is not None and int(n_devices) > 1:
-        not_ported(f"the multi-device WSS pass (n_devices={n_devices!r})",
-                   19)
-    dev = resolve_device(device)
+    backend = bootstrap.backend_for(device, dist_backend)
+    comm, spawned = steps.rank_group(
+        n_devices, compute_hemodynamics,
+        (folder, mesh_path, quad_degree, chunk_steps, n_devices, device,
+         backend), backend)
+    if spawned:
+        return None
+    lead = comm is None or comm.rank == 0
+    dev = bootstrap.use_rank_device(resolve_device(device))
     folder = Path(folder)
     params = read_parameters_from_file(folder) or {}
     mu_f = params.get("mu_f", 1.0)
@@ -232,26 +266,31 @@ def compute_hemodynamics(folder, mesh_path=None, quad_degree=2,
 
     sep = folder / "Visualization_separate_domain"
     u_path = sep / "u.h5"
-    if not u_path.exists():
+    if lead and not u_path.exists():
         from vasp_tpu_torch.postprocessing.fields.create_hdf5 import (
             create_hdf5,
         )
 
         create_hdf5(folder, mesh_path=mesh_path)
+    if comm is not None:
+        torch.distributed.barrier()
 
     space = DVPSpace(mesh)
     tables = FluidBoundaryTables(mesh, dx_f_id, quad_degree)
     n_p2 = mesh.num_vertices + mesh.num_edges
 
     out_dir = folder / "Hemodynamic_indices"
-    out_dir.mkdir(parents=True, exist_ok=True)
     coords, tris = tables.boundary_coords, tables.boundary_tris
-    w_wss = VizWriter(out_dir, "WSS", coords, tris, vector=True,
-                      cell_type="Triangle")
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        w_wss = VizWriter(out_dir, "WSS", coords, tris, vector=True,
+                          cell_type="Triangle")
 
     if chunk_steps is None:
         # ~0.5 GB of f64 velocity rows per chunk
         chunk_steps = max(1, int(2.2e7 / max(n_p2, 1)))
+    if comm is not None:
+        chunk_steps = max(chunk_steps, comm.n)
     acc = WSSIndices(len(tables.bnodes))
     with h5py.File(u_path, "r") as f:
         T = len(f["time"])
@@ -259,14 +298,22 @@ def compute_hemodynamics(folder, mesh_path=None, quad_degree=2,
         ids = f["ids"][:]
         for k0 in range(0, T, chunk_steps):
             k1 = min(k0 + chunk_steps, T)
+            # the rank's steps of the chunk (all of them on one rank); the
+            # other rows stay zero, wss_series reads only these
+            own = (range(k1 - k0) if comm is None
+                   else sorted(set(steps.share(k1 - k0, comm))))
             u_series = np.zeros((k1 - k0, n_p2, 3))
-            for i, k in enumerate(range(k0, k1)):
-                u_series[i, ids] = f[f"velocity/vector_{k}"][:]
+            for i in own:
+                u_series[i, ids] = f[f"velocity/vector_{k0 + i}"][:]
             tau = tables.wss_series(u_series, space.cell_dofs_p2, mu_f,
-                                    device=dev)
+                                    device=dev, comm=comm)
+            if not lead:
+                continue
             for i, k in enumerate(range(k0, k1)):
                 w_wss.write(tau[i], float(times[k]))
             acc.update(tau)
+    if not lead:
+        return None
     res = acc.indices(times)
 
     for name in ("TAWSS", "TWSSG", "OSI", "RRT", "ECAP"):

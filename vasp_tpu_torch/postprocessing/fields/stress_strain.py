@@ -24,6 +24,11 @@ the two agree to rounding, ~1e-16 absolute.
 File access and arithmetic are apart: ``compute_stress_strain`` reads the
 HDF5 series and writes the outputs; ``SolidVertexTables.fields`` works on
 in-memory series, so a caller without h5py drives the same code.
+
+n_devices > 1 is vasp_tpu's timestep-sharded pass (parallel/steps.py): each
+rank runs K20b on its share of each chunk's steps on its own card
+(``SolidVertexTables.fields`` with a comm), and rank 0 gathers the fields
+and alone writes.
 """
 from pathlib import Path
 
@@ -34,9 +39,9 @@ from vasp_tpu_torch.device import resolve_device
 from vasp_tpu_torch.fem.assembly import cell_geometry
 from vasp_tpu_torch.fem.functionspace import DVPSpace
 from vasp_tpu_torch.fem.shape import p2_tet
-from vasp_tpu_torch.fem.timestepper import not_ported
 from vasp_tpu_torch.kernels import postproc
 from vasp_tpu_torch.mesh.io import read_vasp_mesh
+from vasp_tpu_torch.parallel import bootstrap, steps
 from vasp_tpu_torch.postprocessing.common import read_parameters_from_file
 from vasp_tpu_torch.run.output import CheckpointSeriesWriter, VizWriter
 
@@ -101,11 +106,19 @@ class SolidVertexTables:
         return (torch.as_tensor(self.dofs, dtype=torch.int64, device=device),
                 torch.as_tensor(self.G, dtype=torch.float64, device=device))
 
-    def fields(self, d_series, tables):
+    def fields(self, d_series, tables, comm=None):
         """(sig, eps (T,K,4,3,3), mps, mpe (T,K,4)) of the displacement
         series d_series (T, n_p2, 3) float64 tensor on its device (K20b on
-        a card); tables from device_tables on the same device."""
-        return postproc.stress_strain(d_series, *tables, self.segments)
+        a card); tables from device_tables on the same device. With comm
+        (parallel/comm.py Collectives) the steps are sharded over its
+        ranks: each rank computes its share of d_series (whose other rows
+        it does not read) and every rank gets the whole fields back."""
+        if comm is None:
+            return postproc.stress_strain(d_series, *tables, self.segments)
+        T = d_series.shape[0]
+        own = torch.as_tensor(steps.share(T, comm), device=d_series.device)
+        part = postproc.stress_strain(d_series[own], *tables, self.segments)
+        return tuple(steps.gather_steps(comm, a, T) for a in part)
 
     def to_nodes(self, vals):
         """Collapse DG1 (K,4) values to vertex values (average of the
@@ -126,19 +139,32 @@ def default_chunk_steps(n_p2, K):
 
 
 def compute_stress_strain(folder, mesh_path=None, stride=1, n_devices=None,
-                          device="cuda", chunk_steps=None):
+                          device="cuda", chunk_steps=None, dist_backend=None):
     """Main entry (vasp-tpu-torch-compute-stress). The displacement series
     is streamed in chunks of `chunk_steps` timesteps (default
     default_chunk_steps), each one K20b launch per material on a card, so
-    memory is O(chunk x ndof) regardless of T. n_devices > 1 (vasp_tpu
-    shards chunks of timesteps over devices) is refused: the timestep-sharded
-    passes are ROADMAP item 19."""
+    memory is O(chunk x ndof) regardless of T.
+
+    n_devices > 1 shards each chunk's steps over that many ranks
+    (vasp_tpu's multi-device pass): the chunk a multiple of the rank count,
+    at least one step a rank and at most the series rounded up to the rank
+    count, padded by repeating its last step (the padding dropped after);
+    inside a process group of n_devices ranks this process runs its rank,
+    outside one the ranks are started here (parallel/steps.py rank_group)
+    and None is returned. Each rank reads and computes its share; rank 0
+    gathers the fields, writes and returns the averages, the others
+    None."""
     import h5py
 
-    if n_devices is not None and int(n_devices) > 1:
-        not_ported(f"the multi-device stress/strain pass "
-                   f"(n_devices={n_devices!r})", 19)
-    dev = resolve_device(device)
+    backend = bootstrap.backend_for(device, dist_backend)
+    comm, spawned = steps.rank_group(
+        n_devices, compute_stress_strain,
+        (folder, mesh_path, stride, n_devices, device, chunk_steps, backend),
+        backend)
+    if spawned:
+        return None
+    lead = comm is None or comm.rank == 0
+    dev = bootstrap.use_rank_device(resolve_device(device))
     folder = Path(folder)
     params = read_parameters_from_file(folder) or {}
     mesh_path = Path(mesh_path) if mesh_path else folder / "Mesh" / "mesh.h5"
@@ -158,49 +184,65 @@ def compute_stress_strain(folder, mesh_path=None, stride=1, n_devices=None,
             create_hdf5,
         )
 
-        create_hdf5(folder, mesh_path=mesh_path, extract_solid_only=True)
+        if lead:
+            create_hdf5(folder, mesh_path=mesh_path, extract_solid_only=True)
         d_file = sep / "d_solid.h5"
+    if comm is not None:
+        torch.distributed.barrier()
     n_p2 = space.n_p2
     with h5py.File(d_file, "r") as f:
         times = f["time"][:]
         ids = f["ids"][:]
-        steps = list(range(0, len(times), stride))
-        times = times[steps]
+        picked = list(range(0, len(times), stride))
+        times = times[picked]
 
     out_dir = folder / "StressStrain"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # checkpoint-layout series (the format the reference's h5py stack reads:
-    # <name>/<name>_{i}/vector + dof metadata; see CheckpointSeriesWriter).
-    # Tensors are FULL DG1: one row of 9 components per (cell, vertex), as
-    # the reference writes them (compute_stress_strain.py:171-236).
     K = len(tables.solid_cells)
-    writers = {
-        name: CheckpointSeriesWriter(
-            out_dir, name, tables.out_coords, tables.out_cells, ncomp=1,
-            cell_dofs=np.arange(K * 4).reshape(K, 4))
-        for name in ("MaxPrincipalStress", "MaxPrincipalStrain")
-    }
-    tensor_writers = {
-        name: CheckpointSeriesWriter(
-            out_dir, name, tables.out_coords, tables.out_cells, ncomp=9,
-            cell_dofs=np.arange(K * 36).reshape(K, 36))
-        for name in ("TrueStress", "GreenLagrangeStrain")
-    }
+    if chunk_steps is None:
+        chunk_steps = default_chunk_steps(n_p2, K)
+    if comm is not None:
+        n = comm.n
+        chunk_steps = min(max(n, chunk_steps // n * n),
+                          steps.padded_steps(len(times), n))
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # checkpoint-layout series (the format the reference's h5py stack
+        # reads: <name>/<name>_{i}/vector + dof metadata; see
+        # CheckpointSeriesWriter). Tensors are FULL DG1: one row of 9
+        # components per (cell, vertex), as the reference writes them
+        # (compute_stress_strain.py:171-236).
+        writers = {
+            name: CheckpointSeriesWriter(
+                out_dir, name, tables.out_coords, tables.out_cells, ncomp=1,
+                cell_dofs=np.arange(K * 4).reshape(K, 4))
+            for name in ("MaxPrincipalStress", "MaxPrincipalStrain")
+        }
+        tensor_writers = {
+            name: CheckpointSeriesWriter(
+                out_dir, name, tables.out_coords, tables.out_cells, ncomp=9,
+                cell_dofs=np.arange(K * 36).reshape(K, 36))
+            for name in ("TrueStress", "GreenLagrangeStrain")
+        }
     nv = len(tables.out_coords)
     mps_sum = np.zeros(nv)
     mpe_sum = np.zeros(nv)
     dev_tables = tables.device_tables(dev)
-    if chunk_steps is None:
-        chunk_steps = default_chunk_steps(n_p2, K)
     with h5py.File(d_file, "r") as f_d:
         for c0 in range(0, len(times), chunk_steps):
             chunk = range(c0, min(c0 + chunk_steps, len(times)))
+            # the rank's steps of the chunk (all of them on one rank); the
+            # other rows stay zero, fields reads only these
+            own = (range(len(chunk)) if comm is None
+                   else sorted(set(steps.share(len(chunk), comm))))
             d = np.zeros((len(chunk), n_p2, 3))
-            for i, k in enumerate(chunk):
-                d[i, ids] = f_d[f"displacement/vector_{steps[k]}"][:]
-            fields = (a.cpu().numpy() for a in tables.fields(
-                torch.as_tensor(d, device=dev), dev_tables))
-            for k, sig, eps, mps, mpe in zip(chunk, *fields):
+            for i in own:
+                d[i, ids] = f_d[f"displacement/vector_{picked[chunk[i]]}"][:]
+            fields = tables.fields(torch.as_tensor(d, device=dev),
+                                   dev_tables, comm)
+            if not lead:
+                continue
+            for k, sig, eps, mps, mpe in zip(
+                    chunk, *(a.cpu().numpy() for a in fields)):
                 t = float(times[k])
                 writers["MaxPrincipalStress"].write(mps.reshape(-1), t)
                 writers["MaxPrincipalStrain"].write(mpe.reshape(-1), t)
@@ -209,6 +251,8 @@ def compute_stress_strain(folder, mesh_path=None, stride=1, n_devices=None,
                                                             t)
                 mps_sum += tables.to_nodes(mps)
                 mpe_sum += tables.to_nodes(mpe)
+    if not lead:
+        return None
 
     avg = {"MaxPrincipalStress_avg": mps_sum / len(times),
            "MaxPrincipalStrain_avg": mpe_sum / len(times)}

@@ -50,8 +50,6 @@ from vasp_tpu_torch.run.config import default_variables, parse_command_line
 from vasp_tpu_torch.run.output import VisualizationOutput
 from vasp_tpu_torch.run.system import FSISystem, run_layout
 
-DIST_BACKENDS = ("nccl", "gloo")
-
 
 def load_problem_module(problem):
     """Resolve a problem: built-in name in vasp_tpu_torch.models, or a file path."""
@@ -85,18 +83,10 @@ def merged_config(mod, overrides=None):
 
 
 def dist_backend(cfg):
-    """The process group's backend: the config's dist_backend ("nccl" or
-    "gloo"), else "nccl" on CUDA and "gloo" on the CPU. Never switched by
-    itself: nccl with fewer cards than ranks raises
-    (bootstrap.check_backend)."""
-    backend = cfg.get("dist_backend")
-    if backend in (None, "None", ""):
-        cpu = torch.device(cfg.get("device", "cuda")).type == "cpu"
-        return "gloo" if cpu else "nccl"
-    if backend not in DIST_BACKENDS:
-        raise ValueError(f"dist_backend={backend!r}: expected one of "
-                         f"{DIST_BACKENDS}")
-    return backend
+    """The process group's backend for the config's device and dist_backend
+    (bootstrap.backend_for)."""
+    return bootstrap.backend_for(cfg.get("device", "cuda"),
+                                 cfg.get("dist_backend"))
 
 
 def run_simulation(problem, overrides=None):

@@ -26,16 +26,15 @@ vasp_tpu.
 path sharded over that many ranks, one process each (parallel/, as
 vasp_tpu's device mesh): any linear_solver maps to it, as in vasp_tpu;
 unset, it shards only an iterative solver, over every visible card
-(run_layout decides both, once); ``shard_algo`` picks its apply
-("chain", the default, or "thomas"); each rank's state lives on
+(run_layout decides both, once); ``shard_algo`` picks its algorithm
+("chain", the default, "thomas", or "spike" with ``spike_refine``
+refinement passes, default 2); each rank's state lives on
 cuda:<local rank % cards> for device="cuda", its current card
 (parallel/bootstrap.py use_rank_device). The ranks are the process
 group's: vasp-tpu-torch-run starts them (run/driver.py), or a launcher
 does.
 
-Not ported yet, and refused with the ROADMAP item that will port it:
-shard_algo="spike" (queue 1, item 18); fem/timestepper.py refuses the
-iterative options it does not cover.
+fem/timestepper.py refuses the iterative options it does not cover.
 """
 import dataclasses
 
@@ -400,7 +399,8 @@ class FSISystem:
             recompute_tstep=int(cfg.get("recompute_tstep", 20)),
             verbose=bool(cfg.get("verbose", True)),
             raise_on_fail=bool(cfg.get("raise_on_fail", True)),
-            world=world, shard_algo=cfg.get("shard_algo", "chain"))
+            world=world, shard_algo=cfg.get("shard_algo", "chain"),
+            spike_refine=int(cfg.get("spike_refine", 2)))
 
     def zero_state(self):
         return torch.zeros(self.space.ndof, dtype=torch.float64,
