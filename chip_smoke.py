@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Device: needs torch.cuda; prints the card's name and power limit and
    builds the CUDA kernels from csrc/ (one nvcc per source, in parallel;
-   build seconds, ptxas register and spill report); the SASS of the
+   build seconds, ptxas register and spill report, and K3's registers
+   and spill bytes per instance); the SASS of the
    float32 residual instances (the fluid with Laplace, elastic and no mesh
    lifting, the solid in St.Venant-Kirchhoff and in Mooney-Rivlin, and
    the Robin facet term) and of the float32 biharmonic lifting correction
@@ -19,9 +20,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    3.35 TB/s or operations over the peak of their type, the larger; the
    element kernels' bytes count the entries their block touches) and a
    one-call torch yardstick where one exists (cuSPARSE's SpMV of the same
-   matrix for the element matvec, scatter_reduce_ "amax" of the gathered
-   |dr A dc| for K7's sweep, index_add_ of the gathered in-band entries
-   for K8). Tolerances, each with its reason:
+   matrix for the element matvec). K7's sweep, K8 and K17's extract have
+   none: scatter_reduce_ "amax" of the gathered |dr A dc|, index_add_ of
+   the gathered in-band entries (no zero fill) and of the gathered node
+   blocks are timed beside them as pre-gathered calls (pregathered_ms),
+   not the same function. Tolerances, each with its reason:
    - float64 outputs (K1, K2, K3, K4 f64, K19): 1e-12 relative; the f64
      atomics' order varies, nothing else;
    - float32 element residuals (K1/K2 f32): as accurate as the plain
@@ -31,6 +34,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    - float32 Jacobians (K3 f32): 2e-7 per cell block; both sides round
      float64 values that agree to 1e-12 once, so they are at most one
      float32 ulp apart;
+   K3's bound counts its output and the point-linearised algorithm's
+   operations at the least (k3_point_ops), the plain jacfwd's count beside
+   it (bound_ms_jacfwd). After the tube's K1/K2/K3, each block's first 256
+   cells at quadrature degree 10 (216 points: every table in device
+   memory) by the same rules (degree_check).
    - float32 element products (K4 f32): 1e-5 relative; 64-term float32
      row sums in another order than torch's;
    - K7 (Ruiz sweep and scale) and K8 (banded assembly): exact; max is
@@ -145,7 +153,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    after; every step must converge, U must be finite and on the card, and
    every kernel of the path must have launched. Prints s/step, Newton
    and GMRES inner iterations per step, the rebuild and per-iteration
-   time splits, GMRES's bound per direction (K5: its matvecs and applies
+   time splits (phases 4-7 also the mean s/step of steps 2 on and the
+   element Jacobians' seconds beside those of the cell-level forward-mode
+   K3 that the point-linearised one replaced, CELL_K3_STEPS), GMRES's
+   bound
+   per direction (K5: its matvecs and applies
    at the K4 and K6 bounds plus the bytes of its CGS2 projections, spread
    as evenly over the restart cycles as the counts allow), the probe,
    peak device memory and the one-time host setup (pattern, RCM,
@@ -423,6 +435,8 @@ TOL_SHARDED_POST = 1e-13
 # f64 tensor-core peak that cuBLAS's DGEMM can reach (NVIDIA H100 SXM data
 # sheet)
 HBM_BYTES_PER_S = 3.35e12
+# NVLink between the cards of a host, each way (hopper-kernels guide)
+NVLINK_BYTES_PER_S = 450e9
 PEAK = {"f64": 34e12, "f32": 67e12, "f64_tensor": 67e12}
 FULL_MESH = dict(r_inner=0.002, r_outer=0.0026, length=0.04, n_theta=16,
                  n_r_fluid=3, n_r_solid=1, n_z=62)  # 20,832 cells
@@ -1083,11 +1097,63 @@ def phase_device():
     print(f"[1] kernels ready in {time.perf_counter() - tic:.2f} s "
           f"(nvcc {build.BUILD_SECONDS['nvcc']:.2f} s; 0 = already built)")
     log = build.BUILD_DIR / "nvcc.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                print("    " + line.strip())
+    require(log.exists(), f"no ptxas report at {log}: delete the build "
+                          f"directory so that the kernels build here")
+    for line in log.read_text().splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            print("    " + line.strip())
+    k3 = jacobian_ptxas(log.read_text())
+    for name, r in k3.items():
+        print(f"    K3 {name}: {r['registers']} registers, "
+              f"{r['spill_stores']} bytes spill stores, "
+              f"{r['spill_loads']} bytes spill loads")
     check_f32_residual_sass(build)
+    return k3
+
+
+# K3's instances in ptxas's report: the cell type, its lifting or material
+# code and the output type of each jacobian_kernel entry
+_K3_ENTRY = r"jacobian_kernelI\d+(Fluid|Solid)CellIdLi(\d)EE([fd])E"
+
+
+def _k3_counter(kind, code, out):
+    """The launch counter of a K3 instance (kernels/element.py
+    counter_name) from its template arguments in ptxas's report."""
+    tag = ({"0": "", "1": "_elastic", "2": "_nolift"} if kind == "Fluid"
+           else {"0": "", "1": "_mr"})[code]
+    return f"{kind.lower()}_jacobian{tag}" + ("_f32" if out == "f" else "")
+
+
+def jacobian_ptxas(log):
+    """{K3 counter: registers, spill stores and loads in bytes} from the
+    build's ptxas report (nvcc -Xptxas -v)."""
+    import re
+
+    out, name, entry, props = {}, None, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            k = re.search(_K3_ENTRY, entry)
+            name = _k3_counter(*k.groups()) if k else None
+            continue
+        # ptxas reports the functions an entry calls (the division's slow
+        # path) after it: a spill line belongs to the function named last
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props == entry:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def check_f32_residual_sass(build):
@@ -1112,8 +1178,10 @@ def check_f32_residual_sass(build):
     heads = [(f.split("\n", 1)[0], f) for f in sass.split("Function : ")[1:]]
     funcs = [f for h, f in heads
              if re.search(r"(residual|lift_\w+)_kernelIf", h)]
-    require(len(funcs) == 9, f"found {len(funcs)} float32 residual and "
-                             f"lifting instances in the SASS, expected 9")
+    # five float32 residuals on the constant bank, five on tables in device
+    # memory, four lifting kernels
+    require(len(funcs) == 14, f"found {len(funcs)} float32 residual and "
+                              f"lifting instances in the SASS, expected 14")
     f64_ops = r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b"
     for f in funcs:
         n = len(re.findall(f64_ops, f))
@@ -1122,8 +1190,9 @@ def check_f32_residual_sass(build):
         require(n == 0, "the float32 residual does float64 arithmetic")
     deltas = [(re.search(r"delta_kernelI.*?Lb([01])E", h), f)
               for h, f in heads if "delta_kernelI" in h]
-    require(len(deltas) == 10 and all(m for m, _ in deltas),
-            f"found {len(deltas)} K13 instances in the SASS, expected 10")
+    # ten on the constant bank, ten on tables in device memory
+    require(len(deltas) == 20 and all(m for m, _ in deltas),
+            f"found {len(deltas)} K13 instances in the SASS, expected 20")
     for m, f in deltas:
         n = len(re.findall(f64_ops, f))
         n_add = len(re.findall(r"\bDADD\b", f))
@@ -1210,6 +1279,9 @@ class Records(dict):
         rel, mx = err
         b_ms, by = bound(*work)
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        if "pregathered_ms" in extra:
+            lib += (f"  pre-gathered call {extra['pregathered_ms']:.4f} ms "
+                    f"(not the same function)")
         print(f"    {name:20s} {shape:>26s}  rel {rel:.3e}  max_abs "
               f"{mx:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"bound {b_ms:.4f} ms ({by}){lib}")
@@ -1235,12 +1307,35 @@ def _sub_block(b, n):
                    rowmask=None if b.rowmask is None else b.rowmask[:n])
 
 
+def k3_point_ops(kernel):
+    """The operations of one quadrature point of the point-linearised K3
+    (csrc/element_kernels.cu) at the least: D_q's entries, one multiply-add
+    each; T = D_q Phi_in, each flux against each column's own state slots;
+    A += Phi_out^T T, each entry against its row's fluxes; two operations a
+    multiply-add. The slots each form reads and writes are those of
+    csrc/element_forms.cuh (FluidCell, SolidCell): per component the
+    state's value and gradient (4) or value alone (1), the fluxes' value
+    and gradient tests; the pressure's one slot."""
+    if kernel.kind == "fluid":
+        # d, v state slots a component, p; d-row, v-row fluxes, p
+        bd, bv, ps = 4, 4, 1
+        ad, av, pf = (0 if kernel.lift == "no_extrapolation" else 3), 4, 1
+    else:
+        bd, bv, ps, ad, av, pf = 4, 1, 0, 1, 4, 0
+    n_state, n_flux = 3 * (bd + bv) + ps, 3 * (ad + av) + pf
+    fma = (n_state * n_flux + n_flux * (30 * (bd + bv) + 4 * ps)
+           + 64 * (30 * (ad + av) + 4 * pf))
+    return 2 * fma
+
+
 def element_block_records(records, b, U, U0, shape_tag=""):
     """K1/K2 (f64 and f32) and K3 (f64 and f32) of one cell block against
     their plain versions, recorded under the block's launch counters
     (fluid_/solid_, the solid's material tag, _f32). The bounds count the
     U, U0 and R entries the block touches, its tables, and the operations
-    of the plain version counted on 32 of its cells."""
+    of the plain version counted on 32 of its cells; K3's its output and
+    the point-linearised algorithm's operations (k3_point_ops), with the
+    plain jacfwd's count beside them (bound_ms_jacfwd)."""
     import torch
 
     from vasp_tpu_torch.kernels import element
@@ -1290,18 +1385,63 @@ def element_block_records(records, b, U, U0, shape_tag=""):
     # its float32 record adds the cast
     Ap, plain_ms = cuda_ms_once(
         lambda: element.jacobian_plain(b, U, U0, chunk=128))
+    k3_ops = K * len(b.kernel.tables_np[0]) * k3_point_ops(b.kernel)
     for dt, f32_out, tol in ((torch.float64, False, TOL_F64),
                              (torch.float32, True, TOL_JAC_F32)):
         Ak = element.jacobian_cuda(b, U, U0, dt)
         err = _per_block_rel(Ak, Ap.to(dt))
         del Ak
+        moved = inputs + K * 4096 * (4 if f32_out else 8)
         records.add(
             name("jacobian", f32_out), err,
             cuda_ms(lambda: element.jacobian_cuda(b, U, U0, dt), 5),
             plain_ms + (cuda_ms(lambda: Ap.to(dt), 3) if f32_out else 0.0),
-            (inputs + K * 4096 * (4 if f32_out else 8), jac_ops, "f64"), tol,
-            f"{shape} -> ({K},64,64) {dt}".replace("torch.", ""))
+            (moved, k3_ops, "f64"), tol,
+            f"{shape} -> ({K},64,64) {dt}".replace("torch.", ""),
+            bound_ms_jacfwd=bound(moved, jac_ops, "f64")[0])
     del Ap
+
+
+def degree_check(b, U, U0, degree=10, n=256):
+    """One block's element kernels at another quadrature degree (its
+    kernel remade at `degree`, every table of degree 10 in device memory)
+    on its first n cells, against their plain versions by their rules:
+    K1/K2 float64 and float32, K3 float64 and float32 outputs."""
+    import dataclasses
+
+    import torch
+
+    from vasp_tpu_torch.fem.forms import make_fluid_kernel, make_solid_kernel
+    from vasp_tpu_torch.kernels import element
+
+    k = b.kernel
+    kern = (make_fluid_kernel(k.rho_f, k.mu_f, k.dt, k.theta, lift=k.lift,
+                              lift_sub=k.lift_sub, lift_coeff=k.lift_coeff,
+                              quad_degree=degree, p_stab=k.p_stab)
+            if k.kind == "fluid" else
+            make_solid_kernel(k.props, k.dt, k.theta, gravity=k.gravity,
+                              quad_degree=degree))
+    sb = dataclasses.replace(_sub_block(b, n), kernel=kern)
+    nq = len(kern.tables_np[0])
+    Rk = element.residual_cuda(sb, U, U0, torch.zeros_like(U))
+    Rp = element.residual_plain(sb, U, U0, torch.zeros_like(U))
+    rel64 = rel_err(Rk, Rp)[0]
+    R32 = element.residual_cuda(sb, U, U0, torch.zeros_like(U), torch.float32)
+    Rp32 = element.residual_plain(sb, U, U0, torch.zeros_like(U),
+                                  torch.float32)
+    tol32 = (2 * float((Rp32 - Rp).norm()) + 1e-14 * float(Rp.norm())) \
+        / float(Rp32.norm())
+    rel32 = rel_err(R32, Rp32)[0]
+    Ap = element.jacobian_plain(sb, U, U0)
+    errs = [_per_block_rel(element.jacobian_cuda(sb, U, U0, dt), Ap.to(dt))[0]
+            for dt in (torch.float64, torch.float32)]
+    print(f"    degree {degree} ({nq} points), {k.kind} block's first "
+          f"{sb.dofs.shape[0]} cells: residual rel {rel64:.3e}, float32 "
+          f"{rel32:.3e} (rule {tol32:.3e}); Jacobian per block {errs[0]:.3e} "
+          f"(f64), {errs[1]:.3e} (f32)")
+    require(rel64 <= TOL_F64 and rel32 <= tol32 and errs[0] <= TOL_F64
+            and errs[1] <= TOL_JAC_F32,
+            f"the {k.kind} element kernels disagree at degree {degree}")
 
 
 def phase_element_kernels(records, system, U, U0):
@@ -1315,6 +1455,8 @@ def phase_element_kernels(records, system, U, U0):
 
     for b in system.assembler.blocks:
         element_block_records(records, b, U, U0)
+    for b in system.assembler.blocks:
+        degree_check(b, U, U0)
 
     space = system.space
     v = space.split(U)[1].contiguous()
@@ -1475,7 +1617,7 @@ def phase_iterative_kernels(records, system, bc):
                 cuda_ms(lambda: sweep(ks.ruiz_sweep_plain), 5),
                 (nbytes(*jacs32, dr, dc, mask) + dof_bytes + 8 * ndof,
                  5 * 4096 * K_all, "f32"), 0.0,
-                f"K={K_all}, one sweep", library_ms=lib_ms)
+                f"K={K_all}, one sweep", pregathered_ms=lib_ms)
     jf = [ks.ruiz_scale_cuda(A, b.dofs, dr, dc) for b, A in zip(blocks, jacs32)]
     jfp = [ks.ruiz_scale_plain(A, b.dofs, dr, dc)
            for b, A in zip(blocks, jacs32)]
@@ -1537,7 +1679,7 @@ def phase_iterative_kernels(records, system, bc):
                 (nbytes(*jf) + plan_bytes + 3 * pat.factor_bytes
                  + nbytes(diag), nsrc, "f32"), 0.0,
                 f"{nsrc} entries -> 3x({pat.nb},{pat.c},{pat.c})",
-                library_ms=lib_ms)
+                pregathered_ms=lib_ms)
     del jf
 
     # ---- K9, K10 (torch), then K6 against its plain version
@@ -2829,6 +2971,36 @@ def run_main_path(tmp, label, mesh_params, problem="cylinder", T=0.005,
     return ns, launches
 
 
+# phases 4-7 with the cell-level forward-mode K3 that the point-linearised
+# one replaced (the commit before it, on an H100 80GB HBM3 at 700 W:
+# tests/diag_step_ab.py's two runs of it in one call with two of the
+# point-linearised K3): the mean s/step of steps 2 to the last, and the
+# element Jacobians' seconds over the run (the LU path's "jacobian", the
+# Krylov path's "jacobians" + "rebuild_jacobians"), the lower and the
+# higher run
+CELL_K3_STEPS = {"lu": ((0.077, 0.084), (0.015, 0.036)),
+              "gmres": ((0.115, 0.115), (0.313, 0.313)),
+              "f32f": ((0.068, 0.069), (0.312, 0.313)),
+              "bench": ((0.027, 0.027), (0.072, 0.074))}
+
+
+def beside_cell_k3(label, secs, jac_s):
+    """The phase's mean s/step of steps 2 to the last and its Jacobians'
+    seconds, beside those with the cell-level K3 (CELL_K3_STEPS)."""
+    mean = sum(secs[1:]) / max(len(secs) - 1, 1)
+    (s0, s1), (j0, j1) = CELL_K3_STEPS[label]
+    print(f"    steps 2-{len(secs)} mean {mean:.3f} s/step, element "
+          f"Jacobians {jac_s:.3f} s over the run (cell-level K3: "
+          f"{s0:.3f}-{s1:.3f} "
+          f"s/step, Jacobians {j0:.3f}-{j1:.3f} s)")
+
+
+def step_secs(ns):
+    """The driver run's seconds per step (metrics.jsonl's cpu_time)."""
+    return [json.loads(line)["cpu_time"] for line in
+            (Path(ns["folder"]) / "metrics.jsonl").read_text().splitlines()]
+
+
 def check_launches(label, launches):
     missing = sorted(k for k in PATHS[label] if launches[k] == 0)
     require(not missing, f"{label}: kernels never launched on the path: "
@@ -2851,6 +3023,7 @@ def phase_lu(tmp):
     print(f"    factorizations {ns['solver'].factorizations}; solver time "
           f"split (s): " + ", ".join(f"{k} {v:.3f}"
                                      for k, v in sorted(timings.items())))
+    beside_cell_k3("lu", step_secs(ns), timings["jacobian"])
     return launches, timings["splu"]
 
 
@@ -2957,6 +3130,8 @@ def phase_krylov(tmp, records, label, title, **cfg):
                                  **cfg)
     st = ns["solver"].stepper
     k5 = report_stepper(st, records)
+    beside_cell_k3(label, step_secs(ns), st.timings["jacobians"]
+                + st.timings["rebuild_jacobians"])
     profile_one_step(ns)
     newton = [json.loads(line)["newton_iterations"] for line in
               (Path(ns["folder"]) / "metrics.jsonl").read_text()
@@ -3013,6 +3188,9 @@ def phase_bench(records, label="bench", title=None, free=None, **opts):
     print(f"    launches {launches}")
     report_peak(held)
     k5 = report_stepper(st, records)
+    if label == "bench":
+        beside_cell_k3(label, secs, st.timings["jacobians"]
+                    + st.timings["rebuild_jacobians"])
     return launches, k5, dict(layout_needs(st._bpat, st._block_sizes),
                               gmres_inner=[h["gmres_inner"]
                                            for h in st.history],
@@ -4201,7 +4379,7 @@ def phase_new_kernels(records, system, bc):
                 cuda_ms(lambda: extract(knb.extract_plain), 5),
                 (K_all * 10 * (36 + 1) * 8 + 36 * 8 * sp.n_p2,
                  36 * 10 * K_all, "f64"), TOL_F64, f"K={K_all}, n_p2={sp.n_p2}",
-                library_ms=lib_ms)
+                pregathered_ms=lib_ms)
     Pp = knb.invert_plain(nb, mask)
     scale_n = Pp.abs().amax(dim=(1, 2), keepdim=True)
     Pk = knb.invert_cuda(nb, mask)
@@ -4228,6 +4406,40 @@ def phase_new_kernels(records, system, bc):
     del Sp, nb, Pp, Pk
     gc.collect()
     torch.cuda.empty_cache()
+    k21e_bound(records, K_all, ndof)
+
+
+def k21e_bound(records, K_all, ndof, n=2, restart=None):
+    """K21e's bound on one rank of make_sharded_step at n ranks, from the
+    code (parallel/shard.py: make_step_fn on the rank's share of every
+    block, its sums all-reduced): a GMRES iteration is one float64 element
+    matvec on the rank's K_all / n cells (its Jacobians read once, x read
+    and y written), K17's apply, the CGS2 projections over the Krylov
+    basis at StepOptions' restart (as report_stepper counts them, spread
+    evenly over a cycle) and the matvec's all-reduce (a ring moves 2 (n -
+    1) / n of the (ndof,) float64 vector over NVLink, 450 GB/s a way); a
+    Newton iteration adds the rank's share of K3 f64 and K1/K2 (their
+    phase 2 bounds) and the residual's all-reduce. Returns (GMRES
+    iteration ms, Newton iteration ms)."""
+    from vasp_tpu_torch.fem.timestepper import StepOptions
+
+    m = restart or StepOptions().gmres_restart
+    hbm = lambda b: b / HBM_BYTES_PER_S * 1e3
+    reduce_ms = 2 * (n - 1) / n * 8 * ndof / NVLINK_BYTES_PER_S * 1e3
+    matvec = hbm(K_all / n * 4096 * 8 + 2 * 8 * ndof)
+    cgs2 = hbm((4 * m * (m + 1) // 2 + m) * ndof * 8 / m)
+    apply = records["node_block_apply"]["bound_ms"]
+    gmres_it = matvec + apply + cgs2 + reduce_ms
+    newton = (sum(records[k]["bound_ms"] for k in
+                  ("fluid_jacobian", "solid_jacobian", "fluid_residual",
+                   "solid_residual")) / n + reduce_ms)
+    print(f"    K21e's bound, one rank of {n} (make_sharded_step, restart "
+          f"{m}): a GMRES iteration {gmres_it:.4f} ms (the matvec "
+          f"{matvec:.4f}, K17's apply {apply:.4f}, CGS2 {cgs2:.4f}, the "
+          f"all-reduce {reduce_ms:.4f}); a Newton iteration adds "
+          f"{newton:.4f} ms (its K3 f64, K1/K2 share and the residual's "
+          f"all-reduce)")
+    return gmres_it, newton
 
 
 # ---------------------------------------------------------------- phase 15 --
@@ -4716,7 +4928,7 @@ def main():
         print(f"[time] {label} done at {time.perf_counter() - start:.1f} s",
               flush=True)
 
-    phase_device()
+    k3_ptxas = phase_device()
     import gc
 
     import torch
@@ -4725,6 +4937,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="vasp_smoke_") as tmp:
         tmp = Path(tmp)
         records, extra = phase_kernels()
+        for name, r in k3_ptxas.items():
+            records[name].update(r)
         elapsed("phase 2")
         refs = start_cpu_references(tmp)
         try:
@@ -4841,7 +5055,9 @@ def main():
                                  "thomas_bound_ms", "rank0_ms",
                                  "rank0_plain_ms", "rank0_bound_ms",
                                  "interior_ms", "interior_plain_ms",
-                                 "interior_bound_ms")
+                                 "interior_bound_ms", "bound_ms_jacfwd",
+                                 "pregathered_ms",
+                                 "registers", "spill_stores", "spill_loads")
                if k in r}))
     print(json.dumps(extra))
     print(json.dumps({"kernels": kernels}))

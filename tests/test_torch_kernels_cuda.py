@@ -26,7 +26,10 @@ each with its reason:
 - K16 (biharmonic lifting correction): float64 1e-12; float32 by the
   K1/K2 f32 rule, against the float64 correction of the same input;
 - the fluid's elastic and no-lifting instances, p_stab and gravity: the
-  rules of K1/K2/K3 above;
+  rules of K1/K2/K3 above; K3 on every instance under a row mask too;
+- K1, K2, K3 and K13 at quadrature degree 10 (216 points, every table in
+  device memory) and at degree 8 with float32 tables in device memory: the
+  rules above (K13's below);
 - K6: no fixed bound. Its float32 c-term dot products run in another
   order than torch's, and the scans carry the difference through 2 nb - 1
   steps, amplified by the factors' norms. The kernel must be as accurate
@@ -1044,3 +1047,156 @@ def test_delta_kernel(system, robin_system, mr_system, name, form):
     assert float(D64.abs().max()) > 0
     assert float((Dk - Dp).abs().max()) <= 2 * float(
         (Dp - D64).abs().max()) + 1e-12 * float(D64.abs().max())
+
+
+# ------------------------------------- K3 instances, quadrature degrees --
+# every form instance of the element kernels: the tiny tube's fluid block
+# with each lifting and sub-type and the pressure stabilization, its solid
+# block in each material and with gravity
+K3_INSTANCES = {
+    "laplace_constant": (0, {}),
+    "laplace_volume": (0, dict(lift_sub="volume", lift_coeff=2.3)),
+    "laplace_volume_change": (0, dict(lift_sub="volume_change",
+                                      lift_coeff=1.7)),
+    "elastic": (0, dict(lift="elastic")),
+    "no_extrapolation": (0, dict(lift="no_extrapolation")),
+    "p_stab": (0, dict(p_stab=0.1)),
+    "svk": (1, {}),
+    "mr": (1, {}),
+    "gravity": (1, dict(gravity=[0.0, 0.0, -9.81])),
+}
+
+
+def _instance_block(system, mr_system, name, degree=None, n=None, mask=True):
+    """The instance's block (its first n cells), at another quadrature
+    degree where one is given, with a seeded 0/1 row mask, and its state."""
+    import dataclasses
+
+    from vasp_tpu_torch.fem import forms
+
+    sysm, U, U0 = system
+    i, kw = K3_INSTANCES[name]
+    b = sysm.assembler.blocks[i]
+    if name == "mr":
+        b, U, U0 = mr_system
+    k = b.kernel
+    deg = degree or k.quad_degree
+    if i == 0:
+        kern = forms.make_fluid_kernel(
+            k.rho_f, k.mu_f, k.dt, k.theta, quad_degree=deg,
+            **(dict(lift_sub=k.lift_sub, lift_coeff=k.lift_coeff) | kw))
+    else:
+        kern = forms.make_solid_kernel(k.props, k.dt, k.theta,
+                                       quad_degree=deg, **kw)
+    n = n or b.dofs.shape[0]
+    rng = np.random.default_rng(17)
+    rowmask = (torch.as_tensor(rng.random((n, 64)) > 0.2,
+                               dtype=torch.float64, device="cuda")
+               if mask else None)
+    return dataclasses.replace(
+        b, kernel=kern, dofs=b.dofs[:n], Jinv=b.Jinv[:n], detJ=b.detJ[:n],
+        vol=b.vol[:n], rowmask=rowmask), U, U0
+
+
+def _k3_holds(b, U, U0, dtypes=(torch.float64, torch.float32)):
+    """K3 against jacobian_plain: 1e-12 per block in float64, 2e-7 in
+    float32, each launch counted once."""
+    Ap = element.jacobian_plain(b, U, U0)
+    K = Ap.shape[0]
+    for dt in dtypes:
+        name = element.counter_name(b, "jacobian", dt == torch.float32)
+        n0 = build.LAUNCHES[name]
+        Ak = element.block_jacobian(b, U, U0, dt)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[name] == n0 + 1
+        assert Ak.dtype == dt and Ak.shape == (K, 64, 64)
+        ref = Ap.to(dt).double()
+        per_block = (Ak.double() - ref).reshape(K, -1).norm(dim=1) / \
+            ref.reshape(K, -1).norm(dim=1)
+        assert float(per_block.max()) <= (RTOL if dt == torch.float64
+                                          else 2e-7)
+        if b.rowmask is not None:
+            assert not Ak[b.rowmask == 0].any()
+
+
+@pytest.mark.parametrize("name", sorted(K3_INSTANCES))
+def test_jacobian_instances(system, mr_system, name):
+    """The point-linearised K3 on every instance, float64 and float32
+    outputs, under a row mask."""
+    _k3_holds(*_instance_block(system, mr_system, name))
+
+
+def _residual_holds(b, U, U0, f32):
+    """K1/K2 against their plain versions by their rules: float64 1e-12,
+    float32 as accurate as the plain float32 version."""
+    dtype = torch.float32 if f32 else None
+    Rk = element.block_residual(b, U, U0, torch.zeros_like(U), dtype)
+    Rp = element.residual_plain(b, U, U0, torch.zeros_like(U), dtype)
+    if not f32:
+        assert _rel(Rk, Rp) <= RTOL
+        return
+    R64 = element.residual_plain(b, U, U0, torch.zeros_like(U))
+    assert float((Rk - Rp).norm()) <= 2 * float((Rp - R64).norm()) \
+        + 1e-14 * float(R64.norm())
+
+
+def _delta_holds(b, U, U0):
+    """K13 (delta and delta2) against its plain version by its rule."""
+    du = 1e-3 * (U - U0)
+    A, Un = U, U + du
+    for U0new in (None, U0 + du):
+        Dk = element.block_delta(b, Un, A, U0, torch.zeros_like(U), U0new)
+
+        def plain(dtype):
+            D = torch.zeros_like(U)
+            if U0new is None:
+                return element.delta_plain(b, Un, A, U0, D, dtype)
+            return element.delta2_plain(b, Un, A, U0new, U0, D, dtype)
+
+        Dp, D64 = plain(torch.float32), plain(torch.float64)
+        assert float((Dk - Dp).abs().max()) <= 2 * float(
+            (Dp - D64).abs().max()) + 1e-12 * float(D64.abs().max())
+
+
+@pytest.mark.parametrize("name", ["laplace_constant", "elastic", "svk",
+                                  "mr"])
+def test_element_kernels_degree_10(system, mr_system, name):
+    """Degree 10 (216 points, past both constant banks: every table read
+    from device memory) on a sub-block of 256 cells: K1/K2 in float64 and
+    float32, K3 in both outputs, K13 in both forms."""
+    b, U, U0 = _instance_block(system, mr_system, name, degree=10, n=256)
+    assert len(b.kernel.tables_np[0]) == 216
+    for f32 in (False, True):
+        _residual_holds(b, U, U0, f32)
+    _k3_holds(b, U, U0)
+    _delta_holds(b, U, U0)
+
+
+@pytest.mark.parametrize("name", ["laplace_constant", "svk"])
+def test_element_kernels_degree_8_f32(system, mr_system, name):
+    """Degree 8 (125 points: the float64 tables in the constant bank, the
+    float32 ones past it, in device memory) on a sub-block of 256 cells:
+    K1/K2 in float32 and float64, K3 in float32, K13."""
+    b, U, U0 = _instance_block(system, mr_system, name, degree=8, n=256)
+    assert len(b.kernel.tables_np[0]) == 125
+    assert element.table_route(125, "f64") == "constant"
+    assert element.table_route(125, "f32") == "memory"
+    for f32 in (True, False):
+        _residual_holds(b, U, U0, f32)
+    _k3_holds(b, U, U0, (torch.float32,))
+    _delta_holds(b, U, U0)
+
+
+def test_table_routes_match_the_library(system):
+    """The host side's constant-bank limits and K3's launch shape agree
+    with the library's, at degrees 1 to 10."""
+    lib = build.library()
+    assert element.NQ_CONSTANT == {"f64": lib.vt_element_nq_max(),
+                                   "f32": lib.vt_element_nq_max_f32()}
+    assert lib.vt_delta_nq_max() == element.NQ_CONSTANT["f32"]
+    for degree in range(1, 11):
+        nq = len(tet_quadrature(degree)[1])
+        for solid, kind in enumerate(("fluid", "solid")):
+            qc, smem = element.jacobian_launch(kind, nq)
+            assert lib.vt_jacobian_chunk(solid, nq) == qc
+            assert lib.vt_jacobian_smem_bytes(solid, nq) == smem

@@ -32,109 +32,54 @@
 // its entry's one float as it is added (DeltaSum, element_forms.cuh): the
 // thread keeps 64 floats of result, not 256. What is left spills to the
 // L1-cached local memory, as the float64 residual's state does.
-#include <cstdint>
-#include <type_traits>
-
-#include "element_forms.cuh"
-
-namespace {
-
-constexpr int kDeltaThreads = 64;
-
-// DELTA2 false: u0 = U0 rounded to float32 (vasp_tpu's residual_delta);
-// true: u0 = the series of U0 along U0new - U0 (residual_delta2, U0 being
-// its U0old).
-template <class Params, bool DELTA2>
-__global__ void __launch_bounds__(kDeltaThreads)
-delta_kernel(const double* __restrict__ U, const double* __restrict__ A,
-             const double* __restrict__ U0, const double* __restrict__ U0new,
-             const int64_t* __restrict__ dofs, const double* __restrict__ Jinv,
-             const double* __restrict__ detJ, const double* __restrict__ vol,
-             const double* __restrict__ rowmask, double* __restrict__ R, int K, int nq,
-             Params P) {
-  using T0 = typename std::conditional<DELTA2, Jet3, float>::type;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const int64_t* dk = dofs + (int64_t)k * 64;
-  Jet3 u[64];
-  T0 u0[64];
-  DeltaSum r[64];
-  float J[9];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int64_t g = dk[i];
-    const double a = A[g];
-    // du = U - A in float64, then rounded, as vasp_tpu's (U - A).astype
-    u[i] = Jet3(float(a), float(U[g] - a), 0.f, 0.f);
-    if constexpr (DELTA2) {
-      const double o = U0[g];
-      u0[i] = Jet3(float(o), float(U0new[g] - o), 0.f, 0.f);
-    } else {
-      u0[i] = float(U0[g]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 9; ++i) J[i] = float(Jinv[(int64_t)k * 9 + i]);
-  eval_cell(P, u, u0, J, float(detJ[k]), float(vol[k]), nq, r);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    // the 0/1 row mask applied in float, exactly; only the sum is in double
-    const float m = rowmask ? float(rowmask[(int64_t)k * 64 + i]) : 1.f;
-    atomicAdd(R + dk[i], double(r[i].s * m));
-  }
-}
-
-template <class Params>
-int launch_delta(const double* U, const double* A, const double* U0, const double* U0new,
-                 const int64_t* dofs, const double* Jinv, const double* detJ,
-                 const double* vol, const double* rowmask, double* R, int delta2, int K,
-                 int nq, Params P, void* stream) {
-  if (K > 0) {
-    const int blocks = (K + kDeltaThreads - 1) / kDeltaThreads;
-    if (delta2)
-      delta_kernel<Params, true><<<blocks, kDeltaThreads, 0, (cudaStream_t)stream>>>(
-          U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P);
-    else
-      delta_kernel<Params, false><<<blocks, kDeltaThreads, 0, (cudaStream_t)stream>>>(
-          U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask, R, K, nq, P);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "delta_residual.cuh"
 
 extern "C" {
+int vt_fluid_delta_global(const double* U, const double* A, const double* U0,
+                          const double* U0new, const int64_t* dofs, const double* Jinv,
+                          const double* detJ, const double* vol, const double* rowmask,
+                          const void* tables, double* R, int delta2, int K, int nq,
+                          double rho, double mu, double dt, double theta, double lift_coeff,
+                          int lift_sub, int lift_mode, double p_stab, void* stream);
+int vt_solid_delta_global(const double* U, const double* A, const double* U0,
+                          const double* U0new, const int64_t* dofs, const double* Jinv,
+                          const double* detJ, const double* vol, const double* rowmask,
+                          const void* tables, double* R, int delta2, int K, int nq,
+                          double rho, double mu, double lam, double dt, double theta,
+                          int material, double C01, double C10, double C11, double gx,
+                          double gy, double gz, void* stream);
 
 int vt_delta_nq_max() { return VT_NQ_MAX_F32; }
 
 // Upload the float32 roundings of the quadrature tables (host pointers, as
-// vt_set_element_tables takes them) into this source's constant memory.
+// vt_set_element_tables takes them) into this source's constant memory,
+// where they fit it (nq <= VT_NQ_MAX_F32).
 int vt_set_delta_tables(const double* wq, const double* N1, const double* N2,
                         const double* dN2, int nq) {
-  if (nq < 1 || nq > VT_NQ_MAX_F32) return (int)cudaErrorInvalidValue;
+  if (nq < 1) return (int)cudaErrorInvalidValue;
   return upload_element_tables(wq, N1, N2, dN2, nq, false);
 }
 
 // R += the masked delta of the fluid cells: residual_delta(U, A, U0) for
 // delta2 = 0; residual_delta2(U, A, U0new, U0) for delta2 nonzero (U0new
-// is read only then). lift_mode: kLiftLaplace, kLiftElastic or kLiftNone;
-// any other value is refused.
+// is read only then). tables: NULL to read the constant bank (uploaded for
+// this nq), else the device pointer of the packed float32 tables
+// (element_forms.cuh GlobalTab). lift_mode: kLiftLaplace, kLiftElastic or
+// kLiftNone; any other value is refused.
 int vt_fluid_delta(const double* U, const double* A, const double* U0,
                    const double* U0new, const int64_t* dofs, const double* Jinv,
                    const double* detJ, const double* vol, const double* rowmask,
-                   double* R, int delta2, int K, int nq, double rho, double mu,
-                   double dt, double theta, double lift_coeff, int lift_sub,
+                   const void* tables, double* R, int delta2, int K, int nq, double rho,
+                   double mu, double dt, double theta, double lift_coeff, int lift_sub,
                    int lift_mode, double p_stab, void* stream) {
-#define VT_FLUID(LIFT)                                                          \
-  launch_delta(U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask, R, delta2, K, nq, \
-               fluid_cell<float, LIFT>(rho, mu, dt, theta, lift_coeff, lift_sub,  \
-                                       p_stab),                                   \
-               stream)
-  if (lift_mode == kLiftLaplace) return VT_FLUID(kLiftLaplace);
-  if (lift_mode == kLiftElastic) return VT_FLUID(kLiftElastic);
-  if (lift_mode == kLiftNone) return VT_FLUID(kLiftNone);
-#undef VT_FLUID
-  return (int)cudaErrorInvalidValue;
+  if (tables)
+    return vt_fluid_delta_global(U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask, tables, R,
+                                 delta2, K, nq, rho, mu, dt, theta, lift_coeff, lift_sub,
+                                 lift_mode, p_stab, stream);
+  if (nq > VT_NQ_MAX_F32) return (int)cudaErrorInvalidValue;
+  return fluid_delta_entry<ConstTab>(U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask,
+                                     nullptr, R, delta2, K, nq, rho, mu, dt, theta,
+                                     lift_coeff, lift_sub, lift_mode, p_stab, stream);
 }
 
 // The same on the solid cells; material: 0 St.Venant-Kirchhoff, 1
@@ -143,19 +88,17 @@ int vt_fluid_delta(const double* U, const double* A, const double* U0,
 int vt_solid_delta(const double* U, const double* A, const double* U0,
                    const double* U0new, const int64_t* dofs, const double* Jinv,
                    const double* detJ, const double* vol, const double* rowmask,
-                   double* R, int delta2, int K, int nq, double rho, double mu,
-                   double lam, double dt, double theta, int material, double C01,
-                   double C10, double C11, double gx, double gy, double gz,
-                   void* stream) {
-#define VT_SOLID(MAT)                                                            \
-  launch_delta(U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask, R, delta2, K, nq, \
-               solid_cell<float, MAT>(rho, mu, lam, dt, theta, C01, C10, C11, gx,  \
-                                      gy, gz),                                     \
-               stream)
-  if (material == kSVK) return VT_SOLID(kSVK);
-  if (material == kMooneyRivlin) return VT_SOLID(kMooneyRivlin);
-#undef VT_SOLID
-  return (int)cudaErrorInvalidValue;
+                   const void* tables, double* R, int delta2, int K, int nq, double rho,
+                   double mu, double lam, double dt, double theta, int material, double C01,
+                   double C10, double C11, double gx, double gy, double gz, void* stream) {
+  if (tables)
+    return vt_solid_delta_global(U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask, tables, R,
+                                 delta2, K, nq, rho, mu, lam, dt, theta, material, C01, C10,
+                                 C11, gx, gy, gz, stream);
+  if (nq > VT_NQ_MAX_F32) return (int)cudaErrorInvalidValue;
+  return solid_delta_entry<ConstTab>(U, A, U0, U0new, dofs, Jinv, detJ, vol, rowmask,
+                                     nullptr, R, delta2, K, nq, rho, mu, lam, dt, theta,
+                                     material, C01, C10, C11, gx, gy, gz, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// One cell's monolithic FSI element residual, templated on its scalar type.
+// One cell's monolithic FSI element residual, templated on its scalar type
+// and factored at the quadrature points.
 //
 // Replaces the element math of vasp_tpu/fem/forms.py: make_fluid_kernel
 // (ALE Navier-Stokes + continuity, with or without the Brezzi-Pitkaranta
@@ -12,18 +13,30 @@
 // energy and its Jacobian from jax.jacfwd over that; here S is closed form
 // for both materials and K3 is forward mode (Dual) over it.
 //
-// T is the type of the local state u, T0 the type of the previous state
-// u0, TR the type of the result r, S = Real<T> the type of everything else
-// (geometry, tables, parameters):
+// Both forms read the cell's local state at quadrature point q only
+// through the point state s_q (the values and physical gradients of d and
+// v, the value of p: point_state), and write the residual only through
+// point fluxes, each tested against a P2 value, a P2 gradient or a P1
+// value (test_contract):
+//   r = sum_q w_q detJ Phi_out,q^T flux(s_q, s0_q),   s_q = Phi_in,q u.
+// fluid_point_flux and solid_point_flux are the forms' physics, with the
+// part that depends on s0 alone apart (fluid_old, solid_old). K1/K2 and
+// K13 run state, flux and contraction per point (cell_residual); K3
+// (element_kernels.cu) differentiates the same flux functions by forward
+// mode over the 25 (solid 15) point quantities and contracts
+//   A_e = sum_q w_q detJ Phi_out,q^T D_q Phi_in,q,   D_q = d flux / d s_q.
+//
+// T is the type of the point state (from u), T0 the type of the previous
+// state u0, TR the type of the result r, S = Real<T> the type of
+// everything else (geometry, tables, parameters):
 // - T = T0 = TR = S = double gives the float64 residual (K1, K2);
 // - T = T0 = TR = S = float gives the float32 residual (K1/K2 f32:
 //   vasp_tpu's residual(dtype=float32), f32 element work on f32-rounded
 //   inputs and f32 tables); every literal and parameter is an S, so no
 //   operation of this instance is promoted to double;
-// - T = TR = Dual (value + one tangent, over double), T0 = S = double
-//   gives one column of the exact element Jacobian (K3), so the Jacobian
-//   is the derivative of this very code, as jax.jacfwd is of the JAX
-//   kernel;
+// - T = Dual (value + one tangent, over double), T0 = S = double gives one
+//   column of D_q (K3), so the Jacobian is the derivative of this very
+//   code, as jax.jacfwd is of the JAX kernel;
 // - T = Jet3 (an order-3 Taylor series over float), S = float, T0 = float
 //   or Jet3, TR = DeltaSum gives K13's delta of the cell along u's
 //   series (and u0's, for T0 = Jet3): vasp_tpu's residual_delta and
@@ -42,11 +55,13 @@
 
 // Quadrature and basis tables (weights, P1 values, P2 values, P2 reference
 // gradients), uploaded by vt_set_element_tables, in float64 and rounded to
-// float32. Every thread walks the quadrature points in the same order, so
-// each read is a broadcast. Static: each source that includes this header
-// (element_kernels.cu, delta_kernels.cu, postproc.cu) has its own copy, so
-// the objects link into one library; element_kernels.cu uploads and reads
-// both sets, delta_kernels.cu the float32 one.
+// float32. Every thread of K1/K2/K13 walks the quadrature points in the
+// same order, so each read is a broadcast. Static: each source that
+// includes this header (element_kernels.cu, delta_kernels.cu, postproc.cu)
+// has its own copy, so the objects link into one library;
+// element_kernels.cu uploads and reads both sets, delta_kernels.cu the
+// float32 one. A rule of more points than a bank holds is read from
+// device memory instead (GlobalTab below).
 static __constant__ double c_wq[VT_NQ_MAX];
 static __constant__ double c_N1[VT_NQ_MAX * 4];
 static __constant__ double c_N2[VT_NQ_MAX * 10];
@@ -58,14 +73,15 @@ static __constant__ float c_dN2_f[VT_NQ_MAX_F32 * 30];
 
 // Copy the quadrature tables (host pointers: wq (nq,), N1 (nq,4), N2
 // (nq,10), dN2 (nq,10,3), float64, C-contiguous) into this source's
-// constant memory: the float64 set when f64 is true (nq <= VT_NQ_MAX),
-// and their float32 roundings where nq <= VT_NQ_MAX_F32. Static, as the
+// constant memory: the float64 set when f64 is true and nq <= VT_NQ_MAX,
+// and their float32 roundings where nq <= VT_NQ_MAX_F32; a set that does
+// not fit is left out (its kernels read device memory). Static, as the
 // tables are: it fills the copy of the source that calls it.
 static inline int upload_element_tables(const double* wq, const double* N1,
                                         const double* N2, const double* dN2, int nq,
                                         bool f64) {
   cudaError_t e;
-  if (f64) {
+  if (f64 && nq <= VT_NQ_MAX) {
     if ((e = cudaMemcpyToSymbol(c_wq, wq, sizeof(double) * nq)) != cudaSuccess) return (int)e;
     if ((e = cudaMemcpyToSymbol(c_N1, N1, sizeof(double) * nq * 4)) != cudaSuccess) return (int)e;
     if ((e = cudaMemcpyToSymbol(c_N2, N2, sizeof(double) * nq * 10)) != cudaSuccess) return (int)e;
@@ -85,23 +101,50 @@ static inline int upload_element_tables(const double* wq, const double* N1,
   return (int)cudaGetLastError();
 }
 
+// Where the forms read the tables: tb.wq(i), tb.N1(i), tb.N2(i), tb.dN2(i)
+// with the flat indices of the host arrays above.
+// ConstTab: this source's constant bank (the rule must fit it).
 template <class S>
-struct Tab;
+struct ConstTab;
 
 template <>
-struct Tab<double> {
-  static __device__ __forceinline__ double wq(int i) { return c_wq[i]; }
-  static __device__ __forceinline__ double N1(int i) { return c_N1[i]; }
-  static __device__ __forceinline__ double N2(int i) { return c_N2[i]; }
-  static __device__ __forceinline__ double dN2(int i) { return c_dN2[i]; }
+struct ConstTab<double> {
+  static constexpr int sum_block = 0;
+  __host__ __device__ ConstTab(const void*, int) {}
+  __device__ __forceinline__ double wq(int i) const { return c_wq[i]; }
+  __device__ __forceinline__ double N1(int i) const { return c_N1[i]; }
+  __device__ __forceinline__ double N2(int i) const { return c_N2[i]; }
+  __device__ __forceinline__ double dN2(int i) const { return c_dN2[i]; }
 };
 
 template <>
-struct Tab<float> {
-  static __device__ __forceinline__ float wq(int i) { return c_wq_f[i]; }
-  static __device__ __forceinline__ float N1(int i) { return c_N1_f[i]; }
-  static __device__ __forceinline__ float N2(int i) { return c_N2_f[i]; }
-  static __device__ __forceinline__ float dN2(int i) { return c_dN2_f[i]; }
+struct ConstTab<float> {
+  static constexpr int sum_block = 0;
+  __host__ __device__ ConstTab(const void*, int) {}
+  __device__ __forceinline__ float wq(int i) const { return c_wq_f[i]; }
+  __device__ __forceinline__ float N1(int i) const { return c_N1_f[i]; }
+  __device__ __forceinline__ float N2(int i) const { return c_N2_f[i]; }
+  __device__ __forceinline__ float dN2(int i) const { return c_dN2_f[i]; }
+};
+
+// GlobalTab: one packed table in device memory, [wq | N1 | N2 | dN2] of
+// nq * 45 entries in S (kernels/element.py table_pack), read through the
+// read-only path; any number of points.
+// sum_block: the residuals sum the points' contributions in blocks of this
+// many points and then the blocks (0: one running sum). The device-memory
+// route serves the rules of more than 64 points, over which one running
+// float32 sum rounds away the accuracy of the plain version's sums.
+template <class S>
+struct GlobalTab {
+  static constexpr int sum_block = 8;
+  const S* __restrict__ p;
+  int nq;
+  __host__ __device__ GlobalTab(const void* tables, int n)
+      : p(static_cast<const S*>(tables)), nq(n) {}
+  __device__ __forceinline__ S wq(int i) const { return __ldg(p + i); }
+  __device__ __forceinline__ S N1(int i) const { return __ldg(p + nq + i); }
+  __device__ __forceinline__ S N2(int i) const { return __ldg(p + 5 * nq + i); }
+  __device__ __forceinline__ S dN2(int i) const { return __ldg(p + 15 * nq + i); }
 };
 
 // ---------------------------------------------------------------- dual --
@@ -124,14 +167,21 @@ __device__ inline Dual operator*(Dual a, Dual b) {
 }
 __device__ inline Dual operator*(Dual a, double b) { return Dual(a.v * b, a.d * b); }
 __device__ inline Dual operator*(double a, Dual b) { return Dual(a * b.v, a * b.d); }
+// A quotient takes one reciprocal, for its value and its tangent: the
+// value is within an ulp of the correctly rounded one, which moves K3's
+// derivatives (the only use of Dual) by rounding only, at half the
+// divides of two quotients.
 __device__ inline Dual operator/(Dual a, Dual b) {
-  const double q = a.v / b.v;
-  return Dual(q, (a.d - q * b.d) / b.v);
+  const double r = 1.0 / b.v, q = a.v * r;
+  return Dual(q, (a.d - q * b.d) * r);
 }
-__device__ inline Dual operator/(Dual a, double b) { return Dual(a.v / b, a.d / b); }
+__device__ inline Dual operator/(Dual a, double b) {
+  const double r = 1.0 / b;
+  return Dual(a.v * r, a.d * r);
+}
 __device__ inline Dual operator/(double a, Dual b) {
-  const double q = a / b.v;
-  return Dual(q, -q * b.d / b.v);
+  const double r = 1.0 / b.v, q = a * r;
+  return Dual(q, -q * b.d * r);
 }
 __device__ inline Dual& operator+=(Dual& a, Dual b) { a = a + b; return a; }
 
@@ -205,6 +255,10 @@ struct DeltaSum {
   __device__ explicit DeltaSum(float x) : s(x) {}
   __device__ DeltaSum& operator+=(const Jet3& a) {
     s += jet_delta(a);
+    return *this;
+  }
+  __device__ DeltaSum& operator+=(const DeltaSum& a) {
+    s += a.s;
     return *this;
   }
 };
@@ -310,199 +364,256 @@ __device__ inline void inv3(const V A[3][3], V det, V Ai[3][3]) {
 }
 
 // physical P2 basis gradients at point q: G[a][l] = sum_j dN2[q,a,j] Jinv[j,l]
-template <class S>
-__device__ inline void basis_gradients(int q, const S* Jinv, S G[10][3]) {
+template <class S, class Tb>
+__device__ inline void basis_gradients(const Tb& tb, int q, const S* Jinv, S G[10][3]) {
 #pragma unroll
   for (int a = 0; a < 10; ++a) {
     const int o = (q * 10 + a) * 3;
 #pragma unroll
     for (int l = 0; l < 3; ++l)
-      G[a][l] = Tab<S>::dN2(o) * Jinv[l] + Tab<S>::dN2(o + 1) * Jinv[3 + l]
-              + Tab<S>::dN2(o + 2) * Jinv[6 + l];
+      G[a][l] = tb.dN2(o) * Jinv[l] + tb.dN2(o + 1) * Jinv[3 + l] + tb.dN2(o + 2) * Jinv[6 + l];
   }
 }
 
-// value of a P2 vector field at q: out[i] = sum_a N2[q,a] c[a*3+i]
-template <class S, class V>
-__device__ inline void p2_value(int q, const V* c, V out[3]) {
+// ------------------------------------------------------------- slots --
+// The point state and the point fluxes share one layout of 25 slots:
+// slot(X, i, 0) is the value and slot(X, i, 1 + j) the physical gradient
+// d/dx_j of component i of field X (0 = d, 1 = v), kPSlot the pressure.
+// A flux in slot(Y, i, 0) is tested against N2[a] on row 30 Y + 3 a + i,
+// the three in slot(Y, i, 1 + k) against G[a][k] on the same row, and one
+// in kPSlot against N1[b] on row 60 + b. Each form (its cell type below)
+// says which slots it reads, state_on(X, b) and p_state, and which it
+// writes, flux_on(Y, b) and p_flux; a field's three gradient slots are on
+// or off together. A slot that is off is never read or written.
+constexpr int kSlots = 25;
+constexpr int kPSlot = 24;
+
+__host__ __device__ constexpr int slot(int X, int i, int b) { return X * 12 + i * 4 + b; }
+
+template <class Cell>
+__host__ __device__ constexpr bool state_slot_on(int sl) {
+  return sl == kPSlot ? Cell::p_state : Cell::state_on(sl / 12, sl % 4);
+}
+
+template <class Cell>
+__host__ __device__ constexpr bool flux_slot_on(int sl) {
+  return sl == kPSlot ? Cell::p_flux : Cell::flux_on(sl / 12, sl % 4);
+}
+
+// the number of point quantities the form reads (K3's tangents a point)
+template <class Cell>
+__host__ __device__ constexpr int n_states() {
+  int n = 0;
+  for (int sl = 0; sl < kSlots; ++sl) n += state_slot_on<Cell>(sl) ? 1 : 0;
+  return n;
+}
+
+// the point state of the local vector c (u or u0) at q, in the slots the
+// form reads: values sum_a N2[q,a] c[30 X + 3 a + i], gradients sum_a
+// c[30 X + 3 a + i] G[a][j], the pressure sum_b N1[q,b] c[60 + b]
+template <class Cell, class S, class Tb, class V>
+__device__ inline void point_state(const Tb& tb, int q, const V* c, const S G[10][3], V* s) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) out[i] = V(S(0));
+  for (int sl = 0; sl < kPSlot; ++sl) {
+    if (!state_slot_on<Cell>(sl)) continue;
+    const int X = sl / 12, i = (sl % 12) / 4, b = sl % 4;
+    V x = V(S(0));
+#pragma unroll
+    for (int a = 0; a < 10; ++a) {
+      if (b == 0)
+        x += tb.N2(q * 10 + a) * c[X * 30 + a * 3 + i];
+      else
+        x += c[X * 30 + a * 3 + i] * G[a][b - 1];
+    }
+    s[sl] = x;
+  }
+  if (Cell::p_state) {
+    V p = V(S(0));
+#pragma unroll
+    for (int b = 0; b < 4; ++b) p += tb.N1(q * 4 + b) * c[60 + b];
+    s[kPSlot] = p;
+  }
+}
+
+// r += wdet Phi_out^T f at q: each flux the form writes, tested
+template <class Cell, class S, class Tb, class T, class TR>
+__device__ inline void test_contract(const Tb& tb, int q, const S G[10][3], S wdet, const T* f,
+                                     TR* r) {
 #pragma unroll
   for (int a = 0; a < 10; ++a) {
-    const S n = Tab<S>::N2(q * 10 + a);
+    const S n = tb.N2(q * 10 + a);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) out[i] += n * c[a * 3 + i];
+    for (int Y = 0; Y < 2; ++Y)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const bool val = Cell::flux_on(Y, 0), grad = Cell::flux_on(Y, 1);
+        const int o = slot(Y, i, 0);
+        TR& ri = r[Y * 30 + a * 3 + i];
+        if (val && grad)
+          ri += (wdet * n) * f[o]
+              + wdet * (f[o + 1] * G[a][0] + f[o + 2] * G[a][1] + f[o + 3] * G[a][2]);
+        else if (val)
+          ri += (wdet * n) * f[o];
+        else if (grad)
+          ri += wdet * (f[o + 1] * G[a][0] + f[o + 2] * G[a][1] + f[o + 3] * G[a][2]);
+      }
   }
-}
-
-// gradient of a P2 vector field: g[i][j] = sum_a c[a*3+i] G[a][j]
-template <class S, class V>
-__device__ inline void p2_grad(const V* c, const S G[10][3], V g[3][3]) {
+  if (Cell::p_flux) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) g[i][j] = V(S(0));
-#pragma unroll
-  for (int a = 0; a < 10; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) g[i][j] += c[a * 3 + i] * G[a][j];
+    for (int b = 0; b < 4; ++b) r[60 + b] += wdet * f[kPSlot] * tb.N1(q * 4 + b);
+  }
 }
 
 // ------------------------------------------------------------- fluid --
-// u: local (64,) [d 10x3 | v 10x3 | p 4]; u0 likewise; Jinv row-major 3x3.
-// LIFT: kLiftLaplace, kLiftElastic or kLiftNone.
-template <int LIFT, class T, class T0, class TR>
-__device__ void fluid_residual(const T* u, const T0* u0, const Real<T>* Jinv,
-                               Real<T> detJ, Real<T> vol, const FluidParams<Real<T>>& P,
-                               int nq, TR* r) {
+// The previous state's part of the fluid's point flux, which depends on
+// s0 alone (K3 forms it once a point, not once a tangent): J0 = det F0,
+// grad v0 F0^-1 and the old viscous term mu (grad v0 F0^-1 + its
+// transpose) F0^-T.
+template <class T0>
+struct FluidOld {
+  T0 J0, gvFi0[3][3], so[3][3];
+};
+
+template <class T0, class S>
+__device__ inline FluidOld<T0> fluid_old(const T0* s0, const FluidParams<S>& P) {
+  const S zero = S(0), one = S(1);
+  FluidOld<T0> o;
+  T0 F0[3][3], Fi0[3][3], gv0[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      gv0[i][j] = s0[slot(1, i, 1 + j)];
+      F0[i][j] = s0[slot(0, i, 1 + j)] + (i == j ? one : zero);
+    }
+  o.J0 = det3(F0);
+  inv3(F0, o.J0, Fi0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      o.gvFi0[i][j] = gv0[i][0] * Fi0[0][j] + gv0[i][1] * Fi0[1][j] + gv0[i][2] * Fi0[2][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T0 so = T0(zero);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) so += P.mu * (o.gvFi0[i][j] + o.gvFi0[j][i]) * Fi0[k][j];
+      o.so[i][k] = so;
+    }
+  return o;
+}
+
+// The fluid's point fluxes from its point state s (T), the previous one
+// s0 (T0) and its part o: on the d rows' gradients the lifting's (a_q
+// grad d, or the elastic sigma, or none), on the v rows the momentum's
+// value-test terms (mass + theta-split convection) and gradient-test terms
+// (viscous stress, implicit pressure), on the p rows the continuity
+// J tr(grad v F^-1). LIFT: kLiftLaplace, kLiftElastic or kLiftNone.
+template <int LIFT, class T, class T0>
+__device__ inline void fluid_point_flux(const T* s, const T0* s0, const FluidOld<T0>& o,
+                                        Real<T> vol, const FluidParams<Real<T>>& P, T* f) {
   using S = Real<T>;
   const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho, mu = P.mu;
   const S zero = S(0), one = S(1);
-#pragma unroll
-  for (int k = 0; k < 64; ++k) r[k] = TR(zero);
 
-  for (int q = 0; q < nq; ++q) {
-    S G[10][3];
-    basis_gradients(q, Jinv, G);
+  T v_q[3], w_q[3], gd[3][3], gv[3][3];
+  T0 v0_q[3];
+  T F[3][3], Fi[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    v_q[i] = s[slot(1, i, 0)];
+    v0_q[i] = s0[slot(1, i, 0)];
+    w_q[i] = (s[slot(0, i, 0)] - s0[slot(0, i, 0)]) / P.dt;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      gd[i][j] = s[slot(0, i, 1 + j)];
+      gv[i][j] = s[slot(1, i, 1 + j)];
+      F[i][j] = gd[i][j] + (i == j ? one : zero);
+    }
+  }
+  const T p_q = s[kPSlot];
+  const T Jd = det3(F);
+  const T0 J0 = o.J0;
+  inv3(F, Jd, Fi);
 
-    T d_q[3], v_q[3], p_q = T(zero);
-    T0 d0_q[3], v0_q[3];
-    p2_value<S>(q, u, d_q);
-    p2_value<S>(q, u + 30, v_q);
-    p2_value<S>(q, u0, d0_q);
-    p2_value<S>(q, u0 + 30, v0_q);
+  // grad v F^-1 (the old one is o's)
+  T gvFi[3][3];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) p_q += Tab<S>::N1(q * 4 + b) * u[60 + b];
-    T w_q[3];
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int i = 0; i < 3; ++i) w_q[i] = (d_q[i] - d0_q[i]) / P.dt;
+    for (int j = 0; j < 3; ++j)
+      gvFi[i][j] = gv[i][0] * Fi[0][j] + gv[i][1] * Fi[1][j] + gv[i][2] * Fi[2][j];
 
-    T gd[3][3], gv[3][3];
-    T0 gd0[3][3], gv0[3][3];
-    p2_grad(u, G, gd);
-    p2_grad(u + 30, G, gv);
-    p2_grad(u0, G, gd0);
-    p2_grad(u0 + 30, G, gv0);
+  // momentum: value-test terms (mass + theta-split convection)
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    T conv_n = T(zero), conv_o = T(zero);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      conv_n += gvFi[i][j] * (v_q[j] - w_q[j]);
+      conv_o += o.gvFi0[i][j] * (v0_q[j] - w_q[j]);
+    }
+    f[slot(1, i, 0)] = P.rho_dt * Jd * (v_q[i] - v0_q[i])
+                     + rho * (th * Jd * conv_n + one_m_th * J0 * conv_o);
+  }
 
-    T F[3][3], Fi[3][3];
-    T0 F0[3][3], Fi0[3][3];
+  // momentum: gradient-test terms (viscous stress, implicit pressure)
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        F[i][j] = gd[i][j] + (i == j ? one : zero);
-        F0[i][j] = gd0[i][j] + (i == j ? one : zero);
-      }
-    const T Jd = det3(F);
-    const T0 J0 = det3(F0);
-    inv3(F, Jd, Fi);
-    inv3(F0, J0, Fi0);
-
-    // grad v F^-1, new and old
-    T gvFi[3][3];
-    T0 gvFi0[3][3];
+    for (int k = 0; k < 3; ++k) {
+      T sn = T(zero);
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        gvFi[i][j] = gv[i][0] * Fi[0][j] + gv[i][1] * Fi[1][j] + gv[i][2] * Fi[2][j];
-        gvFi0[i][j] = gv0[i][0] * Fi0[0][j] + gv0[i][1] * Fi0[1][j] + gv0[i][2] * Fi0[2][j];
-      }
-
-    // momentum: value-test terms (mass + theta-split convection)
-    T mom_val[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      T conv_n = T(zero), conv_o = T(zero);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        conv_n += gvFi[i][j] * (v_q[j] - w_q[j]);
-        conv_o += gvFi0[i][j] * (v0_q[j] - w_q[j]);
-      }
-      mom_val[i] = P.rho_dt * Jd * (v_q[i] - v0_q[i])
-                 + rho * (th * Jd * conv_n + one_m_th * J0 * conv_o);
+      for (int j = 0; j < 3; ++j) sn += mu * (gvFi[i][j] + gvFi[j][i]) * Fi[k][j];
+      f[slot(1, i, 1 + k)] = th * Jd * sn + one_m_th * J0 * o.so[i][k] - Jd * p_q * Fi[k][i];
     }
 
-    // momentum: gradient-test terms (viscous stress, implicit pressure)
-    T mom_grad[3][3];
+  // continuity: J tr(grad v F^-1)
+  f[kPSlot] = Jd * (gvFi[0][0] + gvFi[1][1] + gvFi[2][2]);
+
+  if constexpr (LIFT == kLiftLaplace) {
+    // Laplace lifting, a_q grad d
+    T a_q;
+    if (P.lift_sub == 2)
+      a_q = P.lift_coeff / Jd;
+    else if (P.lift_sub == 1)
+      a_q = T(P.lift_coeff / vol);
+    else
+      a_q = T(P.lift_coeff);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) f[slot(0, i, 1 + k)] = a_q * gd[i][k];
+  } else if constexpr (LIFT == kLiftElastic) {
+    // elastic lifting: sigma = 2 eps(d) + tr(eps(d)) I = gd + gd^T + tr(gd) I
+    const T tr_gd = gd[0][0] + gd[1][1] + gd[2][2];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        T sn = T(zero);
-        T0 so = T0(zero);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          sn += mu * (gvFi[i][j] + gvFi[j][i]) * Fi[k][j];
-          so += mu * (gvFi0[i][j] + gvFi0[j][i]) * Fi0[k][j];
-        }
-        mom_grad[i][k] = th * Jd * sn + one_m_th * J0 * so - Jd * p_q * Fi[k][i];
+        T sg = gd[i][k] + gd[k][i];
+        if (i == k) sg += tr_gd;
+        f[slot(0, i, 1 + k)] = P.lift_coeff * sg;
       }
-
-    // continuity: J tr(grad v F^-1)
-    const T divv = Jd * (gvFi[0][0] + gvFi[1][1] + gvFi[2][2]);
-
-    // Laplace lifting coefficient
-    T a_q = T(zero);
-    if constexpr (LIFT == kLiftLaplace) {
-      if (P.lift_sub == 2)
-        a_q = P.lift_coeff / Jd;
-      else if (P.lift_sub == 1)
-        a_q = T(P.lift_coeff / vol);
-      else
-        a_q = T(P.lift_coeff);
-    }
-    // elastic lifting: sigma = 2 eps(d) + tr(eps(d)) I = gd + gd^T + tr(gd) I
-    T tr_gd = T(zero);
-    if constexpr (LIFT == kLiftElastic) tr_gd = gd[0][0] + gd[1][1] + gd[2][2];
-
-    const S wdet = Tab<S>::wq(q) * detJ;
-#pragma unroll
-    for (int a = 0; a < 10; ++a) {
-      const S n = Tab<S>::N2(q * 10 + a);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const T mgG = mom_grad[i][0] * G[a][0] + mom_grad[i][1] * G[a][1]
-                    + mom_grad[i][2] * G[a][2];
-        if constexpr (LIFT == kLiftLaplace) {
-          const T gdG = gd[i][0] * G[a][0] + gd[i][1] * G[a][1] + gd[i][2] * G[a][2];
-          r[a * 3 + i] += wdet * a_q * gdG;
-        } else if constexpr (LIFT == kLiftElastic) {
-          const T sG = (gd[i][0] + gd[0][i]) * G[a][0] + (gd[i][1] + gd[1][i]) * G[a][1]
-                     + (gd[i][2] + gd[2][i]) * G[a][2] + tr_gd * G[a][i];
-          r[a * 3 + i] += (wdet * P.lift_coeff) * sG;
-        }
-        r[30 + a * 3 + i] += (wdet * n) * mom_val[i] + wdet * mgG;
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) r[60 + b] += wdet * divv * Tab<S>::N1(q * 4 + b);
   }
+}
 
-  // Brezzi-Pitkaranta pressure stabilization, (p_stab h^2 / mu) vol
-  // G1 G1^T p with G1 = dN1 Jinv the constant P1 gradients and h^2 =
-  // (6 vol)^(2/3); it reads only p and the geometry, once per cell
-  if (P.p_stab != zero) {
-    S G1[4][3];
+// Brezzi-Pitkaranta pressure stabilization, (p_stab h^2 / mu) vol
+// G1 G1^T p with G1 = dN1 Jinv the constant P1 gradients and h^2 =
+// (6 vol)^(2/3): fills G1 and returns the coefficient
+template <class S>
+__device__ inline S pstab_setup(const S* Jinv, S vol, const FluidParams<S>& P, S G1[4][3]) {
 #pragma unroll
-    for (int l = 0; l < 3; ++l) {
-      G1[1][l] = Jinv[l];
-      G1[2][l] = Jinv[3 + l];
-      G1[3][l] = Jinv[6 + l];
-      G1[0][l] = -Jinv[l] - Jinv[3 + l] - Jinv[6 + l];
-    }
-    T gp[3];
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-      gp[l] = u[60] * G1[0][l] + u[61] * G1[1][l] + u[62] * G1[2][l] + u[63] * G1[3][l];
-    const S h2 = vt_pow(S(6) * vol, S(2.0 / 3.0));
-    const S c = P.p_stab * h2 / mu * vol;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      r[60 + b] += c * (G1[b][0] * gp[0] + G1[b][1] * gp[1] + G1[b][2] * gp[2]);
+  for (int l = 0; l < 3; ++l) {
+    G1[1][l] = Jinv[l];
+    G1[2][l] = Jinv[3 + l];
+    G1[3][l] = Jinv[6 + l];
+    G1[0][l] = -Jinv[l] - Jinv[3 + l] - Jinv[6 + l];
   }
+  const S h2 = vt_pow(S(6) * vol, S(2.0 / 3.0));
+  return P.p_stab * h2 / P.mu * vol;
 }
 
 // ------------------------------------------------------------- solid --
@@ -598,74 +709,66 @@ __device__ inline void piola1(const V H[3][3], const SolidParams<S>& P, V Pk[3][
                + (H[i][2] + (i == 2 ? one : zero)) * Sm[2][j];
 }
 
-template <int MAT, class T, class T0, class TR>
-__device__ void solid_residual(const T* u, const T0* u0, const Real<T>* Jinv,
-                               Real<T> detJ, Real<T> vol, const SolidParams<Real<T>>& P,
-                               int nq, TR* r) {
-  using S = Real<T>;
-  (void)vol;
-  const S th = P.theta, one_m_th = P.one_m_theta, rho = P.rho;
-  const S zero = S(0);
-#pragma unroll
-  for (int k = 0; k < 64; ++k) r[k] = TR(zero);
+// The previous state's part of the solid's point flux: its first
+// Piola-Kirchhoff stress.
+template <class T0>
+struct SolidOld {
+  T0 Po[3][3];
+};
 
-  for (int q = 0; q < nq; ++q) {
-    S G[10][3];
-    basis_gradients(q, Jinv, G);
-
-    T d_q[3], v_q[3];
-    T0 d0_q[3], v0_q[3];
-    p2_value<S>(q, u, d_q);
-    p2_value<S>(q, u + 30, v_q);
-    p2_value<S>(q, u0, d0_q);
-    p2_value<S>(q, u0 + 30, v0_q);
-
-    T gd[3][3], Pn[3][3];
-    T0 gd0[3][3], Po[3][3];
-    p2_grad(u, G, gd);
-    p2_grad(u0, G, gd0);
-    piola1<MAT>(gd, P, Pn);
-    piola1<MAT>(gd0, P, Po);
-
-    T mom_val[3], kin[3];
+template <int MAT, class T0, class S>
+__device__ inline SolidOld<T0> solid_old(const T0* s0, const SolidParams<S>& P) {
+  SolidOld<T0> o;
+  T0 gd0[3][3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      mom_val[i] = P.rho_dt * (v_q[i] - v0_q[i]) - rho * P.g[i];
-      kin[i] = rho * ((d_q[i] - d0_q[i]) / P.dt - (th * v_q[i] + one_m_th * v0_q[i]));
-    }
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) gd0[i][j] = s0[slot(0, i, 1 + j)];
+  piola1<MAT>(gd0, P, o.Po);
+  return o;
+}
 
-    const S wdet = Tab<S>::wq(q) * detJ;
+// The solid's point fluxes: the kinematic row's value-test term on the d
+// rows, on the v rows the momentum's value-test term (mass, gravity) and
+// the theta-split first Piola-Kirchhoff stress on the gradients (the old
+// one o's).
+template <int MAT, class T, class T0>
+__device__ inline void solid_point_flux(const T* s, const T0* s0, const SolidOld<T0>& o,
+                                        const SolidParams<Real<T>>& P, T* f) {
+  const auto th = P.theta, one_m_th = P.one_m_theta, rho = P.rho;
+  T gd[3][3], Pn[3][3];
 #pragma unroll
-    for (int a = 0; a < 10; ++a) {
-      const S n = Tab<S>::N2(q * 10 + a);
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        T mgG = T(zero);
+    for (int j = 0; j < 3; ++j) gd[i][j] = s[slot(0, i, 1 + j)];
+  piola1<MAT>(gd, P, Pn);
 #pragma unroll
-        for (int j = 0; j < 3; ++j) mgG += (th * Pn[i][j] + one_m_th * Po[i][j]) * G[a][j];
-        r[a * 3 + i] += (wdet * n) * kin[i];
-        r[30 + a * 3 + i] += (wdet * n) * mom_val[i] + wdet * mgG;
-      }
-    }
+  for (int i = 0; i < 3; ++i) {
+    const T v = s[slot(1, i, 0)];
+    const T0 v0 = s0[slot(1, i, 0)];
+    f[slot(1, i, 0)] = P.rho_dt * (v - v0) - rho * P.g[i];
+    f[slot(0, i, 0)] = rho * ((s[slot(0, i, 0)] - s0[slot(0, i, 0)]) / P.dt
+                              - (th * v + one_m_th * v0));
+#pragma unroll
+    for (int j = 0; j < 3; ++j) f[slot(1, i, 1 + j)] = th * Pn[i][j] + one_m_th * o.Po[i][j];
   }
 }
 
 // ------------------------------------------------------------- cells --
-// The kernels' view of a block: its parameters, and eval_cell, which
-// runs the block's form on one cell (u: T, u0: T0, r: TR as above).
-// a fluid cell with the mesh lifting LIFT (kLiftLaplace, kLiftElastic,
-// kLiftNone)
+// The kernels' view of a block: its parameters, which slots its form
+// reads and writes, its point flux, and the terms it adds once a cell.
+// A fluid cell with the mesh lifting LIFT (kLiftLaplace, kLiftElastic,
+// kLiftNone): it reads d, grad d, v, grad v and p, and writes every flux
+// but the d rows' values (and their gradients without lifting).
 template <class S, int LIFT>
 struct FluidCell {
   FluidParams<S> p;
+  static constexpr bool p_state = true, p_flux = true;
+  __host__ __device__ static constexpr bool state_on(int, int) { return true; }
+  __host__ __device__ static constexpr bool flux_on(int Y, int b) {
+    return Y == 1 || (LIFT != kLiftNone && b > 0);
+  }
 };
-
-template <class T, class T0, class TR, int LIFT>
-__device__ inline void eval_cell(const FluidCell<Real<T>, LIFT>& C, const T* u,
-                                 const T0* u0, const Real<T>* Jinv, Real<T> detJ,
-                                 Real<T> vol, int nq, TR* r) {
-  fluid_residual<LIFT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
-}
 
 template <class S, int LIFT>
 inline FluidCell<S, LIFT> fluid_cell(double rho, double mu, double dt, double theta,
@@ -674,18 +777,42 @@ inline FluidCell<S, LIFT> fluid_cell(double rho, double mu, double dt, double th
       make_fluid_params<S>(rho, mu, dt, theta, lift_coeff, lift_sub, p_stab)};
 }
 
-// a solid cell of material MAT (kSVK or kMooneyRivlin)
+template <class S, int LIFT, class T0>
+__device__ inline FluidOld<T0> old_terms(const FluidCell<S, LIFT>& C, const T0* s0) {
+  return fluid_old(s0, C.p);
+}
+
+template <class S, int LIFT, class T, class T0>
+__device__ inline void point_flux(const FluidCell<S, LIFT>& C, const T* s, const T0* s0,
+                                  const FluidOld<T0>& o, S vol, T* f) {
+  fluid_point_flux<LIFT>(s, s0, o, vol, C.p, f);
+}
+
+// the pressure stabilization, once a cell: it reads only p and the geometry
+template <class S, int LIFT, class T, class TR>
+__device__ inline void cell_tail(const FluidCell<S, LIFT>& C, const S* Jinv, S vol, const T* u,
+                                 TR* r) {
+  if (C.p.p_stab == S(0)) return;
+  S G1[4][3];
+  const S c = pstab_setup(Jinv, vol, C.p, G1);
+  T gp[3];
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+    gp[l] = u[60] * G1[0][l] + u[61] * G1[1][l] + u[62] * G1[2][l] + u[63] * G1[3][l];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    r[60 + b] += c * (G1[b][0] * gp[0] + G1[b][1] * gp[1] + G1[b][2] * gp[2]);
+}
+
+// A solid cell of material MAT (kSVK or kMooneyRivlin): it reads d, grad d
+// and v, and writes the d rows' values and the v rows; its p rows are 0.
 template <class S, int MAT>
 struct SolidCell {
   SolidParams<S> p;
+  static constexpr bool p_state = false, p_flux = false;
+  __host__ __device__ static constexpr bool state_on(int X, int b) { return X == 0 || b == 0; }
+  __host__ __device__ static constexpr bool flux_on(int Y, int b) { return Y == 1 || b == 0; }
 };
-
-template <class T, class T0, class TR, int MAT>
-__device__ inline void eval_cell(const SolidCell<Real<T>, MAT>& C, const T* u,
-                                 const T0* u0, const Real<T>* Jinv, Real<T> detJ,
-                                 Real<T> vol, int nq, TR* r) {
-  solid_residual<MAT>(u, u0, Jinv, detJ, vol, C.p, nq, r);
-}
 
 template <class S, int MAT>
 inline SolidCell<S, MAT> solid_cell(double rho, double mu, double lam, double dt,
@@ -693,4 +820,56 @@ inline SolidCell<S, MAT> solid_cell(double rho, double mu, double lam, double dt
                                     double gx, double gy, double gz) {
   return SolidCell<S, MAT>{
       make_solid_params<S>(rho, mu, lam, dt, theta, C01, C10, C11, gx, gy, gz)};
+}
+
+template <class S, int MAT, class T0>
+__device__ inline SolidOld<T0> old_terms(const SolidCell<S, MAT>& C, const T0* s0) {
+  return solid_old<MAT>(s0, C.p);
+}
+
+template <class S, int MAT, class T, class T0>
+__device__ inline void point_flux(const SolidCell<S, MAT>& C, const T* s, const T0* s0,
+                                  const SolidOld<T0>& o, S, T* f) {
+  solid_point_flux<MAT>(s, s0, o, C.p, f);
+}
+
+template <class S, int MAT, class T, class TR>
+__device__ inline void cell_tail(const SolidCell<S, MAT>&, const S*, S, const T*, TR*) {}
+
+// One cell's residual r (64 entries, TR) from u (T) and u0 (T0): per point
+// the state, the form's flux and the test contraction, then the cell's
+// once-a-cell terms. Tb: ConstTab or GlobalTab (with Tb::sum_block points
+// summed apart before they join r).
+template <class Cell, class Tb, class T, class T0, class TR>
+__device__ void cell_residual(const Cell& C, const Tb& tb, const T* u, const T0* u0,
+                              const Real<T>* Jinv, Real<T> detJ, Real<T> vol, int nq, TR* r) {
+  using S = Real<T>;
+  constexpr int B = Tb::sum_block;
+#pragma unroll
+  for (int k = 0; k < 64; ++k) r[k] = TR(S(0));
+
+  for (int q0 = 0; q0 < nq; q0 += (B > 0 ? B : nq)) {
+    TR rb[B > 0 ? 64 : 1];
+    TR* acc = B > 0 ? rb : r;
+    if (B > 0) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k) acc[k] = TR(S(0));
+    }
+    const int q1 = B > 0 && q0 + B < nq ? q0 + B : nq;
+    for (int q = q0; q < q1; ++q) {
+      S G[10][3];
+      basis_gradients(tb, q, Jinv, G);
+      T s[kSlots], f[kSlots];
+      T0 s0[kSlots];
+      point_state<Cell>(tb, q, u, G, s);
+      point_state<Cell>(tb, q, u0, G, s0);
+      point_flux(C, s, s0, old_terms(C, s0), vol, f);
+      test_contract<Cell>(tb, q, G, tb.wq(q) * detJ, f, acc);
+    }
+    if (B > 0) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k) r[k] += rb[k];
+    }
+  }
+  cell_tail(C, Jinv, vol, u, r);
 }

@@ -23,8 +23,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vasp_tpu_torch"
 SOURCES = ("element_kernels.cu", "measures.cu", "matvec.cu", "ruiz.cu",
            "banded.cu", "facet_kernels.cu", "postproc.cu", "lifting.cu",
-           "ras.cu", "schwarz.cu", "nodeblock.cu", "delta_kernels.cu")
-HEADERS = ("element_forms.cuh",)
+           "ras.cu", "schwarz.cu", "nodeblock.cu", "delta_kernels.cu",
+           "element_global.cu", "delta_global.cu")
+HEADERS = ("element_forms.cuh", "element_residual.cuh", "delta_residual.cuh")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -135,11 +136,13 @@ def _bind(lib):
         "vt_element_nq_max": [],
         "vt_element_nq_max_f32": [],
         "vt_set_element_tables": [P, P, P, P, I],
-        "vt_fluid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I, I, D, P],
-        "vt_fluid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I, I, D, P],
-        "vt_solid_residual": [P] * 8 + [I, I, I, D, D, D, D, D, I] + [D] * 6
+        "vt_jacobian_chunk": [I, I],
+        "vt_jacobian_smem_bytes": [I, I],
+        "vt_fluid_residual": [P] * 9 + [I, I, I, D, D, D, D, D, I, I, D, P],
+        "vt_fluid_jacobian": [P] * 9 + [I] * 5 + [D] * 5 + [I, I, D, P],
+        "vt_solid_residual": [P] * 9 + [I, I, I, D, D, D, D, D, I] + [D] * 6
         + [P],
-        "vt_solid_jacobian": [P] * 8 + [I, I, I, D, D, D, D, D, I] + [D] * 6
+        "vt_solid_jacobian": [P] * 9 + [I] * 5 + [D] * 5 + [I] + [D] * 6
         + [P],
         "vt_dg0_project_speed": [P, P, P, P, I, D, P, I, P],
         "vt_integrate_p2_dot_n": [P, P, P, P, P, P, I, I, P, P],
@@ -172,8 +175,8 @@ def _bind(lib):
         "vt_node_block_apply": [P, P, L, L, L, P, P],
         "vt_delta_nq_max": [],
         "vt_set_delta_tables": [P, P, P, P, I],
-        "vt_fluid_delta": [P] * 10 + [I, I, I, D, D, D, D, D, I, I, D, P],
-        "vt_solid_delta": [P] * 10 + [I, I, I, D, D, D, D, D, I] + [D] * 6
+        "vt_fluid_delta": [P] * 11 + [I, I, I, D, D, D, D, D, I, I, D, P],
+        "vt_solid_delta": [P] * 11 + [I, I, I, D, D, D, D, D, I] + [D] * 6
         + [P],
     }
     for name, argtypes in sigs.items():

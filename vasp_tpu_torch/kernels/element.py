@@ -18,6 +18,18 @@ float32 (``dtype=torch.float32``), as vasp_tpu's CellBlock.residual_local
 with dtype=float32: U, U0, Jinv, detJ and vol rounded to float32, the
 tables too, float32 arithmetic, and the result scattered into a float64 R.
 
+The quadrature tables reach the kernels by two routes (``table_route``):
+the constant bank, where a rule fits it (K1/K2 up to 125 points in
+float64, 64 in float32; K13 up to 64), uploaded once per degree and
+device; or device memory, the packed tables of ``table_pack``, for every
+rule past that and for K3 at every degree. No degree is refused.
+
+K3 linearises the forms at the quadrature points (csrc/element_forms.cuh):
+per point the derivative of the point flux by the point state, by forward
+mode over the same flux function the residual runs, contracted with the
+basis (``jacobian_launch`` gives its block's chunk of points and shared
+memory).
+
 Jacobians come in float64 or float32 (``dtype``). vasp_tpu computes its
 float32 Jacobians by jax.jacfwd in float32 arithmetic on float32 inputs;
 the port computes them in float64 and rounds once on the write (the
@@ -56,6 +68,19 @@ _LIFTS = {"laplace": (0, ""), "biharmonic": (0, ""), "elastic": (1, "_elastic"),
 # source's constant memory on that device ("element": element_kernels.cu,
 # "delta": delta_kernels.cu)
 _uploaded_tables = {}
+# (degree, device index, "f64" or "f32") -> the packed tables in device
+# memory (table_pack)
+_device_tables = {}
+
+# the constant bank's capacity in quadrature points
+# (csrc/element_forms.cuh VT_NQ_MAX, VT_NQ_MAX_F32): the float64 tables of
+# K1/K2, the float32 ones of K1/K2 f32 and K13. A rule of more points is
+# read from device memory, as K3 reads every rule.
+NQ_CONSTANT = {"f64": 125, "f32": 64}
+# K3's block of threads, and the point quantities its tangents run over
+# (csrc/element_kernels.cu, element_forms.cuh n_states)
+JAC_THREADS = 256
+_JAC_STATES = {"fluid": 25, "solid": 15}
 
 
 def _residual_f32(dtype):
@@ -214,12 +239,50 @@ def counter_name(block, op, f32):
     return f"{kern.kind}_{op}{tag}" + ("_f32" if f32 else "")
 
 
-def _prepare(block, U, U0, source="element"):
-    """Validate the block's tensors, upload the quadrature tables into the
-    source's constant memory if the device holds another degree's there,
-    and return (lib, nq, stream). source "element" (K1-K3: float64 tables,
-    float32 ones up to VT_NQ_MAX_F32 points) or "delta" (K13: float32
-    tables only)."""
+def table_pack(tables_np, dtype=np.float64):
+    """The packed quadrature tables [wq | N1 | N2 | dN2] of a kernel's
+    tables_np (nq * 45 entries, csrc/element_forms.cuh GlobalTab), in
+    float64 or rounded once to float32."""
+    return np.concatenate([np.asarray(a, np.float64).reshape(-1)
+                           for a in tables_np]).astype(dtype)
+
+
+def table_route(nq, precision):
+    """Where the CUDA residuals read a rule of nq points in `precision`
+    ("f64": K1/K2; "f32": K1/K2 f32 and K13): "constant", the constant
+    bank, or "memory", device memory."""
+    return "constant" if nq <= NQ_CONSTANT[precision] else "memory"
+
+
+def jacobian_launch(kind, nq):
+    """(points a chunk, dynamic shared memory bytes) of K3's block on a rule
+    of nq points: as many points as the block has threads for one tangent
+    each (at most nq), and the buffers csrc/element_kernels.cu lays out
+    for them (u, u0, Jinv; per point the basis, N1 and w detJ, the two
+    states and D_q in rows of 26, the previous state's terms; at least the
+    64 x 64 staging of A_e), in doubles."""
+    qc = min(JAC_THREADS // _JAC_STATES[kind], nq)
+    return qc, 8 * (144 + max(qc * (40 + 8 + 2 * 26 + 20 + 25 * 26),
+                              64 * 64))
+
+
+def _device_index(dev):
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def device_tables(kern, dev, precision):
+    """The kernel's packed tables on `dev`, float64 ("f64") or float32
+    ("f32"), made once per degree and device."""
+    key = (kern.quad_degree, _device_index(dev), precision)
+    if key not in _device_tables:
+        dtype = np.float64 if precision == "f64" else np.float32
+        _device_tables[key] = torch.as_tensor(
+            table_pack(kern.tables_np, dtype), device=dev)
+    return _device_tables[key]
+
+
+def _prepare(block, U, U0):
+    """Validate the block's tensors; (lib, nq, stream)."""
     lib = build.library()
     dev, f64 = U.device, torch.float64
     K = block.dofs.shape[0]
@@ -231,24 +294,30 @@ def _prepare(block, U, U0, source="element"):
     build.require(block.vol, "vol", f64, (K,), dev)
     if block.rowmask is not None:
         build.require(block.rowmask, "rowmask", f64, (K, 64), dev)
+    return lib, len(block.kernel.tables_np[0]), build.stream_handle(dev)
+
+
+def _tables(block, dev, precision, source="element"):
+    """The tables argument of a residual launch (K1/K2, K13): None, the
+    constant bank, where the rule fits it (uploaded into the source's bank
+    first if the device holds another degree's there; source "element",
+    element_kernels.cu, or "delta", delta_kernels.cu), else the packed
+    tables in device memory."""
     kern = block.kernel
-    wq, N1, N2, dN2 = (np.ascontiguousarray(a, np.float64)
-                       for a in kern.tables_np)
-    nq = len(wq)
-    dev_index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if _uploaded_tables.get((source, dev_index)) != kern.quad_degree:
-        nq_max, upload = ((lib.vt_element_nq_max(), lib.vt_set_element_tables)
-                          if source == "element" else
-                          (lib.vt_delta_nq_max(), lib.vt_set_delta_tables))
-        if nq > nq_max:
-            raise NotImplementedError(
-                f"quadrature_degree={kern.quad_degree} has {nq} points; the "
-                f"CUDA {source} kernels hold at most {nq_max}")
+    if table_route(len(kern.tables_np[0]), precision) == "memory":
+        return device_tables(kern, dev, precision)
+    key = (source, _device_index(dev))
+    if _uploaded_tables.get(key) != kern.quad_degree:
+        lib = build.library()
+        wq, N1, N2, dN2 = (np.ascontiguousarray(a, np.float64)
+                           for a in kern.tables_np)
+        upload = (lib.vt_set_element_tables if source == "element"
+                  else lib.vt_set_delta_tables)
         with torch.cuda.device(dev):
             build.check(upload(wq.ctypes.data, N1.ctypes.data, N2.ctypes.data,
-                               dN2.ctypes.data, nq), f"{source} tables")
-        _uploaded_tables[(source, dev_index)] = kern.quad_degree
-    return lib, nq, build.stream_handle(dev)
+                               dN2.ctypes.data, len(wq)), f"{source} tables")
+        _uploaded_tables[key] = kern.quad_degree
+    return None
 
 
 def residual_cuda(block, U, U0, R, dtype=None):
@@ -256,16 +325,12 @@ def residual_cuda(block, U, U0, R, dtype=None):
     float64 instance, or its float32 one for dtype=torch.float32."""
     f32 = _residual_f32(dtype)
     lib, nq, stream = _prepare(block, U, U0)
-    if f32 and nq > lib.vt_element_nq_max_f32():
-        raise NotImplementedError(
-            f"quadrature_degree={block.kernel.quad_degree} has {nq} points; "
-            f"the float32 element residual holds at most "
-            f"{lib.vt_element_nq_max_f32()} (degree 7)")
     build.require(R, "R", torch.float64, U.shape, U.device)
+    tables = _tables(block, U.device, "f32" if f32 else "f64")
     kind = block.kernel.kind
     fn = lib.vt_fluid_residual if kind == "fluid" else lib.vt_solid_residual
     args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
-                                   block.vol, block.rowmask, R)]
+                                   block.vol, block.rowmask, tables, R)]
     params = cuda_params(block.kernel)
     name = counter_name(block, "residual", f32)
     build.check(fn(*args, int(f32), block.dofs.shape[0], nq, *params,
@@ -285,28 +350,32 @@ def jacobian_cuda(block, U, U0, dtype=torch.float64):
     kind = block.kernel.kind
     f32 = dtype == torch.float32
     fn = lib.vt_fluid_jacobian if kind == "fluid" else lib.vt_solid_jacobian
+    tables = device_tables(block.kernel, U.device, "f64")
     args = [build.ptr(t) for t in (U, U0, block.dofs, block.Jinv, block.detJ,
-                                   block.vol, block.rowmask, A)]
+                                   block.vol, block.rowmask, tables, A)]
     params = cuda_params(block.kernel)
     name = counter_name(block, "jacobian", f32)
-    build.check(fn(*args, int(f32), K, nq, *params, stream), name)
+    qc, smem = jacobian_launch(kind, nq)
+    build.check(fn(*args, int(f32), K, nq, qc, smem, *params, stream), name)
     build.LAUNCHES[name] += 1
     return A
 
 
 def _delta_launch(block, U, A, U0, U0new, R):
     """R += the block's K13 delta (delta2 where U0new is given)."""
-    lib, nq, stream = _prepare(block, U, U0, "delta")
+    lib, nq, stream = _prepare(block, U, U0)
     dev = U.device
     build.require(A, "A", torch.float64, U.shape, dev)
     build.require(R, "R", torch.float64, U.shape, dev)
     delta2 = U0new is not None
     if delta2:
         build.require(U0new, "U0new", torch.float64, U.shape, dev)
+    tables = _tables(block, dev, "f32", "delta")
     kind = block.kernel.kind
     fn = lib.vt_fluid_delta if kind == "fluid" else lib.vt_solid_delta
     args = [build.ptr(t) for t in (U, A, U0, U0new, block.dofs, block.Jinv,
-                                   block.detJ, block.vol, block.rowmask, R)]
+                                   block.detJ, block.vol, block.rowmask,
+                                   tables, R)]
     name = counter_name(block, "delta2" if delta2 else "delta", False)
     build.check(fn(*args, int(delta2), block.dofs.shape[0], nq,
                    *cuda_params(block.kernel), stream), name)
